@@ -2,9 +2,10 @@
 
 The port of the ``rlo_tpu`` device data plane (rootless broadcast, IAR
 consensus, allreduce / reduce-scatter / all-gather / all-to-all,
-barrier) from JAX on a TPU to PyTorch on an H100. The per-step combine
-of the reduction schedules is a CUDA kernel (``kernels/csrc/reduce.cu``)
-built with ``nvcc`` at first use.
+barrier) from JAX on a TPU to PyTorch on an H100, and of the flagship
+transformer's dense serving path (``models``: prefill, KV-cache decode,
+``generate`` and the continuous-batching ``DecodeServer``). Their
+kernels are CUDA (``kernels/csrc``), built with ``nvcc`` at first use.
 
     import rlo_tpu_torch
     with rlo_tpu_torch.init(backend="cuda", world_size=8) as b:

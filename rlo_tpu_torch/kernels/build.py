@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -84,11 +85,14 @@ def _build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it first if
-    needed. Thread-safe; raises KernelBuildError without nvcc."""
+    needed. Thread-safe, and different names build concurrently (one
+    ``nvcc`` each); raises KernelBuildError without nvcc."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _loaded:
             if not (CSRC / f"{name}.cu").is_file():
                 raise KernelBuildError(f"no kernel source csrc/{name}.cu")

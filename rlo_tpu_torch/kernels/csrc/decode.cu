@@ -1,0 +1,363 @@
+// K6, K7 and K8: decode attention against the dense KV cache, and the two
+// in-place cache writes.
+//
+// K6 replaces rlo_tpu/pallas/decode.py:_decode_kernel (behind
+// flash_block_decode and flash_decode). Cache (b, kvh, hd, L) seq-minor in
+// f32, bf16 or int8 (with f32 scales (b, kvh, L)); q (b, kvh, R, hd) with
+// R = T * r rows t-major (row t*r + rr is token t, group member rr, at
+// position pos_b + t), already rounded to the dot dtype by the wrapper; out
+// (b, kvh, R, hd) f32. Per cache tile of BK = 128 positions, as the TPU
+// kernel does per grid step:
+//   s    = (q . k) * scale, f32 accumulation of exact bf16 (or f32) products
+//   s   *= k_scale                                            (int8 only)
+//   s    = where(j <= pos + t && j < L, s, -1e30); v = 0 where j > pos + T - 1
+//   m'   = max(m, rowmax s);  p = where(mask, exp(s - m'), 0)
+//   l'   = l * exp(m - m') + rowsum p
+//   pv   = where(mask, p * v_scale, 0) (int8) else p, rounded to the dot dtype
+//   o'   = o * exp(m - m') + pv . v;      out = o / l
+// The tile partition is the same for every T (BK is fixed), so T = 1 and
+// T > 1 share one accumulation order; tiles wholly beyond pos + T - 1 are
+// skipped (they change neither m, l nor o). One block owns one (batch row,
+// kv head) and RT query rows and walks the live tiles: threads run along the
+// cache axis (coalesced reads of the seq-minor k rows), the V tile is staged
+// in shared memory for P.V. The TPU kernel's grid-per-tile and VMEM sizing
+// (_pick_bk, _block_fits_vmem) are not carried over.
+// Bound: bytes. Decode reads the live cache (k, v and the scales up to
+// pos + T) once and does ~4 flops per byte of bf16 cache, far below the
+// card's 295 flops/byte ridge: the least time is those bytes over 3.35 TB/s
+// (H100 SXM). The design reads each live byte once per RT-row tile; with
+// b * kvh blocks and no split of the cache axis across blocks, a small batch
+// leaves SMs idle (a split-K pass is later work).
+//
+// K7 replaces rlo_tpu/pallas/decode.py:_write_row_kernel (write_kv_row):
+// cache[b, :, :, pos_b] = row[b]. K8 replaces _write_block_kernel
+// (write_kv_block): cache[b, :, :, pos0_b + t] = rows[b, :, :, t], t < T.
+// Both write in place only the columns written; a position outside [0, L)
+// matches no column and its write is dropped, as on the TPU. pos is read on
+// the device: stride 0 (one shared position) or 1 (one per row). Bound: the
+// bytes written (plus the rows read); one thread per element, element size
+// 1, 2 or 4 bytes (the int8 scale sidecars ride as hd = 1, element size 4).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNeg = -1e30f;
+constexpr int BK = 128;       // cache tile = threads per block
+constexpr int kThreads = BK;
+constexpr int kWarps = kThreads / 32;
+constexpr int VP = BK + 1;    // padded V / P tile row
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int HD, int RT>
+constexpr size_t decode_smem() {
+  return sizeof(float) * ((size_t)RT * HD + (size_t)RT * VP + (size_t)HD * VP +
+                          2 * (size_t)RT * kWarps + 3 * (size_t)RT);
+}
+
+template <typename C, int HD, int RT, bool QUANT, bool BF16DOT>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
+              const C* __restrict__ vc, const float* __restrict__ ksc,
+              const float* __restrict__ vsc, const int* __restrict__ pos,
+              float* __restrict__ out, int R, int r, int T, int L,
+              int pos_stride, int nkv, float scale) {
+  constexpr int RG = kThreads / HD;             // row groups in the P.V phase
+  constexpr int NO = (RT + RG - 1) / RG;        // o accumulators per thread
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // RT x HD
+  float* p_s = q_s + RT * HD;         // RT x VP
+  float* v_s = p_s + RT * VP;         // HD x VP
+  float* red_m = v_s + HD * VP;       // RT x kWarps
+  float* red_l = red_m + RT * kWarps; // RT x kWarps
+  float* m_s = red_l + RT * kWarps;   // RT
+  float* l_s = m_s + RT;              // RT
+  float* c_s = l_s + RT;              // RT
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;                 // b * nkv + h
+  const int row0 = blockIdx.y * RT;
+  const int bi = bh / nkv;
+  const int p0 = pos[bi * pos_stride];
+  const size_t cbase = (size_t)bh * HD * L;
+  const C* kb = kc + cbase;
+  const C* vb = vc + cbase;
+  const float* ksb = QUANT ? ksc + (size_t)bh * L : nullptr;
+  const float* vsb = QUANT ? vsc + (size_t)bh * L : nullptr;
+
+  for (int i = tid; i < RT * HD; i += kThreads) {
+    int rr = i / HD, c = i % HD;
+    q_s[i] = row0 + rr < R ? q[((size_t)bh * R + row0 + rr) * HD + c] : 0.f;
+  }
+  if (tid < RT) {
+    m_s[tid] = kNeg;
+    l_s[tid] = 0.f;
+  }
+  float o[NO];
+#pragma unroll
+  for (int k = 0; k < NO; ++k) o[k] = 0.f;
+  const int oc = tid % HD, org = tid / HD;
+
+  // the last position any query of this tile attends; tiles past it skipped
+  long long last = (long long)p0 + T - 1;
+  int live_end = last + 1 < (long long)L ? (int)(last + 1) : L;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < live_end; k0 += BK) {
+    const int j = k0 + tid;
+    const bool in_range = j < L;
+    float acc[RT];
+#pragma unroll
+    for (int rr = 0; rr < RT; ++rr) acc[rr] = 0.f;
+    if (in_range) {
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) {
+        float kv = to_f(kb[(size_t)d * L + j]);
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) acc[rr] = fmaf(q_s[rr * HD + d], kv, acc[rr]);
+      }
+    }
+    const float ks = (QUANT && in_range) ? ksb[j] : 1.f;
+    bool mask[RT];
+#pragma unroll
+    for (int rr = 0; rr < RT; ++rr) {
+      int row = row0 + rr;
+      mask[rr] = in_range && row < R && (long long)j <= (long long)p0 + row / r;
+      float s = acc[rr] * scale;
+      if (QUANT) s = s * ks;
+      acc[rr] = mask[rr] ? s : kNeg;
+    }
+    // V tile, zeroed past the last attended position
+    const bool col_ok = in_range && (long long)j <= last;
+    for (int c = 0; c < HD; ++c)
+      v_s[c * VP + tid] = col_ok ? to_f(vb[(size_t)c * L + j]) : 0.f;
+
+    // row max over the tile
+#pragma unroll
+    for (int rr = 0; rr < RT; ++rr) {
+      float mx = acc[rr];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) red_m[rr * kWarps + warp] = mx;
+    }
+    __syncthreads();
+    if (tid < RT) {
+      float mx = red_m[tid * kWarps];
+      for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red_m[tid * kWarps + w]);
+      float m_old = m_s[tid];
+      float m_new = fmaxf(m_old, mx);
+      c_s[tid] = expf(m_old - m_new);
+      m_s[tid] = m_new;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < RT; ++rr) {
+      float p = mask[rr] ? expf(acc[rr] - m_s[rr]) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) red_l[rr * kWarps + warp] = sum;
+      float pv = p;
+      if (QUANT) pv = mask[rr] ? p * vsb[j] : 0.f;
+      if (BF16DOT) pv = round_bf16(pv);
+      p_s[rr * VP + tid] = pv;
+    }
+    __syncthreads();
+    if (tid < RT) {
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) sum += red_l[tid * kWarps + w];
+      l_s[tid] = l_s[tid] * c_s[tid] + sum;
+    }
+    // o = o * corr + pv . v
+#pragma unroll
+    for (int k = 0; k < NO; ++k) {
+      int rr = org + k * RG;
+      if (rr < RT) {
+        float dot = 0.f;
+        const float* pr = p_s + rr * VP;
+        const float* vr = v_s + oc * VP;
+#pragma unroll 8
+        for (int jj = 0; jj < BK; ++jj) dot = fmaf(pr[jj], vr[jj], dot);
+        o[k] = o[k] * c_s[rr] + dot;
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+    int rr = org + k * RG;
+    if (rr < RT && row0 + rr < R)
+      out[((size_t)bh * R + row0 + rr) * HD + oc] = o[k] / l_s[rr];
+  }
+}
+
+template <typename C, int HD, int RT, bool QUANT, bool BF16DOT>
+int launch_decode(const float* q, const void* k, const void* v, const float* ks,
+                  const float* vs, const int* pos, float* out, int b, int nkv,
+                  int R, int r, int T, int L, int pos_stride, float scale,
+                  cudaStream_t stream) {
+  auto kern = decode_kernel<C, HD, RT, QUANT, BF16DOT>;
+  constexpr size_t smem = decode_smem<HD, RT>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(b * nkv, (R + RT - 1) / RT);
+  kern<<<grid, kThreads, smem, stream>>>(
+      q, static_cast<const C*>(k), static_cast<const C*>(v), ks, vs, pos, out,
+      R, r, T, L, pos_stride, nkv, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename C, int HD, bool QUANT, bool BF16DOT>
+int dispatch_rt(const float* q, const void* k, const void* v, const float* ks,
+                const float* vs, const int* pos, float* out, int b, int nkv,
+                int R, int r, int T, int L, int ps, float scale,
+                cudaStream_t s) {
+  if (R <= 1)
+    return launch_decode<C, HD, 1, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+  if (R <= 2)
+    return launch_decode<C, HD, 2, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+  if (R <= 4)
+    return launch_decode<C, HD, 4, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+  return launch_decode<C, HD, 8, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+}
+
+template <typename C, bool QUANT, bool BF16DOT>
+int dispatch_hd(int HD, const float* q, const void* k, const void* v,
+                const float* ks, const float* vs, const int* pos, float* out,
+                int b, int nkv, int R, int r, int T, int L, int ps,
+                float scale, cudaStream_t s) {
+  switch (HD) {
+    case 16: return dispatch_rt<C, 16, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+    case 32: return dispatch_rt<C, 32, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+    case 64: return dispatch_rt<C, 64, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+    case 128: return dispatch_rt<C, 128, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+  }
+  return -1;
+}
+
+// K7 / K8 element copies, by element size
+template <typename E>
+__global__ void write_row_kernel(E* cache, const E* row, const int* pos, int b,
+                                 int inner, int L, int pos_stride) {
+  int64_t n = (int64_t)b * inner;
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    int bi = (int)(i / inner);
+    int p = pos[bi * pos_stride];
+    if (p >= 0 && p < L) cache[i * L + p] = row[i];
+  }
+}
+
+template <typename E>
+__global__ void write_block_kernel(E* cache, const E* rows, const int* pos,
+                                   int b, int inner, int T, int L,
+                                   int pos_stride) {
+  int64_t n = (int64_t)b * inner * T;
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    int t = (int)(i % T);
+    int64_t col = i / T;                 // (b, kvh, hd) index
+    int bi = (int)(col / inner);
+    long long p = (long long)pos[bi * pos_stride] + t;
+    if (p >= 0 && p < L) cache[col * L + p] = rows[i];
+  }
+}
+
+int grid_for(int64_t n) {
+  int64_t blocks = (n + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
+template <typename E>
+int launch_write_row(void* cache, const void* row, const int* pos, int b,
+                     int inner, int L, int ps, cudaStream_t s) {
+  write_row_kernel<E><<<grid_for((int64_t)b * inner), 256, 0, s>>>(
+      static_cast<E*>(cache), static_cast<const E*>(row), pos, b, inner, L, ps);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_write_block(void* cache, const void* rows, const int* pos, int b,
+                       int inner, int T, int L, int ps, cudaStream_t s) {
+  write_block_kernel<E><<<grid_for((int64_t)b * inner * T), 256, 0, s>>>(
+      static_cast<E*>(cache), static_cast<const E*>(rows), pos, b, inner, T, L,
+      ps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes. Each returns the cudaGetLastError()
+// code after its launch (0 = success), or -1 for a shape or type it does not
+// take; each launches on `stream`, does not synchronise and allocates nothing.
+
+// K6. cache_code 1 = f32, 2 = bf16, 3 = int8 (ks, vs required). q and out
+// (b, nkv, R, HD) f32; pos int32, one shared value (pos_per_row 0) or b.
+extern "C" int rlo_flash_decode(int cache_code, const void* q, const void* k,
+                                const void* v, const void* ks, const void* vs,
+                                const void* pos, void* out, int b, int nkv,
+                                int R, int r, int T, int HD, int L,
+                                int pos_per_row, float scale, void* stream) {
+  if (b <= 0 || nkv <= 0 || R <= 0) return 0;
+  if (r <= 0 || T <= 0 || R != T * r || L <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto fq = static_cast<const float*>(q);
+  auto fks = static_cast<const float*>(ks);
+  auto fvs = static_cast<const float*>(vs);
+  auto ip = static_cast<const int*>(pos);
+  auto fo = static_cast<float*>(out);
+  int ps = pos_per_row ? 1 : 0;
+  switch (cache_code) {
+    case 1: return dispatch_hd<float, false, false>(HD, fq, k, v, nullptr, nullptr, ip, fo, b, nkv, R, r, T, L, ps, scale, s);
+    case 2: return dispatch_hd<__nv_bfloat16, false, true>(HD, fq, k, v, nullptr, nullptr, ip, fo, b, nkv, R, r, T, L, ps, scale, s);
+    case 3:
+      if (!ks || !vs) return -1;
+      return dispatch_hd<int8_t, true, true>(HD, fq, k, v, fks, fvs, ip, fo, b, nkv, R, r, T, L, ps, scale, s);
+  }
+  return -1;
+}
+
+// K7. cache (b, inner, L), row (b, inner), inner = kvh * hd.
+extern "C" int rlo_write_kv_row(void* cache, const void* row, const void* pos,
+                                int b, int inner, int L, int elem_size,
+                                int pos_per_row, void* stream) {
+  if (b <= 0 || inner <= 0 || L <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto ip = static_cast<const int*>(pos);
+  int ps = pos_per_row ? 1 : 0;
+  switch (elem_size) {
+    case 1: return launch_write_row<uint8_t>(cache, row, ip, b, inner, L, ps, s);
+    case 2: return launch_write_row<uint16_t>(cache, row, ip, b, inner, L, ps, s);
+    case 4: return launch_write_row<uint32_t>(cache, row, ip, b, inner, L, ps, s);
+  }
+  return -1;
+}
+
+// K8. cache (b, inner, L), rows (b, inner, T).
+extern "C" int rlo_write_kv_block(void* cache, const void* rows,
+                                  const void* pos, int b, int inner, int T,
+                                  int L, int elem_size, int pos_per_row,
+                                  void* stream) {
+  if (b <= 0 || inner <= 0 || T <= 0 || L <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto ip = static_cast<const int*>(pos);
+  int ps = pos_per_row ? 1 : 0;
+  switch (elem_size) {
+    case 1: return launch_write_block<uint8_t>(cache, rows, ip, b, inner, T, L, ps, s);
+    case 2: return launch_write_block<uint16_t>(cache, rows, ip, b, inner, T, L, ps, s);
+    case 4: return launch_write_block<uint32_t>(cache, rows, ip, b, inner, T, L, ps, s);
+  }
+  return -1;
+}

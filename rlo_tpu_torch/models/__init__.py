@@ -1,0 +1,3 @@
+"""The flagship transformer and its serving path: ``transformer`` (the
+layer math), ``generate`` (KV-cache prefill, decode and generation) and
+``serve`` (the continuous-batching ``DecodeServer``)."""

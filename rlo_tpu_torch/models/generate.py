@@ -1,0 +1,353 @@
+"""KV-cache generation for the flagship transformer.
+
+The port of ``rlo_tpu/models/generate.py`` (dense mode): ``init_kv_cache``,
+``_quantize_kv``, ``_attend_cache``, ``_attend_cache_block``,
+``decode_step`` (scalar or ragged per-row positions), ``block_decode``,
+``prefill`` (with ``last_index`` for ragged prompts), ``prefill_scan``
+(the token-at-a-time oracle), ``generate``, ``_pick_token`` and
+``generate_timed`` (into the port's ``SERVING`` registry).
+
+The cache keeps the JAX package's layout: per layer a dict {"k", "v"}
+of (batch, kv_heads, head_dim, max_len), sequence-minor, in the
+activation dtype, or int8 with f32 scale sidecars "ks", "vs" of
+(batch, kv_heads, max_len) when ``cfg.kv_cache_dtype == "int8"``. There
+is no round-up of max_len to 128: that padding existed for the TPU's
+lanes.
+
+Where the JAX functions return a new cache, the port updates the cache
+it is given **in place** (and returns that same list): decode writes
+through K7 (``kernels.decode.write_kv_row``), block decode through K8
+(``write_kv_block``), and prefill copies the prompt block into
+positions [0, plen). Attention against the cache is K6
+(``flash_block_decode``); prefill attends its prompt block through K2
+(``models.transformer._local_attention``). On CPU tensors each kernel
+wrapper takes its plain twin; on the card they launch the kernels.
+
+Tensor- and expert-parallel decode and MoE layers belong to a later
+slice of the port (MoE configs raise ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from rlo_tpu_torch.kernels.decode import (MAX_BLOCK_T, flash_block_decode,
+                                          flash_decode, write_kv_block,
+                                          write_kv_row)
+from rlo_tpu_torch.models.transformer import (TransformerConfig,
+                                              _dense_only, _local_attention,
+                                              _rmsnorm, apply_layer,
+                                              cast_params, embed_tokens)
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  device=None):
+    """Zeroed per-layer K/V cache (distinct tensors per entry) on
+    ``device`` (None is the card)."""
+    from rlo_tpu_torch.parallel.mesh import resolve_device
+    dev = resolve_device(device)
+    shape = (batch, cfg.kv_heads, cfg.head_dim, max_len)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = (batch, cfg.kv_heads, max_len)
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "ks": torch.zeros(sshape, dtype=torch.float32, device=dev),
+                 "vs": torch.zeros(sshape, dtype=torch.float32, device=dev)}
+                for _ in range(cfg.n_layers)]
+    if cfg.kv_cache_dtype is not None:
+        raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}")
+    return [{"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.act_dtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def _quantize_kv(x):
+    """(..., head_dim) -> (int8 values, f32 scale over the last axis):
+    symmetric, scale = amax / 127. The division by 127 is a product
+    with its f32 reciprocal, as XLA compiles the JAX package's
+    ``/ 127.0`` inside jit, so both quantise to the same bytes."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-30) * (1.0 / 127.0)
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale
+
+
+def _pos_tensor(pos, device) -> torch.Tensor:
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32)
+    return torch.tensor(pos, dtype=torch.int32, device=device)
+
+
+def _attend_cache(q, k_cache, v_cache, pos, scale, k_scale=None,
+                  v_scale=None):
+    """q (b, 1, H, hd) against the cache prefix [0, pos] (pos scalar or
+    (b,)): K6 at T = 1. Returns (b, 1, H, hd) f32."""
+    return flash_decode(q, k_cache, v_cache, pos, scale, k_scale, v_scale)
+
+
+def _attend_cache_block(q, k_cache, v_cache, pos0, scale, k_scale=None,
+                        v_scale=None):
+    """q (b, T, H, hd), query t of row b at pos0_b + t attending cache
+    positions <= it (write-then-attend covers in-block causality): K6
+    with the same tile partition as T = 1. Returns f32."""
+    return flash_block_decode(q, k_cache, v_cache, pos0, scale, k_scale,
+                              v_scale)
+
+
+def _write_rows(lc, k_row, v_row, posv):
+    """One decode step's cache write (in place, K7); returns the scale
+    sidecars for the attend (None for unquantised caches)."""
+    if "ks" in lc:
+        k_row, ks_new = _quantize_kv(k_row)
+        v_row, vs_new = _quantize_kv(v_row)
+        # the sidecars ride the same kernel through the (b, kvh, 1, L)
+        # view of their (b, kvh, L) storage
+        write_kv_row(lc["ks"][:, :, None, :], ks_new[:, :, None], posv)
+        write_kv_row(lc["vs"][:, :, None, :], vs_new[:, :, None], posv)
+    write_kv_row(lc["k"], k_row, posv)
+    write_kv_row(lc["v"], v_row, posv)
+    return lc.get("ks"), lc.get("vs")
+
+
+def decode_step(params: dict, token, pos, cache, cfg: TransformerConfig):
+    """One token (b,) at position ``pos`` (int, 0-d or (b,) int32 tensor
+    on the params' device) through all layers with the cache. Returns
+    (logits (b, vocab) f32, cache), the cache updated in place.
+
+    A position at or beyond max_len writes nothing (K7 drops it), where
+    the JAX package's scalar-pos path clamps the write into the last
+    column; ``generate`` never reaches it (its max_len check), and the
+    serving loop's retired slots rely on the drop."""
+    _dense_only(cfg)
+    dt = cfg.act_dtype
+    dev = params["embed"].device
+    posv = _pos_tensor(pos, dev)
+    pos_arr = posv[:, None] if posv.dim() == 1 else posv[None]
+    x = embed_tokens(params["embed"], token[:, None], pos_arr, cfg)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    for layer, lc in zip(params["layers"], cache):
+        def attend(q, k, v, lc=lc):
+            ks, vs = _write_rows(lc, k[:, 0], v[:, 0], posv)
+            return _attend_cache(q, lc["k"], lc["v"], posv, scale,
+                                 k_scale=ks, v_scale=vs).to(dt)
+
+        x, _ = apply_layer(x, layer, cfg, attention=attend, pos=pos_arr)
+    x = _rmsnorm(x, params["ln_f"]["g"])
+    logits = (x[:, 0, :] @ params["embed"].t().to(dt)).float()
+    return logits, cache
+
+
+def _write_block(lc, kt, vt, pos0):
+    """A T-column cache write (in place, K8 in chunks of at most 128
+    columns); kt, vt (b, kvh, T, hd). Returns the scale sidecars."""
+    ks_new = vs_new = None
+    if "ks" in lc:  # quantise over head_dim before the seq-minor flip
+        kt, ks_new = _quantize_kv(kt)
+        vt, vs_new = _quantize_kv(vt)
+    kt, vt = kt.transpose(2, 3), vt.transpose(2, 3)   # (b, kvh, hd, T)
+    T = kt.shape[3]
+    for c0 in range(0, T, MAX_BLOCK_T):
+        c1 = min(T, c0 + MAX_BLOCK_T)
+        write_kv_block(lc["k"], kt[..., c0:c1], pos0 + c0)
+        write_kv_block(lc["v"], vt[..., c0:c1], pos0 + c0)
+        if ks_new is not None:
+            write_kv_block(lc["ks"][:, :, None, :],
+                           ks_new[:, :, None, c0:c1], pos0 + c0)
+            write_kv_block(lc["vs"][:, :, None, :],
+                           vs_new[:, :, None, c0:c1], pos0 + c0)
+    return lc.get("ks"), lc.get("vs")
+
+
+def block_decode(params: dict, tokens, pos0, cache,
+                 cfg: TransformerConfig):
+    """T tokens (b, T) through the cache in one forward, row b's token i
+    at pos0_b + i. Returns (logits (b, T, vocab) f32, cache), the cache
+    updated in place. Write-then-attend with per-(row, i) masks."""
+    _dense_only(cfg)
+    dt = cfg.act_dtype
+    dev = params["embed"].device
+    b, T = tokens.shape
+    pos0 = _pos_tensor(pos0, dev).reshape(-1).expand(b).contiguous()
+    pos_arr = pos0[:, None] + torch.arange(T, dtype=torch.int32,
+                                           device=dev)[None, :]
+    x = embed_tokens(params["embed"], tokens, pos_arr, cfg)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    for layer, lc in zip(params["layers"], cache):
+        def attend(q, k, v, lc=lc):
+            ks, vs = _write_block(lc, k.transpose(1, 2), v.transpose(1, 2),
+                                  pos0)
+            return _attend_cache_block(q, lc["k"], lc["v"], pos0, scale,
+                                       k_scale=ks, v_scale=vs).to(dt)
+
+        x, _ = apply_layer(x, layer, cfg, attention=attend, pos=pos_arr)
+    x = _rmsnorm(x, params["ln_f"]["g"])
+    logits = torch.einsum("btd,vd->btv", x,
+                          params["embed"].to(dt)).float()
+    return logits, cache
+
+
+def prefill(params: dict, tokens, cache, cfg: TransformerConfig,
+            last_index=None):
+    """Fill the cache with the whole prompt in one forward. Returns
+    (logits of the last prompt position, or of ``last_index`` (b,) per
+    row, cache) with positions [0, plen) of the cache written in place.
+    Causal attention over the prompt block runs through K2; int8 caches
+    attend the dequantised block (the values decode reads back)."""
+    _dense_only(cfg)
+    b, plen = tokens.shape
+    dt = cfg.act_dtype
+    dev = params["embed"].device
+    pos = torch.arange(plen, device=dev)
+    x = embed_tokens(params["embed"], tokens, pos, cfg)
+    for layer, lc in zip(params["layers"], cache):
+        if plen > lc["k"].shape[3]:
+            raise ValueError(f"prompt {plen} exceeds the cache's max_len "
+                             f"{lc['k'].shape[3]}")
+
+        def attend(q, k, v, lc=lc):
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # (b,kvh,plen,hd)
+            if "ks" in lc:
+                qk, ks = _quantize_kv(kt)
+                qv, vs = _quantize_kv(vt)
+                lc["k"][..., :plen].copy_(qk.transpose(2, 3))
+                lc["v"][..., :plen].copy_(qv.transpose(2, 3))
+                lc["ks"][..., :plen].copy_(ks)
+                lc["vs"][..., :plen].copy_(vs)
+                k = (qk.float() * ks[..., None]).transpose(1, 2).to(dt)
+                v = (qv.float() * vs[..., None]).transpose(1, 2).to(dt)
+            else:
+                lc["k"][..., :plen].copy_(kt.transpose(2, 3))
+                lc["v"][..., :plen].copy_(vt.transpose(2, 3))
+            return _local_attention(q, k, v).to(dt)
+
+        x, _ = apply_layer(x, layer, cfg, attention=attend, pos=pos)
+    x = _rmsnorm(x, params["ln_f"]["g"])
+    if last_index is None:
+        xl = x[:, -1, :]
+    else:
+        idx = _pos_tensor(last_index, dev).long()
+        xl = x[torch.arange(b, device=dev), idx]
+    logits = (xl @ params["embed"].t().to(dt)).float()
+    return logits, cache
+
+
+def prefill_scan(params: dict, tokens, cache, cfg: TransformerConfig):
+    """One-token-at-a-time prefill through ``decode_step``: the parity
+    oracle for ``prefill``."""
+    b, plen = tokens.shape
+    logits = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                         device=tokens.device)
+    for t in range(plen):
+        logits, cache = decode_step(params, tokens[:, t], t, cache, cfg)
+    return logits, cache
+
+
+def _pick_token(logits, generator: Optional[torch.Generator],
+                temperature: float):
+    if temperature == 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0] \
+        .to(torch.int32)
+
+
+def _generate_prefill(params, prompt, cfg, *, max_new, max_len,
+                      temperature, generator, prompt_lengths):
+    """generate()'s checks, cache and prefill: (logits, cache, pos0)."""
+    b, plen = prompt.shape
+    max_len = max_len or (plen + max_new)
+    if plen + max_new > max_len:
+        raise ValueError(f"prompt {plen} + max_new {max_new} exceeds "
+                         f"max_len {max_len}")
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a generator")
+    dev = params["embed"].device
+    prompt = prompt.to(dev)
+    cache = init_kv_cache(cfg, b, max_len, device=dev)
+    if prompt_lengths is None:
+        logits, cache = prefill(params, prompt, cache, cfg)
+        pos0 = torch.tensor(plen, dtype=torch.int32, device=dev)
+    else:
+        pos0 = _pos_tensor(prompt_lengths, dev).reshape(b)
+        logits, cache = prefill(params, prompt, cache, cfg,
+                                last_index=pos0 - 1)
+    return logits, cache, pos0
+
+
+def _generate_decode(params, logits, cache, pos, cfg, max_new,
+                     temperature, generator):
+    """generate()'s decode loop; the step after the last picked token
+    is not run (its logits would go unused)."""
+    toks = []
+    for i in range(max_new):
+        tok = _pick_token(logits, generator, temperature)
+        toks.append(tok)
+        if i + 1 < max_new:
+            logits, cache = decode_step(params, tok, pos, cache, cfg)
+            pos = pos + 1
+    if not toks:
+        return torch.zeros((logits.shape[0], 0), dtype=torch.int32,
+                           device=logits.device)
+    return torch.stack(toks, dim=1)
+
+
+def generate(params: dict, prompt, cfg: TransformerConfig, *,
+             max_new: int, max_len: Optional[int] = None,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             prompt_lengths=None):
+    """Continuation of ``prompt`` (b, plen): returns (b, max_new) int32
+    new tokens on the params' device. temperature 0 is greedy; > 0
+    samples from softmax(logits / T) with ``generator``.
+    ``prompt_lengths`` (b,) makes the prompts ragged: row i's prompt is
+    prompt[i, :prompt_lengths[i]] and continues from its own end."""
+    params = cast_params(params, cfg.act_dtype)
+    logits, cache, pos0 = _generate_prefill(
+        params, prompt, cfg, max_new=max_new, max_len=max_len,
+        temperature=temperature, generator=generator,
+        prompt_lengths=prompt_lengths)
+    return _generate_decode(params, logits, cache, pos0, cfg, max_new,
+                            temperature, generator)
+
+
+def generate_timed(params: dict, prompt, cfg: TransformerConfig, *,
+                   max_new: int, max_len: Optional[int] = None,
+                   temperature: float = 0.0,
+                   generator: Optional[torch.Generator] = None,
+                   prompt_lengths=None, metrics=None):
+    """``generate`` with serving telemetry: the same tokens, plus TTFT
+    (call -> first token on the host, ``serve.ttft_usec``), per-token
+    decode latency (``serve.tok_usec``) and ``serve.tokens_out``,
+    recorded into ``metrics`` (default the port's ``SERVING``
+    registry)."""
+    from rlo_tpu_torch.utils.metrics import SERVING
+    reg = SERVING if metrics is None else metrics
+    t0 = time.perf_counter()
+    params = cast_params(params, cfg.act_dtype)
+    logits, cache, pos0 = _generate_prefill(
+        params, prompt, cfg, max_new=max_new, max_len=max_len,
+        temperature=temperature, generator=generator,
+        prompt_lengths=prompt_lengths)
+    if max_new > 0:
+        first = _pick_token(logits, generator, temperature)
+        first.cpu()                     # the first token on the host
+        t1 = time.perf_counter()
+        reg.histogram("serve.ttft_usec").observe((t1 - t0) * 1e6)
+        toks = [first]
+        pos = pos0
+        for i in range(1, max_new):
+            logits, cache = decode_step(params, toks[-1], pos, cache, cfg)
+            pos = pos + 1
+            toks.append(_pick_token(logits, generator, temperature))
+        out = torch.stack(toks, dim=1)
+        out.cpu()
+        t2 = time.perf_counter()
+        reg.histogram("serve.tok_usec").observe((t2 - t1) * 1e6 / max_new)
+        reg.counter("serve.tokens_out").inc(int(out.shape[0]) * max_new)
+        return out
+    return torch.zeros((prompt.shape[0], 0), dtype=torch.int32,
+                       device=logits.device)

@@ -137,9 +137,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_is_listed():
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["reduce.cu"]
-    lib = build._lib_path("reduce")
-    assert lib.parent == build.BUILD_DIR and lib.name.startswith("libreduce-")
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
+        "decode.cu", "flash.cu", "reduce.cu"]
+    for name in ("reduce", "flash", "decode"):
+        lib = build._lib_path(name)
+        assert lib.parent == build.BUILD_DIR
+        assert lib.name.startswith(f"lib{name}-")
 
 
 @pytest.fixture
