@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port on one card: the rootless collectives and
-the dense serving path.
+"""Drive the PyTorch/H100 port on one card: the rootless collectives, the
+dense serving path and the paged serving path.
 
     python3 chip_smoke.py
 
@@ -27,16 +27,32 @@ Phases, each printing its own lines:
 4. K2 (flash forward), K6 (flash decode), K7 and K8 (cache writes)
    against their plain versions at the serving path's shapes, plus
    ragged edges, GQA group sizes 1/2/8 and int8 caches; K7 and K8 must
-   be bit-identical. Times each kernel, its plain version, its bound and
-   one PyTorch call that computes the same function.
+   be bit-identical. Then K9 (paged decode) at the paged decode shape
+   (289 permuted pages of 128), a prefill chunk, GQA group 4 and pages
+   of 256, and on pages holding a dense cache's columns, where it must
+   equal K6 bit for bit; K10 and K11 (page writes) bit-identical,
+   sentinels included. Times each kernel, its plain version, its bound
+   and one PyTorch call that computes the same function (K9: K6 on the
+   equivalent dense cache instead; no single call pages).
 5. Serving at full width (the flagship config, vocab 32768, d 1024, 16
    heads, 8 layers, d_ff 4096, bf16, random weights from the seed):
    ``generate_timed`` at batch 32 / plen 1024 / 64 new tokens, the same
    with an int8 cache and 16 new tokens, a GQA+RoPE config against the
    plain versions on the CPU, and a 32-request ``DecodeServer`` held
-   against each prompt's own ``generate``. K2, K6, K7 and K8's launch counts are set to 0
-   before this phase and read after it.
-6. One JSON line of kernel figures, then the last line
+   against each prompt's own ``generate``. K2, K6, K7 and K8's launch
+   counts are set to 0 before this phase and read after it.
+6. Paged serving at full width, same config: a batch-32 / 1024-token
+   prefill copied into 289 permuted pages, then 64 teacher-forced steps
+   of ``paged_decode_step`` beside ``decode_step`` (tokens equal at every
+   step); a paged ``DecodeServer`` (8 slots, pages of 128, prefill budget
+   256) with 32 requests sharing a 256-token prefix or repeating a
+   prompt, held against each request's own paged reference (its prompt
+   in the same page-aligned prefill chunks, decode in batches of 8) and,
+   partings at near-ties only, against each prompt's own ``generate``;
+   with prefix hits, a copy-on-write and a leak-free pool. K2 and K6-K11's launch
+   counts are set to 0 just before the server run and read just after:
+   K9-K11 must have run, K2 and K6-K8 not.
+7. One JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is non-zero and no result line
@@ -68,6 +84,9 @@ SERVE_CFG = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8,
 #: the GQA+RoPE config of benchmarks/tpu_parity_check.py:59-63
 GQA_CFG = dict(vocab=4096, d_model=512, n_heads=8, n_layers=4, d_ff=1024,
                dtype="bfloat16", n_kv_heads=2, pos_encoding="rope")
+#: phase 6: the teacher-forced paged-vs-dense decode and the shared prefix
+PAGED_TF = dict(batch=32, plen=1024, steps=64)
+PAGED_PREFIX = 256
 #: a top-2 logit gap under this is a near-tie: greedy tokens may part there
 NEAR_TIE = 1e-2
 #: ... or under this many units in the last place of the top logit, for
@@ -639,9 +658,265 @@ def phase_writes(dev) -> dict:
     return out
 
 
+def _live_bytes(pos, T, L, nkv, hd, esize, quant) -> int:
+    """Bytes of k, v (and the int8 scales) a decode attention must read:
+    positions [0, min(pos_b + T, L)) of every row, each once."""
+    live = int((pos.long() + T).clamp(0, L).sum())
+    return live * nkv * (2 * hd * esize + (8 if quant else 0))
+
+
+def phase_k9(dev) -> dict:
+    """K9 at the paged decode shape (batch 32 x 16 kv heads x hd 64,
+    pages of 128 over 9 logical pages, 289 pages with a seeded
+    permutation as the table, positions spread over 0..1087, T 1; bf16
+    and int8 pools), a prefill chunk (batch 1, T 128), GQA group 4 and
+    pages of 256, each against its plain version at K6's tolerance (rtol
+    1e-3 / atol 2e-3: shared tile partition and bf16 roundings, another
+    f32 summation order). Then K9 on pages holding a dense cache's
+    columns against K6 on that cache: equal bit for bit. Times K9, its
+    plain version and K6 on the equivalent dense cache (the yardstick of
+    the indirection's cost); no single PyTorch call computes paged
+    attention, so there is no library figure."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import paged as PG
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    L = 1088
+
+    def pools(P, nkv, ps, kind):
+        k = torch.randn(P, nkv, 64, ps, generator=gen, device=dev)
+        v = torch.randn(P, nkv, 64, ps, generator=gen, device=dev)
+        if kind == "int8":
+            (k, ks), (v, vs) = _int8_cache(k), _int8_cache(v)
+            return k, v, ks, vs
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        return k.to(dt), v.to(dt), None, None
+
+    def table_of(b, mp, P):
+        perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+        return perm[:b * mp].to(torch.int32).reshape(b, mp).contiguous()
+
+    def spread(b, T, hi):
+        pos = torch.randint(0, hi - T + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[0], pos[-1] = 0, hi - T
+        return pos
+
+    worst, n = 0.0, 0
+    # (label, b, nh, kvh, ps, mp, T, kinds)
+    cases = [("decode", 32, 16, 16, 128, 9, 1, ("bf16", "int8", "f32")),
+             ("decode T=4", 32, 16, 16, 128, 9, 4, ("bf16", "int8")),
+             ("prefill chunk", 1, 16, 16, 128, 9, 128, ("bf16", "int8")),
+             ("GQA group 4", 8, 16, 4, 128, 9, 4, ("bf16", "int8")),
+             ("pages of 256", 32, 16, 16, 256, 5, 1, ("bf16", "int8"))]
+    for label, b, nh, nkv, ps, mp, T, kinds in cases:
+        P = b * mp + 1
+        table = table_of(b, mp, P)
+        table[b // 2, mp // 2:] = 0           # unmapped tail: null page
+        for kind in kinds:
+            k, v, ks, vs = pools(P, nkv, ps, kind)
+            q = torch.randn(b, T, nh, 64, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            pos = spread(b, T, min(L, mp * ps))
+            pos[b // 2] = min(pos[b // 2], (mp // 2) * ps - T)
+            got = kd.paged_flash_decode(q, k, v, table, pos, 0.125, ks, vs)
+            want = kd.paged_flash_decode_plain(q, k, v, table, pos, 0.125,
+                                               ks, vs)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()) and bool(
+                torch.allclose(got, want, rtol=1e-3, atol=2e-3)),
+                f"K9 {label} {kind} differs from its plain version")
+            worst = max(worst, abs_err(got, want))
+            n += 1
+    print(f"[k9] {n} cases (decode b 32 x 16 kv heads x hd 64 over 289 "
+          f"permuted pages of 128, T 1/4; a prefill chunk b 1 x T 128; GQA "
+          f"group 4; pages of 256; bf16/int8/f32 pools, null-page tails) "
+          f"within rtol 1e-3 / atol 2e-3 of the plain version; max |err| "
+          f"{worst:.3g}")
+
+    # K9 on pages that hold a dense cache's columns == K6 on that cache
+    out = {}
+    b, nkv, ps, mp = 32, 16, 128, 9
+    P = b * mp + 1
+    table = table_of(b, mp, P)
+    pos = spread(b, 1, L)
+    same = {}
+    for kind in ("bf16", "int8"):
+        kc = torch.randn(b, nkv, 64, L, generator=gen, device=dev)
+        vc = torch.randn(b, nkv, 64, L, generator=gen, device=dev)
+        if kind == "int8":
+            (kc, ksc), (vc, vsc) = _int8_cache(kc), _int8_cache(vc)
+        else:
+            kc, vc, ksc, vsc = kc.to(torch.bfloat16), vc.to(torch.bfloat16), \
+                None, None
+        dense = {"k": kc, "v": vc} | ({} if ksc is None else
+                                      {"ks": ksc, "vs": vsc})
+        paged = PG.pages_from_dense([dense], table, P, ps)[0]
+        q = torch.randn(b, 1, 16, 64, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k9 = kd.paged_flash_decode(q, paged["k"], paged["v"], table, pos,
+                                   0.125, paged.get("ks"), paged.get("vs"))
+        k6 = kd.flash_block_decode(q, kc, vc, pos, 0.125, ksc, vsc)
+        torch.cuda.synchronize()
+        same[kind] = abs_err(k9, k6)
+        check(torch.equal(k9, k6), f"K9 on pages holding the dense cache's "
+                                   f"columns differs from K6 ({kind}): max "
+                                   f"|err| {same[kind]}")
+        k9_fn = lambda: kd.paged_flash_decode(  # noqa: E731
+            q, paged["k"], paged["v"], table, pos, 0.125, paged.get("ks"),
+            paged.get("vs"))
+        k6_fn = lambda: kd.flash_block_decode(  # noqa: E731
+            q, kc, vc, pos, 0.125, ksc, vsc)
+        # in turns (K9, K6, K6, K9), so neither gains from going second
+        t = [time_ms(fn) for fn in (k9_fn, k6_fn, k6_fn, k9_fn)]
+        kern, dense_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        plain = time_ms(lambda: kd.paged_flash_decode_plain(
+            q, paged["k"], paged["v"], table, pos, 0.125, paged.get("ks"),
+            paged.get("vs")), iters=5)
+        nbytes = (_live_bytes(pos, 1, L, nkv, 64, kc.element_size(),
+                              ksc is not None)
+                  + table.numel() * 4 + pos.numel() * 4
+                  + q.numel() * 2 + q.numel() * 4)
+        bound = nbytes / PEAK_HBM_BYTES_S * 1e3
+        out[kind] = dict(ms=kern, plain_ms=plain, library_ms=None,
+                         bound_ms=bound, bound_by="bytes", k6_ms=dense_ms)
+        extra = 100 * (kern / dense_ms - 1)
+        print(f"[k9] T=1 batch 32 x 16 kv heads, 289 pages of 128, ragged "
+              f"pos {kind} pools: kernel {kern:.4f} ms, K6 on the same "
+              f"columns dense {dense_ms:.4f} ms ({extra:+.1f} %), plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes} B live cache + table + q + out / 3.35 TB/s), "
+              f"kernel at {100 * bound / kern:.1f}% of bound; max |K9 - K6| "
+              f"{same[kind]}")
+    out["bf16"]["max_abs_err"] = worst
+    out["bf16"]["k6_equal_max_abs_err"] = max(same.values())
+    return out
+
+
+def phase_page_writes(dev) -> dict:
+    """K10 and K11 bit-identical to their plain versions, the drop
+    sentinels included (off = ps, a negative off, pads past n_valid, a
+    page past the pool), on bf16/int8/f32 pools and the f32 scale pools'
+    (P, kvh, 1, ps) view; then their times at the serving path's
+    shapes."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    P, b, ps = 289, 32, 128
+    n = 0
+
+    def same(fn_k, fn_p, pool, what):
+        nonlocal n
+        a, c = pool.clone(), pool.clone()
+        fn_k(a)
+        fn_p(c)
+        torch.cuda.synchronize()
+        check(same_bits(a, c), f"{what} is not bit-identical to its plain "
+                               f"version")
+        n += 1
+
+    page = (torch.randperm(P - 1, generator=gen, device=dev)[:b] + 1) \
+        .to(torch.int32)
+    page[5] = P + 7                           # past the pool: clamped
+    off = torch.randint(0, ps, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    off[:3] = torch.tensor([ps, -1, ps - 1], device=dev)
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        for shape in ((P, 16, 64, ps), (P, 16, 1, ps)):   # + scale pools
+            if dtype == torch.int8:
+                pool = torch.randint(-127, 128, shape, generator=gen,
+                                     device=dev, dtype=torch.int8)
+            else:
+                pool = torch.randn(shape, generator=gen,
+                                   device=dev).to(dtype)
+            row = pool[:b, ..., 7].clone() + (1 if dtype == torch.int8
+                                              else 0.5)
+            rows = pool[9, ..., :].clone() + 1
+            same(lambda t: kd.write_kv_page_row(t, row, page, off),
+                 lambda t: kd.write_kv_page_row_plain(t, row, page, off),
+                 pool, f"K10 {dtype} {shape}")
+            for pg, o0, nv, T in ((3, 0, ps, ps), (4, 100, 28, ps),
+                                  (5, 0, 5, ps), (P + 3, 64, 64, 64),
+                                  (6, -3, 10, 32), (7, ps - 8, 16, 16)):
+                same(lambda t: kd.write_kv_page_block(t, rows[..., :T], pg,
+                                                      o0, nv),
+                     lambda t: kd.write_kv_page_block_plain(
+                         t, rows[..., :T], pg, o0, nv),
+                     pool, f"K11 {dtype} {shape} page {pg} off0 {o0} "
+                           f"n_valid {nv} T {T}")
+    print(f"[k10/k11] {n} cases (bf16/int8/f32 pools of 289 pages x 16 kv "
+          f"heads x 64 x 128 and f32 scale pools; off = ps, -1, a page past "
+          f"the pool; chunks with pads, at the page edge, from a negative "
+          f"start) bit-identical to the plain versions")
+
+    out = {}
+    pool = torch.randn(P, 16, 64, ps, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    row = torch.randn(b, 16, 64, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    page = (torch.randperm(P - 1, generator=gen, device=dev)[:b] + 1) \
+        .to(torch.int32)
+    off = torch.randint(0, ps, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pidx, oidx = page.long(), off.long()
+
+    def lib_row():
+        pool[pidx, :, :, oidx] = row
+
+    out["K10"] = dict(
+        ms=time_ms(lambda: kd.write_kv_page_row(pool, row, page, off)),
+        plain_ms=time_ms(lambda: kd.write_kv_page_row_plain(pool, row, page,
+                                                            off)),
+        library_ms=time_ms(lib_row),
+        bound_ms=(2 * row.numel() * 2 + 2 * b * 4) / PEAK_HBM_BYTES_S * 1e3,
+        bound_by="bytes")
+    rows = torch.randn(16, 64, ps, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    pg, o0, nv = (torch.tensor([x], dtype=torch.int32, device=dev)
+                  for x in (17, 0, ps))
+
+    def lib_block():
+        pool[17, :, :, 0:ps] = rows
+
+    out["K11"] = dict(
+        ms=time_ms(lambda: kd.write_kv_page_block(pool, rows, pg, o0, nv)),
+        plain_ms=time_ms(lambda: kd.write_kv_page_block_plain(pool, rows, pg,
+                                                              o0, nv)),
+        library_ms=time_ms(lib_block),
+        bound_ms=(2 * rows.numel() * 2 + 12) / PEAK_HBM_BYTES_S * 1e3,
+        bound_by="bytes")
+    for name, shape, st in (("K10", "rows (32, 16, 64) into 289 pages of "
+                                    "(16, 64, 128)", out["K10"]),
+                            ("K11", "chunk (16, 64, 128) into one page",
+                             out["K11"])):
+        print(f"[{name.lower()}] bf16 {shape}: kernel {st['ms']:.4f} ms, "
+              f"plain {st['plain_ms']:.4f} ms, indexed assignment "
+              f"{st['library_ms']:.4f} ms, bound {st['bound_ms']:.6f} ms "
+              f"(rows read + bytes written / 3.35 TB/s)")
+        st["max_abs_err"] = 0.0
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: serving at full width
 # ---------------------------------------------------------------------------
+
+def top2_gap(logits, cfg):
+    """Each row's top-2 logit gap; for bf16 configs rescaled so that
+    ``NEAR_TIE`` stands for the larger of 1e-2 and ``NEAR_TIE_ULPS`` bf16
+    ulps of the top logit (the logits' own resolution)."""
+    import torch
+    top = torch.topk(logits, 2, dim=-1).values
+    gap = top[:, 0] - top[:, 1]
+    if cfg.act_dtype == torch.bfloat16:
+        # bf16 logits: a gap of a few ulps is as close as they get
+        ulp = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
+        gap = gap * (NEAR_TIE / torch.maximum(
+            torch.full_like(ulp, NEAR_TIE), NEAR_TIE_ULPS * ulp))
+    return gap
+
 
 def greedy_with_gaps(params, prompt, cfg, max_new, prompt_lengths=None):
     """Greedy generation through the port's prefill/decode_step (the loop
@@ -668,14 +943,7 @@ def greedy_with_gaps(params, prompt, cfg, max_new, prompt_lengths=None):
                               last_index=pos - 1)
     toks, gaps = [], []
     for i in range(max_new):
-        top = torch.topk(logits, 2, dim=-1).values
-        gap = top[:, 0] - top[:, 1]
-        if cfg.act_dtype == torch.bfloat16:
-            # bf16 logits: a gap of a few ulps is as close as they get
-            ulp = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
-            gap = gap * (NEAR_TIE / torch.maximum(
-                torch.full_like(ulp, NEAR_TIE), NEAR_TIE_ULPS * ulp))
-        gaps.append(gap)
+        gaps.append(top2_gap(logits, cfg))
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(tok)
         if i + 1 < max_new:
@@ -836,6 +1104,250 @@ def phase_serving(dev) -> dict:
     return out
 
 
+def paged_requests(vocab: int, rng):
+    """The paged server's 32 requests: 16 share a 256-token prefix (a
+    16-96-token suffix), 12 are unrelated (32-400 tokens), 4 repeat an
+    earlier short prompt exactly, queued after position 8 so that the
+    original's pages are in the trie when they are admitted; max_new
+    16-128. Returns [(prompt, max_new, kind)]."""
+    import numpy as np
+    prefix = rng.integers(0, vocab, PAGED_PREFIX)
+
+    def shared():
+        suffix = rng.integers(0, vocab, int(rng.integers(16, 97)))
+        return np.concatenate([prefix, suffix]), "shared"
+
+    def unrelated(hi):
+        return rng.integers(0, vocab, int(rng.integers(32, hi + 1))), \
+            "unrelated"
+
+    kinds = []
+    for i in range(8):     # the first pass: short unrelated ones prefill
+        kinds.append(shared() if i % 2 == 0 else unrelated(200))  # at once
+    dups = iter([1, 3, 5, 7])
+    n_shared, n_unrel = 4, 4
+    for i in range(8, 32):
+        if i in (8, 13, 18, 23):
+            kinds.append((kinds[next(dups)][0].copy(), "duplicate"))
+        elif n_shared < 16 and (i % 2 == 0 or n_unrel >= 12):
+            kinds.append(shared())
+            n_shared += 1
+        else:
+            kinds.append(unrelated(400))
+            n_unrel += 1
+    return [(p, int(rng.integers(16, 129)), k) for p, k in kinds]
+
+
+def paged_reference(params, cfg, reqs, ps, group):
+    """Each request alone through the paged path: its prompt in the
+    page-aligned chunks the server prefills (``paged_prefill_chunk``, one
+    request at a time), then greedy ``paged_decode_step``s in batches of
+    ``group`` rows (the server's decode batch, so its matrix products
+    keep their shapes). Returns per request (tokens, top-2 gaps)."""
+    import numpy as np
+    import torch
+    from rlo_tpu_torch.models import paged as PG
+    dev = params["embed"].device
+    out = []
+    for g0 in range(0, len(reqs), group):
+        rows = reqs[g0:g0 + group]
+        need = [-(-(len(p) + m) // ps) for p, m, _ in rows]
+        pools = PG.init_page_pool(cfg, sum(need) + 1, ps, device=dev)
+        table = np.zeros((len(rows), max(need)), np.int32)
+        nxt = 1
+        for i, n in enumerate(need):
+            table[i, :n] = np.arange(nxt, nxt + n)
+            nxt += n
+        table = torch.as_tensor(table, device=dev)
+        firsts = []
+        for i, (p, _, _) in enumerate(rows):
+            for a in range(0, len(p), ps):
+                n = min(ps, len(p) - a)
+                toks = np.zeros((1, ps), np.int32)
+                toks[0, :n] = p[a:a + n]
+                logits, _ = PG.paged_prefill_chunk(
+                    params, torch.as_tensor(toks, device=dev), a, n, pools,
+                    table[i:i + 1], cfg)
+            firsts.append(logits)
+        logits = torch.cat(firsts)
+        budget = torch.as_tensor([m for _, m, _ in rows], device=dev)
+        pos = torch.as_tensor([len(p) for p, _, _ in rows], device=dev,
+                              dtype=torch.int32)
+        toks, gaps = [], []
+        for step in range(int(budget.max())):
+            gaps.append(top2_gap(logits, cfg))
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+            active = step + 1 < budget
+            if bool(active.any()):
+                logits, _ = PG.paged_decode_step(params, tok, pos, pools,
+                                                 table, active, cfg)
+                pos = pos + active.to(torch.int32)
+        toks = torch.stack(toks, 1).cpu().numpy()
+        gaps = torch.stack(gaps, 1).float().cpu().numpy()
+        out += [(toks[i, :m], gaps[i, :m])
+                for i, (_, m, _) in enumerate(rows)]
+    return out
+
+
+def phase_paged_serving(dev, counted) -> dict:
+    """Paged serving at full width on the flagship config: (a) a batch-32
+    prefill of 1024 tokens into a dense cache, its columns copied into
+    289 permuted pages, then 64 teacher-forced steps of
+    ``paged_decode_step`` beside ``decode_step`` (greedy tokens equal at
+    every position); (b) a paged ``DecodeServer`` with 32 requests that
+    share prefixes and repeat prompts, held against each request's own
+    paged reference (at least 24 of 32 to the end) and against each
+    prompt's own ``generate``, partings only at near-ties. ``counted`` kernels' launch
+    counts are set to 0 just before the server run and read just after
+    it."""
+    import numpy as np
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import generate as G
+    from rlo_tpu_torch.models import paged as PG
+    from rlo_tpu_torch.models import serve as S
+    from rlo_tpu_torch.models.transformer import (TransformerConfig,
+                                                  cast_params, init_params)
+    from rlo_tpu_torch.utils.metrics import Registry
+
+    out = {}
+    cfg = TransformerConfig(**SERVE_CFG)
+    params = cast_params(init_params(cfg, seed=SEED, device=dev),
+                         cfg.act_dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, plen, steps, ps = PAGED_TF["batch"], PAGED_TF["plen"], \
+        PAGED_TF["steps"], 128
+    L = plen + steps
+    mp = -(-L // ps)
+    P = b * mp + 1
+    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cache = G.init_kv_cache(cfg, b, L, device=dev)
+    logits, _ = G.prefill(params, prompt, cache, cfg)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[:b * mp] + 1) \
+        .to(torch.int32).reshape(b, mp).contiguous()
+    pools = PG.pages_from_dense(cache, table, P, ps)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    pos = torch.full((b,), plen, dtype=torch.int32, device=dev)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    dense_ms, paged_ms, dmax = [], [], 0.0
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dl, _ = G.decode_step(params, tok, pos, cache, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pl, _ = PG.paged_decode_step(params, tok, pos, pools, table, active,
+                                     cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dense_ms.append((t1 - t0) * 1e3)
+        paged_ms.append((t2 - t1) * 1e3)
+        dtok = torch.argmax(dl, dim=-1).to(torch.int32)
+        check(torch.equal(dtok, torch.argmax(pl, dim=-1).to(torch.int32)),
+              f"paged and dense greedy tokens differ at step {i}")
+        dmax = max(dmax, abs_err(pl, dl))
+        tok, pos = dtok, pos + 1
+    out["teacher_forced"] = dict(
+        steps=steps, max_abs_logit_diff=dmax,
+        dense_ms_per_step=statistics.median(dense_ms),
+        paged_ms_per_step=statistics.median(paged_ms))
+    print(f"[paged] teacher-forced batch {b}, plen {plen}, {steps} steps, "
+          f"{P} pages of {ps} (permuted): greedy tokens equal at every step, "
+          f"max |paged - dense logit| {dmax}; median step dense "
+          f"{out['teacher_forced']['dense_ms_per_step']:.3f} ms, paged "
+          f"{out['teacher_forced']['paged_ms_per_step']:.3f} ms")
+    del cache, pools
+
+    rng = np.random.default_rng(SEED + 1)
+    reqs = paged_requests(cfg.vocab, rng)
+    reg = Registry()
+    srv = S.DecodeServer(params, cfg, n_slots=8, max_len=640, round_len=32,
+                         paged=True, page_size=ps, prefill_budget=256,
+                         metrics=reg)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for p, m, _ in reqs:
+        srv.submit(p, m)
+    outs = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for fn in (kd.paged_flash_decode, kd.write_kv_page_row,
+               kd.write_kv_page_block):
+        check(launches[fn.__name__] > 0,
+              f"{fn.__name__} was not launched by the paged server")
+    for name, nl in launches.items():
+        if name not in ("paged_flash_decode", "write_kv_page_row",
+                        "write_kv_page_block"):
+            check(nl == 0, f"{name} was launched {nl} times by the paged "
+                           f"server (it runs only K9-K11)")
+    check([len(o) for o in outs] == [m for _, m, _ in reqs],
+          "the paged server returned the wrong number of tokens")
+    check(srv.allocator.pages_in_use == srv.trie.entries,
+          f"page leak: {srv.allocator.pages_in_use} pages in use, "
+          f"{srv.trie.entries} held by the trie")
+    check(all(not bool(t[0].any()) for e in srv.pools for t in e.values()),
+          "the null page was written")
+    st = srv.stats()
+    c = st["counters"]
+    check(c.get("serve.cow_copies", 0) >= 1, "no copy-on-write was taken")
+    check(c.get("serve.prefix_hits", 0) > 0, "no prefix hit was taken")
+    # the oracle: each request alone through the same paged prefill
+    # chunks and paged decode (K9 attends prefill chunks with p rounded to
+    # bf16 before P.V, where generate's prefill through K2 keeps it f32)
+    compared = []
+    for i, (want, g) in enumerate(paged_reference(params, cfg, reqs, ps, 8)):
+        upto, done = compare_until_near_tie(outs[i], want, g)
+        compared.append(done)
+        if not done:
+            print(f"[paged] request {i} ({reqs[i][2]}): tokens part from "
+                  f"the paged reference at position {upto} of {reqs[i][1]}, "
+                  f"a near-tie (scaled top-2 gap {g[upto]:.4g})")
+    full = sum(compared)
+    check(full >= 24, f"only {full} of 32 paged requests compared to the "
+                      f"end")
+    # and against each prompt's own dense generate: every parting at a
+    # near-tie
+    gen_full = 0
+    for i, (p, m, _) in enumerate(reqs):
+        want, g = greedy_with_gaps(
+            params, torch.as_tensor(p[None].astype(np.int32), device=dev),
+            cfg, m)
+        gen_full += compare_until_near_tie(outs[i], want[0], g[0])[1]
+    ntok = sum(len(o) for o in outs)
+    hs = st["histograms"]
+    summary = {k: {q: hs[k][q] for q in ("count", "mean", "p50", "p99")}
+               for k in ("serve.ttft_usec", "serve.e2e_usec",
+                         "serve.tok_usec")}
+    counters = {k: c.get(f"serve.{k}", 0)
+                for k in ("prefix_hits", "prefix_tokens_shared", "cow_copies",
+                          "prefill_chunks", "admission_stalls",
+                          "trie_evictions")}
+    print(f"[paged] DecodeServer(paged, n_slots=8, max_len=640, round_len=32,"
+          f" page_size=128, prefill_budget=256): 32 requests (16 sharing a "
+          f"{PAGED_PREFIX}-token prefix, 4 exact duplicates, 12 unrelated), "
+          f"{ntok} tokens in {wall:.2f} s ({ntok / wall:.0f} tok/s), "
+          f"{srv.rounds_run} rounds / {srv.steps_run} steps, peak device "
+          f"memory {peak:.2f} GiB; {json.dumps(counters)}; launches "
+          f"{json.dumps(launches)}; tokens equal each request's own paged "
+          f"reference, {full} of 32 to the end and the rest up to a parting "
+          f"at a near-tie; against each prompt's own dense generate {gen_full}"
+          f" of 32 to the end, every parting at a near-tie")
+    print(f"[paged] stats: {json.dumps(summary)}; pages "
+          f"{json.dumps(st['pages'])}")
+    out["server"] = dict(requests=32, tokens=ntok, wall_s=wall,
+                         tok_per_s=ntok / wall, rounds=srv.rounds_run,
+                         steps=srv.steps_run, compared_to_end=full,
+                         generate_compared_to_end=gen_full, peak_gib=peak, counters=counters, stats=summary,
+                         pages=st["pages"])
+    return out, launches
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -923,10 +1435,13 @@ def main() -> int:
     k2_stats = phase_k2(dev)
     k6_stats = phase_k6(dev)
     w_stats = phase_writes(dev)
+    k9_stats = phase_k9(dev)
+    pw_stats = phase_page_writes(dev)
     torch.cuda.empty_cache()
 
     counted = (k2.flash_block_update_hld, kd.flash_block_decode,
-               kd.write_kv_row, kd.write_kv_block)
+               kd.write_kv_row, kd.write_kv_block, kd.paged_flash_decode,
+               kd.write_kv_page_row, kd.write_kv_page_block)
     torch.cuda.reset_peak_memory_stats()
     for fn in counted:
         fn.launches = 0
@@ -936,11 +1451,20 @@ def main() -> int:
     print(f"[serve] serving path took {time.perf_counter() - t0:.1f} s, "
           f"launches {served}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    for name, n in served.items():
-        check(n > 0, f"{name} was not launched on the serving path")
+    for fn in counted[:4]:
+        check(served[fn.__name__] > 0,
+              f"{fn.__name__} was not launched on the serving path")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    paged, paged_launches = phase_paged_serving(dev, counted)
+    print(f"[paged] paged serving phase took {time.perf_counter() - t0:.1f} "
+          f"s")
 
     print(json.dumps({"k1_ring_chunk": k1_stats["ring_chunk"],
-                      "facade_allreduce": facade, "serving": serving}))
+                      "facade_allreduce": facade, "serving": serving,
+                      "paged_serving": paged,
+                      "k9_int8": k9_stats["int8"]}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
@@ -957,7 +1481,16 @@ def main() -> int:
                      served["write_kv_row"], w_stats["K7"]),
         kernel_entry("K8 write_kv_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:168",
-                     served["write_kv_block"], w_stats["K8"])]}))
+                     served["write_kv_block"], w_stats["K8"]),
+        kernel_entry("K9 paged_flash_decode", DECODE_SOURCE,
+                     "rlo_tpu/pallas/decode.py:466",
+                     paged_launches["paged_flash_decode"], k9_stats["bf16"]),
+        kernel_entry("K10 write_kv_page_row", DECODE_SOURCE,
+                     "rlo_tpu/pallas/decode.py:350",
+                     paged_launches["write_kv_page_row"], pw_stats["K10"]),
+        kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
+                     "rlo_tpu/pallas/decode.py:402",
+                     paged_launches["write_kv_page_block"], pw_stats["K11"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

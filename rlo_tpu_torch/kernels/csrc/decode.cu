@@ -1,5 +1,5 @@
 // K6, K7 and K8: decode attention against the dense KV cache, and the two
-// in-place cache writes.
+// in-place cache writes. K9, K10 and K11: the same against a page pool.
 //
 // K6 replaces rlo_tpu/pallas/decode.py:_decode_kernel (behind
 // flash_block_decode and flash_decode). Cache (b, kvh, hd, L) seq-minor in
@@ -29,6 +29,20 @@
 // b * kvh blocks and no split of the cache axis across blocks, a small batch
 // leaves SMs idle (a split-K pass is later work).
 //
+// K9 replaces rlo_tpu/pallas/decode.py:_paged_decode_kernel (behind
+// paged_flash_decode): K6 through a page table. Pools (P, kvh, hd, ps), scale
+// pools (P, kvh, ps), table (b, mp) int32; logical position j of row b lives
+// at lane j % ps of physical page table[b, j / ps] (clamped into [0, P-1]),
+// over a logical length L = mp * ps. It is the same kernel body as K6 with
+// the column address swapped (the PAGED template flag): the tiles stay BK =
+// 128 LOGICAL positions whatever ps is, so pages that hold a dense cache's
+// columns give K6's result bit for bit, and ps = 128 is the TPU kernel's
+// partition (one grid step per page). Unmapped entries point at the null
+// page, whose positions the masks hide. Bound: the live bytes read (k, v and
+// the scales up to pos + T, plus the table) over 3.35 TB/s; the page
+// indirection costs one table read per tile column and breaks coalescing
+// only at page edges (ps >= 32 keeps each warp's reads within one page).
+//
 // K7 replaces rlo_tpu/pallas/decode.py:_write_row_kernel (write_kv_row):
 // cache[b, :, :, pos_b] = row[b]. K8 replaces _write_block_kernel
 // (write_kv_block): cache[b, :, :, pos0_b + t] = rows[b, :, :, t], t < T.
@@ -37,6 +51,15 @@
 // the device: stride 0 (one shared position) or 1 (one per row). Bound: the
 // bytes written (plus the rows read); one thread per element, element size
 // 1, 2 or 4 bytes (the int8 scale sidecars ride as hd = 1, element size 4).
+//
+// K10 replaces _write_page_row_kernel (write_kv_page_row): row b lands at
+// pool[page_b, :, :, off_b], page clamped into [0, P-1]; an off outside
+// [0, ps) (the server's off = ps sentinel for inactive slots) drops the
+// write. K11 replaces _write_page_block_kernel (write_kv_page_block): token
+// t < n_valid of a (kvh, hd, T) chunk lands at pool[page, :, :, off0 + t]
+// while 0 <= off0 + t < ps; pads never touch the pool. page, off, off0 and
+// n_valid are read on the device. Same design and bound as K7/K8: one thread
+// per element written, in place, only the written lanes touched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,13 +87,20 @@ constexpr size_t decode_smem() {
                           2 * (size_t)RT * kWarps + 3 * (size_t)RT);
 }
 
-template <typename C, int HD, int RT, bool QUANT, bool BF16DOT>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
-              const C* __restrict__ vc, const float* __restrict__ ksc,
-              const float* __restrict__ vsc, const int* __restrict__ pos,
-              float* __restrict__ out, int R, int r, int T, int L,
-              int pos_stride, int nkv, float scale) {
+// Where the paged pools live (unused by the dense K6).
+struct Cols {
+  const int* table;  // (b, mp) int32
+  int mp, ps, P;
+};
+
+// The body K6 and K9 share; the PAGED flag picks the column address.
+template <typename C, int HD, int RT, bool QUANT, bool BF16DOT, bool PAGED>
+__device__ __forceinline__ void
+decode_body(const float* __restrict__ q, const C* __restrict__ kc,
+            const C* __restrict__ vc, const float* __restrict__ ksc,
+            const float* __restrict__ vsc, const int* __restrict__ pos,
+            float* __restrict__ out, int R, int r, int T, int L,
+            int pos_stride, int nkv, float scale, const Cols& cols) {
   constexpr int RG = kThreads / HD;             // row groups in the P.V phase
   constexpr int NO = (RT + RG - 1) / RG;        // o accumulators per thread
   extern __shared__ float smem[];
@@ -87,12 +117,20 @@ decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
   const int bh = blockIdx.x;                 // b * nkv + h
   const int row0 = blockIdx.y * RT;
   const int bi = bh / nkv;
+  const int hh = bh - bi * nkv;
   const int p0 = pos[bi * pos_stride];
+  // Where column j of this (row, head) lives. Dense: element d * L + j of
+  // the (b, kvh, hd, L) cache row at kb (the scale at ksb[j]). Paged: lane
+  // j % ps of page table[bi, j / ps] (clamped into [0, P-1]), element kcol
+  // + d * ps of the pool (the scale at sidx). Each mode keeps the address
+  // form measured fastest for it on the card (bf16, the two forms timed in
+  // turns): a block base pointer with the uniform stride L for dense, a
+  // per-thread 64-bit index and stride for paged.
   const size_t cbase = (size_t)bh * HD * L;
   const C* kb = kc + cbase;
   const C* vb = vc + cbase;
-  const float* ksb = QUANT ? ksc + (size_t)bh * L : nullptr;
-  const float* vsb = QUANT ? vsc + (size_t)bh * L : nullptr;
+  const float* ksb = QUANT && !PAGED ? ksc + (size_t)bh * L : nullptr;
+  const float* vsb = QUANT && !PAGED ? vsc + (size_t)bh * L : nullptr;
 
   for (int i = tid; i < RT * HD; i += kThreads) {
     int rr = i / HD, c = i % HD;
@@ -115,18 +153,31 @@ decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
   for (int k0 = 0; k0 < live_end; k0 += BK) {
     const int j = k0 + tid;
     const bool in_range = j < L;
+    size_t kcol = 0, sidx = 0;
+    int pstride = 0;
+    if (PAGED && in_range) {
+      int lp = j / cols.ps;
+      int page = cols.table[(size_t)bi * cols.mp + lp];
+      page = page < 0 ? 0 : (page >= cols.P ? cols.P - 1 : page);
+      size_t ph = (size_t)page * nkv + hh;
+      int off = j - lp * cols.ps;
+      kcol = ph * HD * cols.ps + off;
+      sidx = ph * cols.ps + off;
+      pstride = cols.ps;
+    }
     float acc[RT];
 #pragma unroll
     for (int rr = 0; rr < RT; ++rr) acc[rr] = 0.f;
     if (in_range) {
 #pragma unroll 8
       for (int d = 0; d < HD; ++d) {
-        float kv = to_f(kb[(size_t)d * L + j]);
+        float kv = to_f(PAGED ? kc[kcol + (size_t)d * pstride]
+                              : kb[(size_t)d * L + j]);
 #pragma unroll
         for (int rr = 0; rr < RT; ++rr) acc[rr] = fmaf(q_s[rr * HD + d], kv, acc[rr]);
       }
     }
-    const float ks = (QUANT && in_range) ? ksb[j] : 1.f;
+    const float ks = (QUANT && in_range) ? (PAGED ? ksc[sidx] : ksb[j]) : 1.f;
     bool mask[RT];
 #pragma unroll
     for (int rr = 0; rr < RT; ++rr) {
@@ -139,7 +190,10 @@ decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
     // V tile, zeroed past the last attended position
     const bool col_ok = in_range && (long long)j <= last;
     for (int c = 0; c < HD; ++c)
-      v_s[c * VP + tid] = col_ok ? to_f(vb[(size_t)c * L + j]) : 0.f;
+      v_s[c * VP + tid] =
+          col_ok ? to_f(PAGED ? vc[kcol + (size_t)c * pstride]
+                              : vb[(size_t)c * L + j])
+                 : 0.f;
 
     // row max over the tile
 #pragma unroll
@@ -167,7 +221,7 @@ decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
       for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       if (lane == 0) red_l[rr * kWarps + warp] = sum;
       float pv = p;
-      if (QUANT) pv = mask[rr] ? p * vsb[j] : 0.f;
+      if (QUANT) pv = mask[rr] ? p * (PAGED ? vsc[sidx] : vsb[j]) : 0.f;
       if (BF16DOT) pv = round_bf16(pv);
       p_s[rr * VP + tid] = pv;
     }
@@ -201,47 +255,89 @@ decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
   }
 }
 
+// K6 and K9 under names of their own (a profile tells them apart)
 template <typename C, int HD, int RT, bool QUANT, bool BF16DOT>
-int launch_decode(const float* q, const void* k, const void* v, const float* ks,
-                  const float* vs, const int* pos, float* out, int b, int nkv,
-                  int R, int r, int T, int L, int pos_stride, float scale,
-                  cudaStream_t stream) {
-  auto kern = decode_kernel<C, HD, RT, QUANT, BF16DOT>;
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
+              const C* __restrict__ vc, const float* __restrict__ ksc,
+              const float* __restrict__ vsc, const int* __restrict__ pos,
+              float* __restrict__ out, int R, int r, int T, int L,
+              int pos_stride, int nkv, float scale, Cols cols) {
+  decode_body<C, HD, RT, QUANT, BF16DOT, false>(q, kc, vc, ksc, vsc, pos, out,
+                                                R, r, T, L, pos_stride, nkv,
+                                                scale, cols);
+}
+
+template <typename C, int HD, int RT, bool QUANT, bool BF16DOT>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const float* __restrict__ q, const C* __restrict__ kc,
+                    const C* __restrict__ vc, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc,
+                    const int* __restrict__ pos, float* __restrict__ out,
+                    int R, int r, int T, int L, int pos_stride, int nkv,
+                    float scale, Cols cols) {
+  decode_body<C, HD, RT, QUANT, BF16DOT, true>(q, kc, vc, ksc, vsc, pos, out,
+                                               R, r, T, L, pos_stride, nkv,
+                                               scale, cols);
+}
+
+// Every argument of a decode launch, so the dispatch below passes one.
+struct DecodeArgs {
+  const float* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* pos;
+  float* out;
+  int b, nkv, R, r, T, L, pos_stride;
+  float scale;
+  Cols cols;
+  cudaStream_t s;
+};
+
+template <typename C, int HD, int RT, bool QUANT, bool BF16DOT, bool PAGED>
+int launch(const DecodeArgs& a) {
+  auto kern = PAGED ? paged_decode_kernel<C, HD, RT, QUANT, BF16DOT>
+                    : decode_kernel<C, HD, RT, QUANT, BF16DOT>;
   constexpr size_t smem = decode_smem<HD, RT>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(b * nkv, (R + RT - 1) / RT);
-  kern<<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const C*>(k), static_cast<const C*>(v), ks, vs, pos, out,
-      R, r, T, L, pos_stride, nkv, scale);
+  dim3 grid(a.b * a.nkv, (a.R + RT - 1) / RT);
+  kern<<<grid, kThreads, smem, a.s>>>(
+      a.q, static_cast<const C*>(a.k), static_cast<const C*>(a.v), a.ks, a.vs,
+      a.pos, a.out, a.R, a.r, a.T, a.L, a.pos_stride, a.nkv, a.scale, a.cols);
   return (int)cudaGetLastError();
 }
 
-template <typename C, int HD, bool QUANT, bool BF16DOT>
-int dispatch_rt(const float* q, const void* k, const void* v, const float* ks,
-                const float* vs, const int* pos, float* out, int b, int nkv,
-                int R, int r, int T, int L, int ps, float scale,
-                cudaStream_t s) {
-  if (R <= 1)
-    return launch_decode<C, HD, 1, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
-  if (R <= 2)
-    return launch_decode<C, HD, 2, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
-  if (R <= 4)
-    return launch_decode<C, HD, 4, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
-  return launch_decode<C, HD, 8, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+template <typename C, int HD, bool QUANT, bool BF16DOT, bool PAGED>
+int dispatch_rt(const DecodeArgs& a) {
+  if (a.R <= 1) return launch<C, HD, 1, QUANT, BF16DOT, PAGED>(a);
+  if (a.R <= 2) return launch<C, HD, 2, QUANT, BF16DOT, PAGED>(a);
+  if (a.R <= 4) return launch<C, HD, 4, QUANT, BF16DOT, PAGED>(a);
+  return launch<C, HD, 8, QUANT, BF16DOT, PAGED>(a);
 }
 
-template <typename C, bool QUANT, bool BF16DOT>
-int dispatch_hd(int HD, const float* q, const void* k, const void* v,
-                const float* ks, const float* vs, const int* pos, float* out,
-                int b, int nkv, int R, int r, int T, int L, int ps,
-                float scale, cudaStream_t s) {
+template <typename C, bool QUANT, bool BF16DOT, bool PAGED>
+int dispatch_hd(int HD, const DecodeArgs& a) {
   switch (HD) {
-    case 16: return dispatch_rt<C, 16, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
-    case 32: return dispatch_rt<C, 32, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
-    case 64: return dispatch_rt<C, 64, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
-    case 128: return dispatch_rt<C, 128, QUANT, BF16DOT>(q, k, v, ks, vs, pos, out, b, nkv, R, r, T, L, ps, scale, s);
+    case 16: return dispatch_rt<C, 16, QUANT, BF16DOT, PAGED>(a);
+    case 32: return dispatch_rt<C, 32, QUANT, BF16DOT, PAGED>(a);
+    case 64: return dispatch_rt<C, 64, QUANT, BF16DOT, PAGED>(a);
+    case 128: return dispatch_rt<C, 128, QUANT, BF16DOT, PAGED>(a);
+  }
+  return -1;
+}
+
+template <bool PAGED>
+int dispatch_cache(int cache_code, int HD, const DecodeArgs& a) {
+  switch (cache_code) {
+    case 1: return dispatch_hd<float, false, false, PAGED>(HD, a);
+    case 2: return dispatch_hd<__nv_bfloat16, false, true, PAGED>(HD, a);
+    case 3:
+      if (!a.ks || !a.vs) return -1;
+      return dispatch_hd<int8_t, true, true, PAGED>(HD, a);
   }
   return -1;
 }
@@ -274,6 +370,43 @@ __global__ void write_block_kernel(E* cache, const E* rows, const int* pos,
   }
 }
 
+// K10 / K11 element copies into a (P, inner, ps) pool, by element size
+template <typename E>
+__global__ void write_page_row_kernel(E* pool, const E* row, const int* page,
+                                      const int* off, int b, int inner, int P,
+                                      int ps) {
+  int64_t n = (int64_t)b * inner;
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    int bi = (int)(i / inner);
+    int o = off[bi];
+    if (o < 0 || o >= ps) continue;
+    int pg = page[bi];
+    pg = pg < 0 ? 0 : (pg >= P ? P - 1 : pg);
+    int64_t e = i - (int64_t)bi * inner;
+    pool[((int64_t)pg * inner + e) * ps + o] = row[i];
+  }
+}
+
+template <typename E>
+__global__ void write_page_block_kernel(E* pool, const E* rows,
+                                        const int* page, const int* off0,
+                                        const int* n_valid, int inner, int T,
+                                        int P, int ps) {
+  int64_t n = (int64_t)inner * T;
+  int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int o0 = off0[0], nv = n_valid[0];
+  int pg = page[0];
+  pg = pg < 0 ? 0 : (pg >= P ? P - 1 : pg);
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    int t = (int)(i % T);
+    long long o = (long long)o0 + t;
+    if (t >= nv || o < 0 || o >= ps) continue;
+    int64_t e = i / T;
+    pool[((int64_t)pg * inner + e) * ps + o] = rows[i];
+  }
+}
+
 int grid_for(int64_t n) {
   int64_t blocks = (n + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
@@ -297,6 +430,26 @@ int launch_write_block(void* cache, const void* rows, const int* pos, int b,
   return (int)cudaGetLastError();
 }
 
+template <typename E>
+int launch_page_row(void* pool, const void* row, const int* page,
+                    const int* off, int b, int inner, int P, int ps,
+                    cudaStream_t s) {
+  write_page_row_kernel<E><<<grid_for((int64_t)b * inner), 256, 0, s>>>(
+      static_cast<E*>(pool), static_cast<const E*>(row), page, off, b, inner,
+      P, ps);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_page_block(void* pool, const void* rows, const int* page,
+                      const int* off0, const int* nv, int inner, int T, int P,
+                      int ps, cudaStream_t s) {
+  write_page_block_kernel<E><<<grid_for((int64_t)inner * T), 256, 0, s>>>(
+      static_cast<E*>(pool), static_cast<const E*>(rows), page, off0, nv,
+      inner, T, P, ps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each returns the cudaGetLastError()
@@ -312,21 +465,35 @@ extern "C" int rlo_flash_decode(int cache_code, const void* q, const void* k,
                                 int pos_per_row, float scale, void* stream) {
   if (b <= 0 || nkv <= 0 || R <= 0) return 0;
   if (r <= 0 || T <= 0 || R != T * r || L <= 0) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto fq = static_cast<const float*>(q);
-  auto fks = static_cast<const float*>(ks);
-  auto fvs = static_cast<const float*>(vs);
-  auto ip = static_cast<const int*>(pos);
-  auto fo = static_cast<float*>(out);
-  int ps = pos_per_row ? 1 : 0;
-  switch (cache_code) {
-    case 1: return dispatch_hd<float, false, false>(HD, fq, k, v, nullptr, nullptr, ip, fo, b, nkv, R, r, T, L, ps, scale, s);
-    case 2: return dispatch_hd<__nv_bfloat16, false, true>(HD, fq, k, v, nullptr, nullptr, ip, fo, b, nkv, R, r, T, L, ps, scale, s);
-    case 3:
-      if (!ks || !vs) return -1;
-      return dispatch_hd<int8_t, true, true>(HD, fq, k, v, fks, fvs, ip, fo, b, nkv, R, r, T, L, ps, scale, s);
-  }
-  return -1;
+  DecodeArgs a{static_cast<const float*>(q), k, v,
+               static_cast<const float*>(ks), static_cast<const float*>(vs),
+               static_cast<const int*>(pos), static_cast<float*>(out),
+               b, nkv, R, r, T, L, pos_per_row ? 1 : 0, scale,
+               Cols{nullptr, 0, 0, 0}, static_cast<cudaStream_t>(stream)};
+  return dispatch_cache<false>(cache_code, HD, a);
+}
+
+// K9. Pools (P, nkv, HD, ps) of cache_code's type (int8: scale pools
+// (P, nkv, ps) f32 in ks, vs), table (b, mp) int32; q and out as K6.
+extern "C" int rlo_paged_flash_decode(int cache_code, const void* q,
+                                      const void* k, const void* v,
+                                      const void* ks, const void* vs,
+                                      const void* table, const void* pos,
+                                      void* out, int b, int nkv, int R, int r,
+                                      int T, int HD, int P, int ps, int mp,
+                                      int pos_per_row, float scale,
+                                      void* stream) {
+  if (b <= 0 || nkv <= 0 || R <= 0) return 0;
+  if (r <= 0 || T <= 0 || R != T * r || P <= 0 || ps <= 0 || mp <= 0 ||
+      (long long)mp * ps > 0x7fffffffLL)
+    return -1;
+  DecodeArgs a{static_cast<const float*>(q), k, v,
+               static_cast<const float*>(ks), static_cast<const float*>(vs),
+               static_cast<const int*>(pos), static_cast<float*>(out),
+               b, nkv, R, r, T, mp * ps, pos_per_row ? 1 : 0, scale,
+               Cols{static_cast<const int*>(table), mp, ps, P},
+               static_cast<cudaStream_t>(stream)};
+  return dispatch_cache<true>(cache_code, HD, a);
 }
 
 // K7. cache (b, inner, L), row (b, inner), inner = kvh * hd.
@@ -358,6 +525,45 @@ extern "C" int rlo_write_kv_block(void* cache, const void* rows,
     case 1: return launch_write_block<uint8_t>(cache, rows, ip, b, inner, T, L, ps, s);
     case 2: return launch_write_block<uint16_t>(cache, rows, ip, b, inner, T, L, ps, s);
     case 4: return launch_write_block<uint32_t>(cache, rows, ip, b, inner, T, L, ps, s);
+  }
+  return -1;
+}
+
+// K10. pool (P, inner, ps), row (b, inner), page and off (b,) int32.
+extern "C" int rlo_write_kv_page_row(void* pool, const void* row,
+                                     const void* page, const void* off, int b,
+                                     int inner, int P, int ps, int elem_size,
+                                     void* stream) {
+  if (b <= 0 || inner <= 0) return 0;
+  if (P <= 0 || ps <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto pg = static_cast<const int*>(page);
+  auto of = static_cast<const int*>(off);
+  switch (elem_size) {
+    case 1: return launch_page_row<uint8_t>(pool, row, pg, of, b, inner, P, ps, s);
+    case 2: return launch_page_row<uint16_t>(pool, row, pg, of, b, inner, P, ps, s);
+    case 4: return launch_page_row<uint32_t>(pool, row, pg, of, b, inner, P, ps, s);
+  }
+  return -1;
+}
+
+// K11. pool (P, inner, ps), rows (inner, T) with T <= ps; page, off0 and
+// n_valid one int32 each.
+extern "C" int rlo_write_kv_page_block(void* pool, const void* rows,
+                                       const void* page, const void* off0,
+                                       const void* n_valid, int inner, int T,
+                                       int P, int ps, int elem_size,
+                                       void* stream) {
+  if (inner <= 0 || T <= 0) return 0;
+  if (P <= 0 || ps <= 0 || T > ps) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto pg = static_cast<const int*>(page);
+  auto o0 = static_cast<const int*>(off0);
+  auto nv = static_cast<const int*>(n_valid);
+  switch (elem_size) {
+    case 1: return launch_page_block<uint8_t>(pool, rows, pg, o0, nv, inner, T, P, ps, s);
+    case 2: return launch_page_block<uint16_t>(pool, rows, pg, o0, nv, inner, T, P, ps, s);
+    case 4: return launch_page_block<uint32_t>(pool, rows, pg, o0, nv, inner, T, P, ps, s);
   }
   return -1;
 }

@@ -1,6 +1,7 @@
-"""K6 (flash decode attention) and the in-place cache writes K7 and K8.
+"""Decode attention and the in-place cache writes, dense (K6, K7, K8)
+and paged (K9, K10, K11).
 
-The port of ``rlo_tpu/pallas/decode.py``'s dense kernels:
+The port of ``rlo_tpu/pallas/decode.py``'s kernels:
 
   - ``flash_block_decode`` / ``flash_decode`` (Pallas ``_decode_kernel``):
     T queries per batch row against the seq-minor KV cache, query t of
@@ -9,7 +10,13 @@ The port of ``rlo_tpu/pallas/decode.py``'s dense kernels:
   - ``write_kv_row`` (Pallas ``_write_row_kernel``): one (kv_heads,
     head_dim) column per batch row at ``pos_b``;
   - ``write_kv_block`` (Pallas ``_write_block_kernel``): T <= 128
-    consecutive columns from ``pos0_b``.
+    consecutive columns from ``pos0_b``;
+  - ``paged_flash_decode`` (Pallas ``_paged_decode_kernel``): K6 through
+    a page table over pools (P, kv_heads, head_dim, page_size);
+  - ``write_kv_page_row`` (Pallas ``_write_page_row_kernel``): one row per
+    batch row into lane ``off_b`` of page ``page_b``;
+  - ``write_kv_page_block`` (Pallas ``_write_page_block_kernel``): one
+    prefill chunk of T <= page_size tokens into one page.
 
 Each launches its CUDA kernel in ``csrc/decode.cu`` for CUDA tensors and
 takes its ``*_plain`` twin only for CPU tensors. Layouts are the JAX
@@ -18,17 +25,22 @@ max_len), q (b, T, n_heads, head_dim), out f32 like q. ``pos`` is a
 Python int, a 0-d int32 tensor (every row at the same position) or a
 (b,) int32 tensor; the kernels read it on the device.
 
-Where JAX returns a new cache, the port's writes update the cache
+Where JAX returns a new cache or pool, the port's writes update it
 **in place** (and return it). A position outside [0, max_len) matches
 no column and that write is dropped, as the TPU kernels drop it: the
-serving loop keeps advancing retired slots past max_len.
+serving loop keeps advancing retired slots past max_len. The page
+writes drop a lane offset outside [0, page_size) (the serving loop's
+``off = page_size`` sentinel for inactive slots) and clamp a page index
+into [0, P - 1], as the TPU wrappers clamp it.
 
 K6's numerics follow the TPU kernel: dots in bf16 with f32 accumulation
 (f32 for f32 caches), the probabilities rounded to the dot dtype before
 P.V, for int8 the k scale multiplying the scores and the v scale the
 probabilities after l is accumulated, V zeroed under the mask, out =
 o / l. The cache axis is cut into ``BLOCK_K``-wide tiles for every T, so
-T = 1 and T > 1 share one partition (and one accumulation order).
+T = 1 and T > 1 share one partition (and one accumulation order). K9
+cuts the LOGICAL cache axis the same way whatever the page size, so
+pages that hold a dense cache's columns give K6's result bit for bit.
 """
 
 from __future__ import annotations
@@ -191,6 +203,29 @@ def flash_block_decode_plain(q, k_cache, v_cache, pos0, scale,
     return _ungroup(o / l[..., None], T, nh)
 
 
+def _prepare_launch(kind, q, pos0, nkv, cache_dtype, tensors):
+    """What K6 and K9 launch on: checks the head dim, the cache type and
+    that every tensor of ``tensors`` ((name, tensor or None) pairs) is
+    contiguous on q's device; returns (q grouped (b, nkv, T*r, hd) f32 in
+    the dot dtype's values, the positions, the (b, nkv, T*r, hd) f32
+    output)."""
+    b, T, nh, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{kind} takes head_dim in {_HEAD_DIMS}, not {d}")
+    if cache_dtype not in _CACHE_CODE:
+        raise TypeError(f"{kind} takes f32, bf16 and int8 caches, not "
+                        f"{cache_dtype}")
+    for name, t in tensors:
+        if t is not None and (not t.is_contiguous()
+                              or t.device != q.device):
+            raise ValueError(f"{kind} needs {name} contiguous on "
+                             f"{q.device}")
+    qg = _group_queries(q, nkv).to(_dot_dtype(cache_dtype)).float() \
+        .contiguous()
+    out = torch.empty(qg.shape, dtype=torch.float32, device=q.device)
+    return qg, _pos_vector(pos0, b, q.device), out
+
+
 def flash_block_decode(q, k_cache, v_cache, pos0, scale, k_scale=None,
                        v_scale=None):
     """Fused T-query decode attention (T = 1 is single-token decode):
@@ -203,24 +238,14 @@ def flash_block_decode(q, k_cache, v_cache, pos0, scale, k_scale=None,
                                         k_scale, v_scale)
     b, T, nh, d = q.shape
     nkv, L = k_cache.shape[1], k_cache.shape[3]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"K6 takes head_dim in {_HEAD_DIMS}, not {d}")
-    if k_cache.dtype not in _CACHE_CODE:
-        raise TypeError(f"K6 takes f32, bf16 and int8 caches, not "
-                        f"{k_cache.dtype}")
     quant = k_scale is not None
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("k_scale", k_scale), ("v_scale", v_scale)):
-        if t is not None and (not t.is_contiguous()
-                              or t.device != q.device):
-            raise ValueError(f"K6 needs {name} contiguous on {q.device}")
     dev = q.device
-    qg = _group_queries(q, nkv).to(_dot_dtype(k_cache.dtype)).float() \
-        .contiguous()
-    pos = _pos_vector(pos0, b, dev)
+    qg, pos, out = _prepare_launch(
+        "K6", q, pos0, nkv, k_cache.dtype,
+        (("k_cache", k_cache), ("v_cache", v_cache), ("k_scale", k_scale),
+         ("v_scale", v_scale)))
     R = qg.shape[2]
-    out = torch.empty((b, nkv, R, d), dtype=torch.float32, device=dev)
-    if b * nkv * R == 0:
+    if out.numel() == 0:
         return _ungroup(out, T, nh)
     fn = _lib_fn("rlo_flash_decode",
                  [ctypes.c_int] + [ctypes.c_void_p] * 7
@@ -259,11 +284,11 @@ def flash_decode(q, k_cache, v_cache, pos, scale, k_scale=None,
 # K7 / K8: in-place cache writes
 # ---------------------------------------------------------------------------
 
-def _check_write(cache, rows, want_rows, kind):
+def _check_write(cache, rows, want_rows, kind,
+                 layout="cache (b, kvh, hd, L)"):
     if cache.dim() != 4 or tuple(rows.shape) != want_rows:
-        raise ValueError(f"{kind}: cache must be (b, kvh, hd, L) and rows "
-                         f"{want_rows}; got {tuple(cache.shape)}, "
-                         f"{tuple(rows.shape)}")
+        raise ValueError(f"{kind}: {layout} and rows {want_rows} expected; "
+                         f"got {tuple(cache.shape)}, {tuple(rows.shape)}")
     if rows.device != cache.device:
         raise ValueError(f"{kind}: rows and cache on different devices")
 
@@ -362,3 +387,250 @@ def write_kv_block(cache, rows, pos0):
 
 
 write_kv_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: paged flash decode attention
+# ---------------------------------------------------------------------------
+
+def _check_paged(q, k_pool, v_pool, table, ks_pool, vs_pool):
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"q must be (b, T, nh, hd) and the pools (P, kvh, "
+                         f"hd, ps); got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    b, T, nh, d = q.shape
+    P, nkv, kd, ps = k_pool.shape
+    if kd != d or nkv == 0 or nh % nkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit the pools "
+                         f"{tuple(k_pool.shape)}")
+    if table.dim() != 2 or table.shape[0] != b or table.shape[1] == 0:
+        raise ValueError(f"table must be ({b}, max_pages); got "
+                         f"{tuple(table.shape)}")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError("k and v pools must share a dtype")
+    quant = ks_pool is not None
+    if quant != (vs_pool is not None):
+        raise ValueError("pass both ks_pool and vs_pool, or neither")
+    if quant != (k_pool.dtype == torch.int8):
+        raise ValueError("int8 pools need scale pools, and only they take "
+                         "them")
+    if quant:
+        for t in (ks_pool, vs_pool):
+            if tuple(t.shape) != (P, nkv, ps) or t.dtype != torch.float32:
+                raise ValueError(f"scale pools must be float32 ({P}, {nkv}, "
+                                 f"{ps}); got {t.dtype} {tuple(t.shape)}")
+    if q.requires_grad:
+        raise NotImplementedError("K9 is inference only")
+
+
+def gather_pages(pool, table):
+    """The logical per-row cache a page table maps out of ``pool``:
+    (P, kvh, hd, ps) -> (b, kvh, hd, mp * ps), or a scale pool (P, kvh,
+    ps) -> (b, kvh, mp * ps); logical page i of row b is physical page
+    ``table[b, i]``."""
+    b, mp = table.shape
+    got = pool[table.long()]                 # (b, mp, kvh, [hd,] ps)
+    if pool.dim() == 4:
+        return got.permute(0, 2, 3, 1, 4).reshape(
+            b, pool.shape[1], pool.shape[2], mp * pool.shape[3])
+    return got.permute(0, 2, 1, 3).reshape(b, pool.shape[1],
+                                           mp * pool.shape[2])
+
+
+def paged_flash_decode_plain(q, k_pool, v_pool, table, pos0, scale,
+                             ks_pool=None, vs_pool=None, *,
+                             block_k: int = BLOCK_K):
+    """Plain PyTorch version of K9: the table (clamped into [0, P - 1])
+    gathers each row's logical cache out of the pools, and K6's plain
+    tile loop (``block_k`` wide) attends it. The CPU path, and the
+    version the kernel is held against on the card."""
+    _check_paged(q, k_pool, v_pool, table, ks_pool, vs_pool)
+    tab = table.clamp(0, k_pool.shape[0] - 1)
+    kg, vg = gather_pages(k_pool, tab), gather_pages(v_pool, tab)
+    ksg = vsg = None
+    if ks_pool is not None:
+        ksg, vsg = gather_pages(ks_pool, tab), gather_pages(vs_pool, tab)
+    return flash_block_decode_plain(q, kg, vg, pos0, scale, ksg, vsg,
+                                    block_k=block_k)
+
+
+def paged_flash_decode(q, k_pool, v_pool, table, pos0, scale, ks_pool=None,
+                       vs_pool=None):
+    """Fused paged decode attention (K9): ``q`` (b, T, n_heads,
+    head_dim), row b's query t at position ``pos0_b + t`` attending the
+    positions <= it of its logical cache, whose page i is physical page
+    ``table[b, i]`` of the pools (P, kv_heads, head_dim, page_size)
+    (int8 pools take f32 scale pools (P, kv_heads, page_size)). ``table``
+    is (b, max_pages) int32; table entries are clamped into [0, P - 1].
+    Returns (b, T, n_heads, head_dim) f32. CPU tensors take the plain
+    version; CUDA tensors launch K9 or raise."""
+    _check_paged(q, k_pool, v_pool, table, ks_pool, vs_pool)
+    if _on("paged_flash_decode", q):
+        return paged_flash_decode_plain(q, k_pool, v_pool, table, pos0,
+                                        scale, ks_pool, vs_pool)
+    b, T, nh, d = q.shape
+    P, nkv, _, ps = k_pool.shape
+    mp = table.shape[1]
+    if table.dtype != torch.int32:
+        raise TypeError(f"K9 takes an int32 table, not {table.dtype}")
+    quant = ks_pool is not None
+    dev = q.device
+    qg, pos, out = _prepare_launch(
+        "K9", q, pos0, nkv, k_pool.dtype,
+        (("k_pool", k_pool), ("v_pool", v_pool), ("ks_pool", ks_pool),
+         ("vs_pool", vs_pool), ("table", table)))
+    R = qg.shape[2]
+    if out.numel() == 0:
+        return _ungroup(out, T, nh)
+    fn = _lib_fn("rlo_paged_flash_decode",
+                 [ctypes.c_int] + [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(_CACHE_CODE[k_pool.dtype], qg.data_ptr(),
+                k_pool.data_ptr(), v_pool.data_ptr(),
+                ks_pool.data_ptr() if quant else None,
+                vs_pool.data_ptr() if quant else None, table.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), b, nkv, R, nh // nkv, T, d,
+                P, ps, mp, 1 if pos.dim() else 0, float(scale),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"K9 paged decode kernel launch failed: CUDA "
+                           f"error {rc} (b={b}, kvh={nkv}, R={R}, hd={d}, "
+                           f"P={P}, ps={ps}, mp={mp}, {k_pool.dtype})")
+    _count(paged_flash_decode)
+    return _ungroup(out, T, nh)
+
+
+paged_flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10 / K11: in-place page writes
+# ---------------------------------------------------------------------------
+
+_POOL = "pool (P, kvh, hd, ps)"
+
+
+def _scalar_i32(x, device) -> torch.Tensor:
+    """A Python int or a one-element int tensor as a (1,) int32 tensor on
+    ``device`` (device tensors stay there: nothing is read back)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(x, dtype=torch.int32)
+    if x.numel() != 1:
+        raise ValueError(f"expected one value; got shape {tuple(x.shape)}")
+    return x.reshape(1).to(device=device, dtype=torch.int32)
+
+
+def write_kv_page_row_plain(pool, row, page, off):
+    """Plain version of K10: ``pool[page_b, :, :, off_b] = row[b]`` in
+    place, page clamped into [0, P - 1], rows whose off lies outside
+    [0, ps) dropped."""
+    P, nkv, d, ps = pool.shape
+    b = row.shape[0] if row.dim() == 3 else -1
+    _check_write(pool, row, (b, nkv, d), "write_kv_page_row",
+                 _POOL)
+    pg = _pos_vector(page, b, pool.device).expand(b).long().clamp(0, P - 1)
+    of = _pos_vector(off, b, pool.device).expand(b).long()
+    idx = torch.nonzero((of >= 0) & (of < ps)).flatten()
+    if idx.numel():
+        pool[pg[idx], :, :, of[idx]] = row[idx].to(pool.dtype)
+    return pool
+
+
+def write_kv_page_row(pool, row, page, off):
+    """K10: write ``row`` (b, kvh, hd) into lane ``off_b`` of page
+    ``page_b`` of ``pool`` (P, kvh, hd, ps) in place and return the pool;
+    ``page``/``off`` are (b,) int32 (or one shared value). CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    P, nkv, d, ps = pool.shape
+    b = row.shape[0] if row.dim() == 3 else -1
+    _check_write(pool, row, (b, nkv, d), "write_kv_page_row",
+                 _POOL)
+    if _on("write_kv_page_row", pool):
+        return write_kv_page_row_plain(pool, row, page, off)
+    if not pool.is_contiguous():
+        raise ValueError("K10 needs a contiguous pool")
+    dev = pool.device
+    row = row.to(pool.dtype).contiguous()
+    page = _pos_vector(page, b, dev).expand(b).contiguous()
+    off = _pos_vector(off, b, dev).expand(b).contiguous()
+    if row.numel() == 0:
+        return pool
+    fn = _lib_fn("rlo_write_kv_page_row",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(pool.data_ptr(), row.data_ptr(), page.data_ptr(),
+                off.data_ptr(), b, nkv * d, P, ps, pool.element_size(),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"K10 page-row write launch failed: CUDA error "
+                           f"{rc}")
+    _count(write_kv_page_row)
+    return pool
+
+
+write_kv_page_row.launches = 0
+
+
+def write_kv_page_block_plain(pool, rows, page, off0, n_valid):
+    """Plain version of K11: ``pool[page, :, :, off0 + t] = rows[..., t]``
+    in place for t < n_valid and 0 <= off0 + t < ps, page clamped into
+    [0, P - 1]."""
+    P, nkv, d, ps = pool.shape
+    T = rows.shape[2] if rows.dim() == 3 else -1
+    _check_write(pool, rows, (nkv, d, T), "write_kv_page_block",
+                 _POOL)
+    dev = pool.device
+    pg = _scalar_i32(page, dev).long().clamp(0, P - 1)
+    t = torch.arange(T, device=dev)
+    cols = _scalar_i32(off0, dev).long() + t
+    keep = torch.nonzero((t < _scalar_i32(n_valid, dev).long())
+                         & (cols >= 0) & (cols < ps)).flatten()
+    if keep.numel():
+        pool[pg, :, :, cols[keep]] = rows[:, :, keep].to(pool.dtype) \
+            .permute(2, 0, 1)
+    return pool
+
+
+def write_kv_page_block(pool, rows, page, off0, n_valid):
+    """K11: write the first ``n_valid`` tokens of the chunk ``rows``
+    (kvh, hd, T), T <= ps, into lanes ``off0 ..`` of page ``page`` of
+    ``pool`` (P, kvh, hd, ps) in place and return the pool; pads never
+    touch it. ``page``, ``off0`` and ``n_valid`` are ints or one-element
+    int32 tensors, read on the device. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    P, nkv, d, ps = pool.shape
+    if rows.dim() != 3:
+        raise ValueError(f"rows must be (kvh, hd, T); got "
+                         f"{tuple(rows.shape)}")
+    T = rows.shape[2]
+    _check_write(pool, rows, (nkv, d, T), "write_kv_page_block",
+                 _POOL)
+    if T > ps:
+        raise ValueError(f"chunk T={T} exceeds page size {ps}")
+    if _on("write_kv_page_block", pool):
+        return write_kv_page_block_plain(pool, rows, page, off0, n_valid)
+    if not pool.is_contiguous():
+        raise ValueError("K11 needs a contiguous pool")
+    dev = pool.device
+    rows = rows.to(pool.dtype).contiguous()
+    page, off0, n_valid = (_scalar_i32(x, dev) for x in (page, off0,
+                                                         n_valid))
+    if rows.numel() == 0:
+        return pool
+    fn = _lib_fn("rlo_write_kv_page_block",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(pool.data_ptr(), rows.data_ptr(), page.data_ptr(),
+                off0.data_ptr(), n_valid.data_ptr(), nkv * d, T, P, ps,
+                pool.element_size(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"K11 page-block write launch failed: CUDA "
+                           f"error {rc}")
+    _count(write_kv_page_block)
+    return pool
+
+
+write_kv_page_block.launches = 0

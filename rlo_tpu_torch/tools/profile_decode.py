@@ -1,19 +1,23 @@
 """Where the time of one decode step goes, on the card.
 
     python3 -m rlo_tpu_torch.tools.profile_decode [--batch 32] [--plen 1024]
+                                                  [--paged]
 
 Builds the flagship serving config (vocab 32768, d 1024, 16 heads, 8
 layers, d_ff 4096, bf16; random weights from ``--seed``), prefills a
 batch of ``--batch`` random prompts of ``--plen`` tokens, warms up a few
 decode steps, then: times ``--steps`` decode steps on the host clock
 (each ends in a device synchronise; median reported), and traces one
-step and one prefill with ``torch.profiler``. Prints the host wall time,
-the device time summed over kernels (one stream, so kernels do not
-overlap), the device's idle share of the wall time, the device time by
-group (K6 decode attention, K7 cache writes, K2 flash, matrix products,
-the rest), the top kernels and the top PyTorch ops by the device time
-they launched; then one JSON line with the same
-numbers. Needs a CUDA card; fails without one, and fails if the
+step and one prefill with ``torch.profiler``. With ``--paged`` the
+prefilled cache is copied into pages of 128 under a permuted table, the
+steps are ``paged_decode_step``s (K9 attends, K10 writes), and the
+traced prefill is one 128-token ``paged_prefill_chunk`` (K9, K11).
+Prints the host wall time, the device time summed over kernels (one
+stream, so kernels do not overlap), the device's idle share of the wall
+time, the device time by group (K6/K9 decode attention, K7/K10 cache
+writes, K11 chunk writes, K2 flash, matrix products, the rest), the top
+kernels and the top PyTorch ops by the device time they launched; then
+one JSON line with the same numbers. Needs a CUDA card; fails without one, and fails if the
 profiler records no device time. The profiler slows the host, so the
 idle share is also given against the unprofiled median step.
 """
@@ -29,7 +33,10 @@ import time
 
 #: kernel-name fragments of each group (the port's kernels by their
 #: CUDA function names; cuBLAS/CUTLASS products by theirs)
-GROUPS = (("K6 decode attention", ("decode_kernel",)),
+GROUPS = (("K9 paged decode attention", ("paged_decode_kernel",)),
+          ("K6 decode attention", ("decode_kernel",)),
+          ("K10 page row write", ("write_page_row_kernel",)),
+          ("K11 page chunk write", ("write_page_block_kernel",)),
           ("K7 cache write", ("write_row_kernel",)),
           ("K2 flash", ("flash_fwd_kernel",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",
@@ -111,6 +118,8 @@ def main(argv=None) -> int:
     ap.add_argument("--plen", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="profile the paged decode step and prefill chunk")
     args = ap.parse_args(argv)
 
     import torch
@@ -118,6 +127,7 @@ def main(argv=None) -> int:
         print("profile_decode: needs a CUDA card", file=sys.stderr)
         return 2
     from rlo_tpu_torch.models import generate as G
+    from rlo_tpu_torch.models import paged as PG
     from rlo_tpu_torch.models.transformer import (TransformerConfig,
                                                   cast_params, init_params)
     # bf16 products accumulate in f32, as chip_smoke.py runs them
@@ -140,11 +150,25 @@ def main(argv=None) -> int:
     cache = G.init_kv_cache(cfg, args.batch, max_len, device=dev)
     logits, _ = G.prefill(params, prompt, cache, cfg)
     tok = torch.argmax(logits, -1).to(torch.int32)
-    pos = torch.tensor(args.plen, dtype=torch.int32, device=dev)
+    # the paged step takes one position per row
+    pos = torch.full((args.batch,) if args.paged else (), args.plen,
+                     dtype=torch.int32, device=dev)
+    ps = 128
+    mp = -(-max_len // ps)
+    n_pages = args.batch * mp + 1
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(args.batch, mp).contiguous()
+    active = torch.ones(args.batch, dtype=torch.bool, device=dev)
+    pools = PG.pages_from_dense(cache, table, n_pages, ps) \
+        if args.paged else None
 
     def step():
         nonlocal tok, pos, logits
-        logits, _ = G.decode_step(params, tok, pos, cache, cfg)
+        if args.paged:
+            logits, _ = PG.paged_decode_step(params, tok, pos, pools, table,
+                                             active, cfg)
+        else:
+            logits, _ = G.decode_step(params, tok, pos, cache, cfg)
         tok = torch.argmax(logits, -1).to(torch.int32)
         pos = pos + 1
 
@@ -158,22 +182,32 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(walls)
-    print(f"[decode] batch {args.batch}, plen {args.plen}: median step "
+    mode = "paged" if args.paged else "dense"
+    print(f"[decode] {mode}, batch {args.batch}, plen {args.plen}: median step "
           f"{step_ms:.3f} ms over {args.steps} steps "
           f"({args.batch / step_ms * 1e3:.0f} tok/s), no profiler")
     dec = trace(step)
     # the profiler slows the host: the idle share of an unprofiled step
     dec["idle_share_unprofiled"] = max(0.0, 1 - dec["device_ms"] / step_ms)
-    _report("one decode step", dec)
+    _report(f"one {mode} decode step", dec)
     print(f"[profile] device time {dec['device_ms']:.3f} ms of the "
           f"unprofiled {step_ms:.3f} ms step: idle "
           f"{100 * dec['idle_share_unprofiled']:.1f}%")
-    pre_cache = G.init_kv_cache(cfg, args.batch, max_len, device=dev)
-    pre = trace(lambda: G.prefill(params, prompt, pre_cache, cfg))
-    _report(f"one prefill (batch {args.batch} x {args.plen})", pre)
-    print(json.dumps({"card": card, "batch": args.batch, "plen": args.plen,
-                      "step_ms_median": step_ms, "decode_step": dec,
-                      "prefill": pre}))
+    if args.paged:
+        # the last full page of row 0's prompt, as one prefill chunk
+        a = (args.plen - 1) // ps * ps
+        chunk = prompt[:1, a:a + ps]
+        pre = trace(lambda: PG.paged_prefill_chunk(
+            params, chunk, a, chunk.shape[1], pools, table[:1], cfg))
+        label = f"one paged prefill chunk ({chunk.shape[1]} tokens at {a})"
+    else:
+        pre_cache = G.init_kv_cache(cfg, args.batch, max_len, device=dev)
+        pre = trace(lambda: G.prefill(params, prompt, pre_cache, cfg))
+        label = f"one prefill (batch {args.batch} x {args.plen})"
+    _report(label, pre)
+    print(json.dumps({"card": card, "mode": mode, "batch": args.batch,
+                      "plen": args.plen, "step_ms_median": step_ms,
+                      "decode_step": dec, "prefill": pre}))
     return 0
 
 

@@ -120,8 +120,9 @@ def test_admission_contract(small):
         srv.submit(np.zeros(60, np.int32), 5)
     with pytest.raises(ValueError, match="no prompt bucket"):
         ts.DecodeServer(tp, tc, n_slots=1, max_len=4, prompt_buckets=(8,))
-    with pytest.raises(NotImplementedError, match="paged serving slice"):
-        ts.DecodeServer(tp, tc, n_slots=1, max_len=64, paged=True)
+    paged = ts.DecodeServer(tp, tc, n_slots=1, max_len=64, paged=True,
+                            metrics=Registry())
+    assert paged.paged and paged.n_pages == 2 and paged.clip_rounds
     assert ts._bucket(9, (8, 16)) == 16
     with pytest.raises(ValueError):
         ts._bucket(17, (8, 16))
