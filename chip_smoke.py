@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one card: the rootless collectives, the
-dense serving path and the paged serving path.
+dense serving path, the paged serving path and the training step.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,28 @@ Phases, each printing its own lines:
    with prefix hits, a copy-on-write and a leak-free pool. K2 and K6-K11's launch
    counts are set to 0 just before the server run and read just after:
    K9-K11 must have run, K2 and K6-K8 not.
-7. One JSON line of kernel figures, then the last line
+7. K3 (tie counts), K4 (dq) and K5 (dk, dv), the flash backward, against
+   their plain versions at the training path's shapes (64 folded heads x
+   1024 x 64 bf16, causal and not, f32, GQA group 4 through the host
+   fold, ragged Lq/Lk, the ring step, fully masked rows, structural ties):
+   K3's counts equal exactly, K4/K5 within rtol 1e-4. Times each kernel,
+   its plain version, its bound and (K4, K5) the backward of
+   ``scaled_dot_product_attention`` at the same shape.
+8. The VJP (``FlashBlockUpdate``) in its three modes at 64 x 1024 x 64:
+   'pallas' and 'pallas_fast' against 'xla' on one update and on a chain
+   of two (the ring step); values bit-identical across the modes.
+9. Training at full width (the flagship config, batch 4 x 1024, one
+   batch from the seed): the kernel path's loss and grads against the
+   attention backward in 'xla' mode, remat bit-identical to no remat, 10
+   SGD and 10 Adam steps with the loss falling, the median step time,
+   tokens/s, model FLOPs per token and their share of the bf16 peak,
+   peak memory and launches per step.
+10. The explicit dp combine: 2 ranks of a ``LocalMesh`` on the card, each
+   on half the batch, grads through ``allreduce(algorithm="ring")`` (K1),
+   equal to the single-process grads within the stated limit. K1-K5's
+   launch counts are set to 0 just before phase 8 and read after phase
+   10: each must have run.
+11. One JSON line of kernel figures, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is non-zero and no result line
@@ -62,6 +83,7 @@ is printed.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1348,6 +1370,494 @@ def phase_paged_serving(dev, counted) -> dict:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: K3, K4 and K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+def _bwd_bound(which: int, h, lq, lk, d, esize, pairs):
+    """(bound ms, bound_by) of K3/K4/K5 on one folded block: the bytes it
+    must move (q, k and for K4/K5 v in the input dtype, f32 do' and rows,
+    int32 positions read once; f32 outputs written once) over the HBM
+    rate, against its products (1, 3 or 4 of 2*d FLOPs per unmasked
+    pair of this run's positions) over the bf16 dense peak."""
+    pos = (lq + lk) * 4
+    if which == 3:
+        nbytes = (h * lq * d + h * lk * d) * esize + 2 * h * lq * 4 + pos
+        flops = 2 * d * pairs
+    else:
+        nbytes = ((h * lq * d + 2 * h * lk * d) * esize + h * lq * d * 4
+                  + 3 * h * lq * 4 + pos)
+        nbytes += h * lq * d * 4 if which == 4 else 2 * h * lk * d * 4
+        flops = (3 if which == 4 else 4) * 2 * d * pairs
+    bound_b = nbytes / PEAK_HBM_BYTES_S * 1e3
+    bound_f = flops / PEAK_BF16_FLOPS * 1e3
+    return max(bound_b, bound_f), ("bytes" if bound_b >= bound_f
+                                   else "operations")
+
+
+def phase_k345(dev) -> dict:
+    """K3 (tie counts), K4 (dq) and K5 (dk, dv) against their plain
+    versions at the training path's shapes: 64 folded heads x 1024 x 64
+    bf16 causal, the same non-causal and in f32; GQA group 4 through the
+    host fold (the GQA+RoPE config's 32 query / 8 K/V heads at L 128);
+    ragged Lq/Lk; the ring step (a second, fully masked block after a
+    first, and fully masked rows from the initial state); and structural
+    ties (duplicated keys, a zero q row, m preset to the row max) on
+    scores that are exact in f32. Each side takes its own forward's m'
+    (K2's for the kernels, the plain forward's for the plain versions):
+    K3's counts must equal the plain counts exactly, and be >= 1 on every
+    row that starts from the initial state (K3's recomputed scores tie
+    K2's m'). K4 and K5 get the same operands as their plain versions
+    and must agree within rtol 1e-4 and atol 1e-4 per unit of the
+    largest |value|: f32 sums of up to 1024 products in another order."""
+    import torch
+    import torch.nn.functional as F
+    from rlo_tpu_torch.kernels import flash as kf
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    scale, d = 0.125, 64
+    h, n = BWD_SHAPE
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def block(h, lq, lk, dtype, *, carried=False, groups=1, kp_off=0,
+              exact=False):
+        """Folded operands: h heads, groups query groups of lq rows."""
+        q, k, v = rand(h, groups * lq, d), rand(h, lk, d), rand(h, lk, d)
+        if exact:  # multiples of 1/8: every score exact, ties structural
+            q, k = (torch.round(t * 4) / 8 for t in (q, k))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        n = groups * lq
+        if carried:
+            m, l, o = rand(h, 1, n), rand(h, 1, n).abs() + 0.5, rand(h, n, d)
+        else:
+            m = torch.full((h, 1, n), kf.NEG, device=dev)
+            l, o = torch.zeros(h, 1, n, device=dev), torch.zeros(h, n, d,
+                                                                 device=dev)
+        qp = torch.arange(lk - lq, lk, dtype=torch.int32,
+                          device=dev).repeat(groups).reshape(1, n)
+        kp = (torch.arange(lk, dtype=torch.int32, device=dev)
+              + kp_off).reshape(1, lk)
+        return [q, k, v, m, l, o, qp, kp]
+
+    cases = [("path", block(h, n, n, torch.bfloat16), True),
+             ("non-causal", block(h, n, n, torch.bfloat16), False),
+             ("f32", block(h, n, n, torch.float32), True),
+             ("GQA group 4", block(8, 128, 128, torch.bfloat16, groups=4),
+              True),
+             ("ragged", block(h, n - 24, n - 24, torch.bfloat16), True),
+             ("ragged 129x77", block(16, 129, 77, torch.float32,
+                                     carried=True), True),
+             ("fully masked rows", block(h, n, n, torch.bfloat16,
+                                         kp_off=n), True)]
+    # the ring step: a second block, all of it past every query, carried
+    # from a first
+    first = block(h, n, n, torch.bfloat16)
+    with torch.no_grad():
+        carried = kf.flash_block_update_hld(*first, causal=True, scale=scale)
+    ring = block(h, n, n, torch.bfloat16, kp_off=n)
+    ring[0], ring[3:6] = first[0], list(carried)
+    cases.append(("ring step", ring, True))
+    # structural ties: duplicated keys, a zero q row, m = the row max
+    ties = block(8, 256, 256, torch.float32, exact=True)
+    ties[1][:, 200] = ties[1][:, 100]
+    ties[0][:, 7] = 0.0
+    mx = kf.flash_block_update_hld_plain(*ties, causal=True,
+                                         scale=scale)[0]
+    ties[3] = torch.where(torch.arange(256, device=dev) % 3 == 0, mx,
+                          ties[3])
+    cases.append(("structural ties", ties, True))
+    cases.append(("structural ties, non-causal", ties, False))
+
+    worst = {3: 0.0, 4: 0.0, 5: 0.0}
+    ties_seen = 0
+    for name, (q, k, v, m, l, o, qp, kp), causal in cases:
+        kw = dict(causal=causal, scale=scale)
+        with torch.no_grad():
+            m2k = kf.flash_block_update_hld(q, k, v, m, l, o, qp, kp, **kw)[0]
+            m2p = kf.flash_block_update_hld_plain(q, k, v, m, l, o, qp, kp,
+                                                  **kw)[0]
+        cnt = kf.rowstats(q, k, m2k, qp, kp, **kw)
+        cnt_p = kf.rowstats_plain(q, k, m2p, qp, kp, **kw)
+        hq, nq = q.shape[0], q.shape[1]
+        dl2, do2, route = rand(hq, 1, nq), rand(hq, nq, d), rand(hq, 1, nq)
+        ops = (q, k, v, m2k, dl2, do2, route, qp, kp)
+        dq, (dk, dv) = kf.bwd_dq(*ops, **kw), kf.bwd_dkv(*ops, **kw)
+        pdq, (pdk, pdv) = kf.bwd_dq_plain(*ops, **kw), \
+            kf.bwd_dkv_plain(*ops, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(cnt, cnt_p), f"K3 counts differ from the plain "
+                                       f"counts ({name})")
+        if bool((m == kf.NEG).all()):
+            check(bool((cnt >= 1).all()), f"K3 found no tie with K2's m' on "
+                                          f"some row ({name})")
+        ties_seen += int((cnt > 1).sum())
+        worst[3] = max(worst[3], abs_err(cnt, cnt_p))
+        for what, g, w, key in (("dq", dq, pdq, 4), ("dk", dk, pdk, 5),
+                                ("dv", dv, pdv, 5)):
+            check(bool(torch.isfinite(g).all()) and _close(g, w, 1e-4, 1e-4),
+                  f"K{key} {what} differs from its plain version ({name})")
+            worst[key] = max(worst[key], abs_err(g, w))
+    check(ties_seen > 0, "no row with several tied positions was exercised")
+    print(f"[k3-k5] {len(cases)} cases ({h} folded heads x {n} x 64 "
+          f"bf16/f32, causal and not, GQA group 4, ragged, the ring step, "
+          f"fully masked rows, structural ties: {ties_seen} rows with "
+          f"several tied positions): K3 counts equal the plain counts "
+          f"exactly; K4/K5 within rtol 1e-4 of the plain versions; max "
+          f"|err| K4 {worst[4]:.3g}, K5 {worst[5]:.3g}")
+
+    # times at the path's shape: causal 64 x 1024 x 64 bf16
+    q, k, v, m, l, o, qp, kp = cases[0][1]
+    kw = dict(causal=True, scale=scale)
+    with torch.no_grad():
+        m2 = kf.flash_block_update_hld(q, k, v, m, l, o, qp, kp, **kw)[0]
+    ops = (q, k, v, m2, rand(h, 1, n), rand(h, n, d),
+           torch.zeros(h, 1, n, device=dev), qp, kp)
+    q4, k4, v4 = (t.unsqueeze(0).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                         scale=scale)
+    dout = torch.randn(out.shape, generator=gen, device=dev,
+                       dtype=out.dtype)
+    lib = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout,
+                                              retain_graph=True), iters=10)
+    pairs = h * int((kp[0][None, :] <= qp[0][:, None]).sum())
+    stats = {}
+    for which, kern, plain, library in (
+            (3, lambda: kf.rowstats(q, k, m2, qp, kp, **kw),
+             lambda: kf.rowstats_plain(q, k, m2, qp, kp, **kw), None),
+            (4, lambda: kf.bwd_dq(*ops, **kw),
+             lambda: kf.bwd_dq_plain(*ops, **kw), lib),
+            (5, lambda: kf.bwd_dkv(*ops, **kw),
+             lambda: kf.bwd_dkv_plain(*ops, **kw), lib)):
+        ms = time_ms(kern, iters=10)
+        plain_ms = time_ms(plain, iters=5)
+        bound, by = _bwd_bound(which, h, n, n, d, 2, pairs)
+        stats[f"K{which}"] = dict(ms=ms, plain_ms=plain_ms,
+                                  library_ms=library, bound_ms=bound,
+                                  bound_by=by, max_abs_err=worst[which])
+        print(f"[k3-k5] K{which} causal {h} heads x {n} x 64 bf16: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), kernel at {100 * bound / ms:.1f}% of bound")
+    print(f"[k3-k5] scaled_dot_product_attention backward at the same "
+          f"shape (the yardstick of K4+K5, "
+          f"{stats['K4']['ms'] + stats['K5']['ms']:.4f} ms): {lib:.4f} ms")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the VJP in its three modes
+# ---------------------------------------------------------------------------
+
+#: the bf16 grads of phase 8 (of bf16 q, k and v)
+BF16_GRADS = ("dq", "dk", "dv", "dk1", "dv1", "dk2", "dv2")
+
+
+def _grads_close(got, want, names, what) -> float:
+    """bf16 grads within two bf16 units in the last place (rtol 2^-7)
+    and atol 1e-3 per unit of the largest |value|: both sides round an
+    f32 sum to bf16, and a last-bit difference in f32 may round to the
+    other neighbour; f32 grads within rtol 1e-4 / atol 1e-4 per unit.
+    Returns the max |err|."""
+    import torch
+    worst = 0.0
+    for g, w, name in zip(got, want, names):
+        g, w = g.float(), w.float()
+        tol = (2 ** -7, 1e-3) if name in BF16_GRADS else (1e-4, 1e-4)
+        check(bool(torch.isfinite(g).all()) and _close(g, w, *tol),
+              f"{what}: {name} differs from the xla mode")
+        worst = max(worst, abs_err(g, w))
+    return worst
+
+
+def phase_vjp(dev) -> dict:
+    """``FlashBlockUpdate`` in its three backward modes at 64 folded
+    heads x 1024 x 64 bf16, causal: one block update from a carried
+    state, under a loss on raw (m', l', o') ('pallas' against 'xla') and
+    under the normalised o'/l' (all three; 'pallas_fast' is exact only
+    there), and a chain of two updates whose second block is fully
+    masked (the ring step), normalised. (m', l', o') are the same bits in
+    every mode (K2 runs the forward of all three)."""
+    import torch
+    from rlo_tpu_torch.kernels import flash as kf
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    (h, n), d, scale = BWD_SHAPE, 64, 0.125
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    q, k1, v1, k2, v2 = (rand(h, n, d).to(torch.bfloat16) for _ in range(5))
+    m, l, o = rand(h, 1, n), rand(h, 1, n).abs() + 0.5, rand(h, n, d)
+    qp = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, n)
+    w = torch.cos(torch.arange(h * n * d, device=dev).reshape(h, n, d)
+                  * 0.01)
+
+    def normed(o2, l2):
+        return ((o2 / l2.transpose(1, 2)) * w).sum()
+
+    def single(mode, raw):
+        ts = [t.detach().clone().requires_grad_(True)
+              for t in (q, k1, v1, m, l, o)]
+        m2, l2, o2 = kf.flash_block_update_hld(*ts, qp, qp, causal=True,
+                                               scale=scale, bwd=mode)
+        loss = ((o2 * w).sum() + torch.sin(l2).sum() + (m2 * 0.3).sum()) \
+            if raw else normed(o2, l2)
+        return (m2.detach(), l2.detach(), o2.detach()), \
+            torch.autograd.grad(loss, ts)
+
+    def chain(mode):
+        ts = [t.detach().clone().requires_grad_(True)
+              for t in (q, k1, v1, k2, v2)]
+        st = (torch.full((h, 1, n), kf.NEG, device=dev),
+              torch.zeros(h, 1, n, device=dev),
+              torch.zeros(h, n, d, device=dev))
+        st = kf.flash_block_update_hld(ts[0], ts[1], ts[2], *st, qp, qp,
+                                       causal=True, scale=scale, bwd=mode)
+        st = kf.flash_block_update_hld(ts[0], ts[3], ts[4], *st, qp,
+                                       qp + n, causal=True, scale=scale,
+                                       bwd=mode)
+        return torch.autograd.grad(normed(st[2], st[1]), ts)
+
+    names6 = ("dq", "dk", "dv", "dm", "dl", "do")
+    worst = 0.0
+    vals_x, raw_x = single("xla", True)
+    vals_p, raw_p = single("pallas", True)
+    worst = max(worst, _grads_close(raw_p, raw_x, names6,
+                                    "pallas, raw cotangents"))
+    _, norm_x = single("xla", False)
+    for mode in ("pallas", "pallas_fast"):
+        vals, g = single(mode, False)
+        for a, b in zip(vals, vals_x):
+            check(same_bits(a, b), f"(m', l', o') of {mode} differ from "
+                                   f"the xla mode's")
+        worst = max(worst, _grads_close(g, norm_x, names6,
+                                        f"{mode}, normalised"))
+    for a, b in zip(vals_p, vals_x):
+        check(same_bits(a, b), "(m', l', o') of pallas differ")
+    chain_x = chain("xla")
+    names5 = ("dq", "dk1", "dv1", "dk2", "dv2")
+    for mode in ("pallas", "pallas_fast"):
+        worst = max(worst, _grads_close(chain(mode), chain_x, names5,
+                                        f"{mode}, chain of two"))
+    torch.cuda.synchronize()
+    print(f"[vjp] {h} heads x {n} x 64 bf16 causal: 'pallas' and "
+          f"'pallas_fast' against 'xla' on one update (raw and normalised "
+          f"cotangents) and a chain of two (ring step): values bit-identical "
+          f"across modes, grads within 2 bf16 ulps (dq/dk/dv) or rtol 1e-4 "
+          f"(dm/dl/do); max |err| {worst:.3g}")
+    return {"max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training step at full width; phase 10: the dp combine
+# ---------------------------------------------------------------------------
+
+#: the flagship training batch (benchmarks/train_bench.py:65-67)
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+#: (folded heads, length) of phases 7 and 8: the training path's
+#: attention (batch 4 x 16 heads, L 1024)
+BWD_SHAPE = (64, 1024)
+#: per-tensor relative L2 error of the kernel path's grads against the
+#: same step with the attention backward in 'xla' mode: dq/dk/dv leave
+#: each layer's attention in bf16 on both sides, rounded from f32 sums
+#: taken in another order, so a last-bit difference can move one bf16
+#: unit (2^-8) and spread through the backward of the layers below
+GRAD_REL_LIMIT = 1e-2
+#: ... of the 2-rank dp combine against the single-process batch-4
+#: grads: each rank's GEMMs have half the rows, so cuBLAS may sum in
+#: another order and bf16 activations round differently
+DP_REL_LIMIT = 2e-2
+SGD_LR, ADAM_LR = 0.05, 3e-4
+
+
+def _attention_xla(q, k, v):
+    """The model's causal attention with the flash backward in 'xla'
+    mode (autograd through K2's plain version): the same fold and forward
+    (K2) as ``_local_attention``, the oracle backward."""
+    import torch
+    from rlo_tpu_torch.kernels import flash as kf
+    b, L, nh, hd = q.shape
+
+    def fold(t):
+        return t.transpose(0, 1).reshape(L, b * t.shape[2], hd) \
+            .transpose(0, 1).contiguous()
+
+    H, dev = b * nh, q.device
+    pos = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, L)
+    _, l, o = kf.flash_block_update_hld(
+        fold(q), fold(k), fold(v),
+        torch.full((H, 1, L), kf.NEG, device=dev),
+        torch.zeros(H, 1, L, device=dev), torch.zeros(H, L, hd, device=dev),
+        pos, pos, causal=True, scale=1.0 / hd ** 0.5, bwd="xla")
+    lt = l.transpose(1, 2)
+    out = (o / torch.where(lt > 0, lt, torch.ones_like(lt))).transpose(0, 1)
+    return out.to(q.dtype).reshape(L, b, nh, hd).transpose(0, 1)
+
+
+def _rel_l2(got, want) -> list:
+    from rlo_tpu_torch.models.transformer import tree_leaves
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        den = float(w.double().norm())
+        out.append(float((g.double() - w.double()).norm()) / max(den,
+                                                                   1e-30))
+    return out
+
+
+def phase_train(dev, flash_fns) -> dict:
+    """The flagship training step at full width (vocab 32768, d 1024, 16
+    heads, 8 layers, d_ff 4096, bf16, f32 params; batch 4 x 1024, one
+    batch from the seed): the kernel path's loss and grads (K2 forward,
+    K4/K5 backward through ``flash_attention``'s 'pallas_fast') against
+    the same step with the attention backward in 'xla' mode (losses
+    equal, grads within GRAD_REL_LIMIT per tensor); ``remat=True``
+    against ``remat=False`` (loss and grads bit-identical); 10 SGD steps
+    and 10 ``torch.optim.Adam`` steps (loss finite at every step, lower
+    after than before); the median step time, tokens/s, model FLOPs per
+    token (benchmarks/train_bench.py:40-42) and their share of the bf16
+    dense peak, peak device memory and launches per step."""
+    import dataclasses
+    import torch
+    from rlo_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(**SERVE_CFG)
+    params = tt.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tt.tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+
+    loss_k, grads_k = tt.grads_and_loss(params, tokens, cfg)
+    orig = tt._local_attention
+    tt._local_attention = _attention_xla
+    try:
+        loss_x, grads_x = tt.grads_and_loss(params, tokens, cfg)
+    finally:
+        tt._local_attention = orig
+    check(bool(torch.isfinite(loss_k)) and torch.equal(loss_k, loss_x),
+          f"the kernel path's loss {float(loss_k)} != the xla mode's "
+          f"{float(loss_x)}")
+    rel = _rel_l2(grads_k, grads_x)
+    check(all(torch.isfinite(g).all() for g in tt.tree_leaves(grads_k)),
+          "non-finite grads on the kernel path")
+    check(max(rel) <= GRAD_REL_LIMIT,
+          f"kernel-path grads differ from the xla mode's: max relative L2 "
+          f"{max(rel):.3g} > {GRAD_REL_LIMIT}")
+    del grads_x
+    print(f"[train] {n_params} params, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"loss {float(loss_k):.6f} equal with the attention backward in "
+          f"xla mode; per-tensor relative L2 error of the grads max "
+          f"{max(rel):.3g}, median {statistics.median(rel):.3g} (limit "
+          f"{GRAD_REL_LIMIT})")
+
+    loss_r, grads_r = tt.grads_and_loss(
+        params, tokens, dataclasses.replace(cfg, remat=True))
+    diffs = [float((a - b).abs().max()) for a, b in
+             zip(tt.tree_leaves(grads_r), tt.tree_leaves(grads_k))]
+    same = torch.equal(loss_r, loss_k) and all(
+        torch.equal(a, b) for a, b in zip(tt.tree_leaves(grads_r),
+                                          tt.tree_leaves(grads_k)))
+    print(f"[train] remat=True against remat=False: loss |delta| "
+          f"{float((loss_r - loss_k).abs())}, grads max |delta| "
+          f"{max(diffs)}")
+    check(same, "remat changed the loss or the grads")
+    del grads_r
+
+    walls, sgd = [], []
+    p = params
+    before = {fn.__name__: fn.launches for fn in flash_fns}
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, loss = tt.train_step(p, tokens, cfg, lr=SGD_LR)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        sgd.append(float(loss))
+    step_counts = {fn.__name__: (fn.launches - before[fn.__name__]) / 10
+                   for fn in flash_fns}
+    del p
+    check(all(map(math.isfinite, sgd)) and sgd[-1] < sgd[0],
+          f"SGD losses not finite and falling: {sgd}")
+    step_ms = statistics.median(walls[1:])
+    p = tt.init_params(cfg, seed=SEED, device=dev)
+    adam = torch.optim.Adam(tt.tree_leaves(p), lr=ADAM_LR)
+    adam_l = []
+    for _ in range(10):
+        p, loss = tt.train_step_optim(p, adam, tokens, cfg)
+        adam_l.append(float(loss))
+    del p, adam
+    check(all(map(math.isfinite, adam_l)) and adam_l[-1] < adam_l[0],
+          f"Adam losses not finite and falling: {adam_l}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = n_tok / step_ms * 1e3
+    fpt = 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model \
+        * TRAIN_SEQ * 0.5
+    share = fpt * tok_s / PEAK_BF16_FLOPS
+    name = torch.cuda.get_device_name(0)
+    print(f"[train] 10 SGD steps (lr {SGD_LR}): "
+          f"{' '.join(f'{x:.4f}' for x in sgd)}")
+    print(f"[train] 10 Adam steps (lr {ADAM_LR}): "
+          f"{' '.join(f'{x:.4f}' for x in adam_l)}")
+    print(f"[train] median SGD step {step_ms:.3f} ms ({tok_s:.0f} tokens/s); "
+          f"{fpt:.4g} model FLOPs per token, {100 * share:.2f}% of the "
+          f"{name}'s 989 TFLOP/s bf16 dense peak; peak device memory "
+          f"{peak:.2f} GiB; launches per step {json.dumps(step_counts)}")
+    return {"params": params, "tokens": tokens, "cfg": cfg, "loss": loss_k,
+            "grads": grads_k,
+            "stats": {"n_params": n_params, "loss": float(loss_k),
+                      "grad_rel_l2_max": max(rel),
+                      "remat_max_abs_delta": max(diffs),
+                      "sgd_losses": sgd, "adam_losses": adam_l,
+                      "step_ms_median": step_ms, "tokens_per_s": tok_s,
+                      "flops_per_token": fpt, "peak_share": share,
+                      "peak_mem_gib": peak,
+                      "launches_per_step": step_counts}}
+
+
+def phase_dp(dev, train) -> dict:
+    """The explicit dp combine: a 2-rank ``LocalMesh`` on the card, each
+    rank ``grads_and_loss`` on half the batch (2 x 1024) with
+    ``dp_axis``, ``grad_algorithm='ring'`` (K1 per step). Both ranks'
+    combined grads are the same bits, and equal the single-process
+    batch-4 grads within DP_REL_LIMIT per tensor; the averaged loss
+    within rtol 1e-3."""
+    import torch
+    from rlo_tpu_torch.kernels import reduce as k1
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.parallel.mesh import LocalMesh
+
+    params, tokens, cfg = train["params"], train["tokens"], train["cfg"]
+    mesh = LocalMesh((2,), ("dp",), device=dev)
+    before = k1.fused_combine.launches
+    t0 = time.perf_counter()
+    outs = mesh.run(lambda axes, t: tt.grads_and_loss(
+        params, t, cfg, dp_axis=axes["dp"], grad_algorithm="ring"),
+        [tokens[:2], tokens[2:]])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    k1_n = k1.fused_combine.launches - before
+    (l0, g0), (l1, g1) = outs
+    check(torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(
+        tt.tree_leaves(g0), tt.tree_leaves(g1))),
+        "the two dp ranks hold different combined grads")
+    rel = _rel_l2(g0, train["grads"])
+    lrel = abs(float(l0) - float(train["loss"])) / abs(float(train["loss"]))
+    check(k1_n > 0, "K1 did not run in the dp ring combine")
+    check(max(rel) <= DP_REL_LIMIT and lrel <= 1e-3,
+          f"dp combine differs from the single-process step: max relative "
+          f"L2 {max(rel):.3g} (limit {DP_REL_LIMIT}), loss rel {lrel:.3g}")
+    print(f"[dp] 2 ranks x (2 x 1024) on one card, ring combine ({k1_n} K1 "
+          f"launches) in {ms:.1f} ms: grads equal the batch-4 step within "
+          f"max relative L2 {max(rel):.3g} (limit {DP_REL_LIMIT}), loss "
+          f"{float(l0):.6f} vs {float(train['loss']):.6f}")
+    return {"ms": ms, "k1_launches": k1_n, "grad_rel_l2_max": max(rel),
+            "loss_rel": lrel}
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -1460,11 +1970,35 @@ def main() -> int:
     paged, paged_launches = phase_paged_serving(dev, counted)
     print(f"[paged] paged serving phase took {time.perf_counter() - t0:.1f} "
           f"s")
+    torch.cuda.empty_cache()
+
+    k345_stats = phase_k345(dev)
+    torch.cuda.empty_cache()
+    # the training path: the VJP modes, the full-width step, the dp combine
+    trained = (k1.fused_combine, k2.flash_block_update_hld, k2.rowstats,
+               k2.bwd_dq, k2.bwd_dkv)
+    for fn in trained:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    vjp = phase_vjp(dev)
+    torch.cuda.empty_cache()
+    train = phase_train(dev, trained[1:])
+    dp = phase_dp(dev, train)
+    train_launches = {fn.__name__: fn.launches for fn in trained}
+    print(f"[train] training path (phases 8-10) took "
+          f"{time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(train_launches)}")
+    for fn in trained:
+        check(train_launches[fn.__name__] > 0,
+              f"{fn.__name__} was not launched on the training path")
+    del train["params"], train["grads"]
+    torch.cuda.empty_cache()
 
     print(json.dumps({"k1_ring_chunk": k1_stats["ring_chunk"],
                       "facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
-                      "k9_int8": k9_stats["int8"]}))
+                      "k9_int8": k9_stats["int8"], "vjp": vjp,
+                      "training": train["stats"], "dp_combine": dp}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
@@ -1490,7 +2024,16 @@ def main() -> int:
                      paged_launches["write_kv_page_row"], pw_stats["K10"]),
         kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:402",
-                     paged_launches["write_kv_page_block"], pw_stats["K11"])]}))
+                     paged_launches["write_kv_page_block"], pw_stats["K11"]),
+        kernel_entry("K3 rowstats", FLASH_SOURCE,
+                     "rlo_tpu/pallas/flash.py:249",
+                     train_launches["rowstats"], k345_stats["K3"]),
+        kernel_entry("K4 bwd_dq", FLASH_SOURCE,
+                     "rlo_tpu/pallas/flash.py:296",
+                     train_launches["bwd_dq"], k345_stats["K4"]),
+        kernel_entry("K5 bwd_dkv", FLASH_SOURCE,
+                     "rlo_tpu/pallas/flash.py:320",
+                     train_launches["bwd_dkv"], k345_stats["K5"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,32 +1,39 @@
-"""The flagship decoder-only transformer, as the serving path runs it.
+"""The flagship decoder-only transformer: serving layer math and training.
 
-The port of the layer math of ``rlo_tpu/models/transformer.py``:
-``TransformerConfig``, ``init_params`` (the same parameter tree and
-shapes, drawn from a ``torch.Generator``), ``_rmsnorm``, ``_sincos``,
-``embed_tokens``, ``_rope``, ``_local_attention`` (causal attention
-through the flash kernel K2, batch folded into the head axis) and
-``apply_layer`` (attention + dense FFN, with the ``attention=`` hook the
-KV-cache decode uses).
+The port of ``rlo_tpu/models/transformer.py``: ``TransformerConfig``,
+``init_params`` (the same parameter tree and shapes, drawn from a
+``torch.Generator``), ``_rmsnorm``, ``_sincos``, ``embed_tokens``,
+``_rope``, ``_local_attention`` (causal attention through the flash
+kernels, batch folded into the head axis) and ``apply_layer`` (attention
++ dense FFN, with the ``attention=`` hook the KV-cache decode uses); and
+the single-card training half: ``next_token_targets``, ``nll_sum``,
+``nll_sum_chunked``, ``forward``, ``loss_fn``, ``grads_and_loss`` (a
+functional gradient), ``train_step`` (SGD) and ``train_step_optim`` (any
+``torch.optim`` optimizer), with ``remat`` and ``loss_vocab_chunk`` and
+the explicit data-parallel gradient combine over an ``Axis``.
 
 Parameters are a plain dict of tensors in the JAX package's layouts
 (``wqkv`` (d, 3, d), ``wq`` (d, d) + ``wkv`` (d, 2, kv_heads*head_dim),
 ``w1`` (d, d_ff), ``w2`` (d_ff, d), ``embed`` (vocab, d) tied with the
 output head), float32 as initialised. Activations run in
 ``cfg.act_dtype``; each weight is cast to it where it is used, so a
-tree cast once up front (``cast_params``) gives the same numbers.
+tree cast once up front (``cast_params``) gives the same numbers, and
+gradients come back in float32.
 
-Sequence, tensor and expert parallelism and mixture-of-experts layers
-belong to later slices of the port and raise ``NotImplementedError``.
+Sequence-, tensor- and expert-parallel training and mixture-of-experts
+layers belong to later slices of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -53,6 +60,13 @@ class TransformerConfig:
     # 'int8' (per-(position, head) symmetric quantisation with f32
     # scale sidecars)
     kv_cache_dtype: Optional[str] = None
+    # rematerialise each layer in the backward (torch.utils.checkpoint):
+    # about one more forward of FLOPs for O(layers) less activation memory
+    remat: bool = False
+    # cross-entropy vocab chunking, a memory lever (None/0 = off): N > 0
+    # streams the LM head's vocab axis in N-wide chunks through an online
+    # logsumexp and never holds the (batch, block, vocab) logits
+    loss_vocab_chunk: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -211,8 +225,9 @@ def _local_attention(q, k, v):
     """Unsharded causal attention: q (b, L, H, D); k/v (b, L, Hkv, D)
     with Hkv dividing H (query head h attends K/V head h // (H/Hkv)).
     The batch folds into the head axis, so the whole batch is one
-    launch of the flash kernel K2 (``kernels.flash.flash_attention``);
-    the fold keeps the group mapping (b*H + h -> b*Hkv + h//G)."""
+    launch of the flash kernel K2 (``kernels.flash.flash_attention``),
+    and its backward one of K4 and one of K5; the fold keeps the group
+    mapping (b*H + h -> b*Hkv + h//G)."""
     from rlo_tpu_torch.kernels.flash import flash_attention
     b, L, nh, hd = q.shape
 
@@ -235,9 +250,11 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
                        ("ep_axis", ep_axis)):
         if axis is not None:
             raise NotImplementedError(
-                f"{name} is not ported yet: sequence parallelism comes "
-                f"with the training slice, tensor and expert parallel "
-                f"decode with the MoE/TP/EP slice")
+                f"{name} is not ported yet: sequence-, tensor- and "
+                f"expert-parallel training need several processes on "
+                f"several cards and come with the multi-card training "
+                f"slice, tensor and expert parallel decode with the "
+                f"MoE/TP/EP slice")
     _dense_only(cfg)
     b, blk, _ = x.shape
     dt = x.dtype
@@ -269,3 +286,223 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
     h = F.gelu(h @ layer["w1"].to(dt), approximate="tanh")
     x = x + h @ layer["w2"].to(dt)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Training: loss, gradients and the step
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> list:
+    """The tensors of a params (or grads) tree, in a fixed order (dict
+    insertion order, then list order): what ``train_step_optim``'s
+    optimizer is built over."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves: Iterator):
+    """``tree``'s structure with its leaves taken from ``leaves`` in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, leaves) for v in tree]
+    return next(leaves)
+
+
+def _single_card_training(sp_axis, tp_axis, ep_axis) -> None:
+    for name, axis in (("sp_axis", sp_axis), ("tp_axis", tp_axis),
+                       ("ep_axis", ep_axis)):
+        if axis is not None:
+            raise NotImplementedError(
+                f"{name} training is not ported yet: sequence-, tensor- "
+                f"and expert-parallel training put a collective inside "
+                f"the backward, which needs several processes on several "
+                f"cards (on one card's LocalMesh it would wait on the "
+                f"autograd thread); it comes with a later slice of the "
+                f"port")
+
+
+def next_token_targets(tokens):
+    """Next-token labels: shift left, zero-pad, and mask each row's
+    final position. Returns (targets, valid f32)."""
+    b, blk = tokens.shape
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
+    valid = torch.ones((b, blk), dtype=torch.float32, device=tokens.device)
+    valid[:, -1] = 0.0
+    return targets, valid
+
+
+def nll_sum(logits, targets, valid):
+    """Summed masked next-token NLL and the valid-token count."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return (nll * valid).sum(), valid.sum()
+
+
+def nll_sum_chunked(x, embed, targets, valid, chunk: int):
+    """``nll_sum`` from the pre-head activations with the vocab axis
+    streamed in ``chunk``-wide slices: nll = logsumexp(x . E^T) -
+    x . E[target], the logsumexp accumulated online (a running max and
+    sum of exps). The (b, blk, vocab) logits never exist; each chunk
+    step runs under ``torch.utils.checkpoint``, so the backward
+    recomputes a chunk's logits instead of keeping them. Products take
+    the activation dtype's values and sum in f32, as the JAX package's
+    einsums with an f32 result do."""
+    v = embed.shape[0]
+    ed = embed.to(x.dtype)
+    xf = x.float()
+    tgt_logit = (xf * ed[targets.long()].float()).sum(-1)
+    b, blk = targets.shape
+    m = torch.full((b, blk), float("-inf"), dtype=torch.float32,
+                   device=x.device)
+    s = torch.zeros((b, blk), dtype=torch.float32, device=x.device)
+
+    def step(m, s, emb):
+        lg = xf @ emb.float().t()
+        m2 = torch.maximum(m, lg.amax(dim=-1))
+        return m2, s * torch.exp(m - m2) + torch.exp(
+            lg - m2[..., None]).sum(dim=-1)
+
+    for c0 in range(0, v, chunk):
+        m, s = checkpoint(step, m, s, ed[c0:c0 + chunk],
+                          use_reentrant=False)
+    nll = m + torch.log(s) - tgt_logit
+    return (nll * valid).sum(), valid.sum()
+
+
+def _features(params: dict, tokens, cfg: TransformerConfig):
+    """The body up to and including the final norm: (b, blk, d) pre-head
+    activations and the aux loss (0 for dense layers). ``cfg.remat``
+    checkpoints each layer."""
+    b, blk = tokens.shape
+    pos = torch.arange(blk, device=tokens.device)
+    x = embed_tokens(params["embed"], tokens, pos, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def block(x, layer):
+        return apply_layer(x, layer, cfg, pos=pos)
+
+    for layer in params["layers"]:
+        if cfg.remat:
+            x, aux = checkpoint(block, x, layer, use_reentrant=False)
+        else:
+            x, aux = block(x, layer)
+        aux_total = aux_total + aux
+    return _rmsnorm(x, params["ln_f"]["g"]), aux_total
+
+
+def forward(params: dict, tokens, cfg: TransformerConfig,
+            sp_axis=None, tp_axis=None, ep_axis=None,
+            with_aux: bool = False):
+    """Next-token logits (f32), causal; (logits, aux) with ``with_aux``.
+    ``tokens`` (batch, block) integers."""
+    _single_card_training(sp_axis, tp_axis, ep_axis)
+    x, aux = _features(params, tokens, cfg)
+    logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
+    return (logits, aux) if with_aux else logits
+
+
+def loss_fn(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
+            tp_axis=None, ep_axis=None):
+    """Mean next-token cross-entropy over the valid positions (the dense
+    layers' aux term is 0). ``cfg.loss_vocab_chunk`` streams the head."""
+    _single_card_training(sp_axis, tp_axis, ep_axis)
+    x, _ = _features(params, tokens, cfg)
+    targets, valid = next_token_targets(tokens)
+    chunk = cfg.loss_vocab_chunk or 0
+    if chunk:
+        local, count = nll_sum_chunked(x, params["embed"], targets, valid,
+                                       chunk)
+    else:
+        logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
+        local, count = nll_sum(logits, targets, valid)
+    return local / count
+
+
+def grads_and_loss(params: dict, tokens, cfg: TransformerConfig,
+                   sp_axis=None, dp_axis=None, tp_axis=None, ep_axis=None,
+                   grad_algorithm: str = "psum", dcn_axis=None,
+                   dcn_algorithm: str = "psum"):
+    """(loss, grads): the gradient of ``loss_fn`` by
+    ``torch.autograd.grad`` over the parameter leaves, as a tree shaped
+    like ``params`` (nothing accumulates into ``.grad``, so ranks may
+    run this on threads at once).
+
+    ``dp_axis`` (an ``Axis``: a ``LocalMesh`` axis or a ``DistAxis``)
+    combines each rank's grads explicitly after the backward:
+    ``allreduce(g, dp_axis, algorithm=grad_algorithm) / n``, or with
+    ``dcn_axis`` (a second, slower data-parallel tier)
+    ``hierarchical_allreduce(g, dp_axis, dcn_axis,
+    dcn_algorithm=dcn_algorithm) / n``, n the product of the sizes; the
+    loss is averaged over the same axes."""
+    _single_card_training(sp_axis, tp_axis, ep_axis)
+    if dcn_axis is not None and dp_axis is None:
+        raise ValueError("dcn_axis requires dp_axis (it is the second, "
+                         "cross-slice tier of data parallelism)")
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss = loss_fn(_rebuild(params, iter(live)), tokens, cfg)
+    grads = list(torch.autograd.grad(loss, live))
+    loss = loss.detach()
+    if dp_axis is not None:
+        from rlo_tpu_torch.ops import device_collectives as dc
+        n = dp_axis.size * (1 if dcn_axis is None else dcn_axis.size)
+        if dcn_axis is not None:
+            grads = [dc.hierarchical_allreduce(
+                g, dp_axis, dcn_axis, dcn_algorithm=dcn_algorithm) / n
+                for g in grads]
+        else:
+            grads = [dc.allreduce(g, dp_axis, algorithm=grad_algorithm) / n
+                     for g in grads]
+        loss = dc.allreduce(loss, dp_axis, algorithm="psum") / dp_axis.size
+        if dcn_axis is not None:
+            loss = dc.allreduce(loss, dcn_axis, algorithm="psum") \
+                / dcn_axis.size
+    return loss, _rebuild(params, iter(grads))
+
+
+def train_step(params: dict, tokens, cfg: TransformerConfig,
+               lr: float = 1e-2, sp_axis=None, dp_axis=None, tp_axis=None,
+               ep_axis=None, grad_algorithm: str = "psum", dcn_axis=None,
+               dcn_algorithm: str = "psum"):
+    """One SGD step; returns (new_params, loss). ``params`` is left as
+    it was."""
+    loss, grads = grads_and_loss(params, tokens, cfg, sp_axis=sp_axis,
+                                 dp_axis=dp_axis, tp_axis=tp_axis,
+                                 ep_axis=ep_axis,
+                                 grad_algorithm=grad_algorithm,
+                                 dcn_axis=dcn_axis,
+                                 dcn_algorithm=dcn_algorithm)
+    with torch.no_grad():
+        new = [p - lr * g for p, g in zip(tree_leaves(params),
+                                          tree_leaves(grads))]
+    return _rebuild(params, iter(new)), loss
+
+
+def train_step_optim(params: dict, optimizer, tokens,
+                     cfg: TransformerConfig, sp_axis=None, dp_axis=None,
+                     tp_axis=None, ep_axis=None,
+                     grad_algorithm: str = "psum", dcn_axis=None,
+                     dcn_algorithm: str = "psum"):
+    """One step of ``optimizer``, a ``torch.optim`` optimizer built over
+    ``tree_leaves(params)`` (its state is the counterpart of the JAX
+    package's optax state). The grads of ``grads_and_loss`` are handed
+    to it as each leaf's ``.grad``, it steps, and the ``.grad`` fields
+    are cleared again. Updates ``params`` in place; returns
+    (params, loss)."""
+    loss, grads = grads_and_loss(params, tokens, cfg, sp_axis=sp_axis,
+                                 dp_axis=dp_axis, tp_axis=tp_axis,
+                                 ep_axis=ep_axis,
+                                 grad_algorithm=grad_algorithm,
+                                 dcn_axis=dcn_axis,
+                                 dcn_algorithm=dcn_algorithm)
+    leaves = tree_leaves(params)
+    for p, g in zip(leaves, tree_leaves(grads)):
+        p.grad = g
+    optimizer.step()
+    for p in leaves:
+        p.grad = None
+    return params, loss

@@ -51,16 +51,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for label, frags in GROUPS:
+    for label, frags in groups:
         if any(f in low for f in frags):
             return label
     return "other"
 
 
-def trace(fn) -> dict:
-    """Profile one ``fn()`` (after which the device is synchronised)."""
+def trace(fn, groups=GROUPS) -> dict:
+    """Profile one ``fn()`` (after which the device is synchronised),
+    with kernel times summed by ``groups`` (label, name fragments)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -82,17 +83,17 @@ def trace(fn) -> dict:
     device_us = sum(kernels.values())
     if device_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    groups = {}
+    by_group = {}
     for k, v in kernels.items():
-        g = _group(k)
-        ms, n = groups.get(g, (0.0, 0))
-        groups[g] = (ms + v / 1e3, n + calls[k])
+        g = _group(k, groups)
+        ms, n = by_group.get(g, (0.0, 0))
+        by_group[g] = (ms + v / 1e3, n + calls[k])
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "idle_share": max(0.0, 1 - device_us / wall_us),
             "kernel_launches": sum(calls.values()),
-            "groups_ms": {g: ms for g, (ms, _) in groups.items()},
-            "groups_launches": {g: n for g, (_, n) in groups.items()},
+            "groups_ms": {g: ms for g, (ms, _) in by_group.items()},
+            "groups_launches": {g: n for g, (_, n) in by_group.items()},
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
             "top_ops_ms": {k: v / 1e3 for k, v in sorted(
                 ops.items(), key=lambda kv: -kv[1])[:8]}}

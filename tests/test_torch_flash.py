@@ -94,10 +94,17 @@ def test_flash_attention_matches_jax(g):
 
 
 def test_forward_only():
+    """Without grad the update is the forward alone (no graph); with an
+    operand that requires grad the gradient flows to q, k and v (the
+    backward is tests/test_torch_flash_grad.py's subject)."""
     args = from_numpy(list(_inputs(2, 2, 4, 4, 16, seed=1)), "cpu")
-    args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        k2.flash_block_update_hld(*args)
+    assert all(t.grad_fn is None for t in k2.flash_block_update_hld(*args))
+    for t in args[:3]:
+        t.requires_grad_(True)
+    m2, l2, o2 = k2.flash_block_update_hld(*args, causal=True)
+    grads = torch.autograd.grad(o2.sum() + l2.sum(), args[:3])
+    assert all(g.shape == t.shape and bool(torch.isfinite(g).all())
+               and bool(g.abs().sum() > 0) for g, t in zip(grads, args[:3]))
 
 
 def test_rejects_bad_operands():
