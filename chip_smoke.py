@@ -61,7 +61,9 @@ Phases, each printing its own lines:
    ``scaled_dot_product_attention`` at the same shape.
 8. The VJP (``FlashBlockUpdate``) in its three modes at 64 x 1024 x 64:
    'pallas' and 'pallas_fast' against 'xla' on one update and on a chain
-   of two (the ring step); values bit-identical across the modes.
+   of two (the ring step); values bit-identical across the modes. The
+   exact-mode chain is K3's path (training runs 'pallas_fast', no K3):
+   K3's launch count is set to 0 just before it and read just after.
 9. Training at full width (the flagship config, batch 4 x 1024, one
    batch from the seed): the kernel path's loss and grads against the
    attention backward in 'xla' mode, remat bit-identical to no remat, 10
@@ -70,11 +72,11 @@ Phases, each printing its own lines:
    peak memory and launches per step.
 10. The explicit dp combine: 2 ranks of a ``LocalMesh`` on the card, each
    on half the batch, grads through ``allreduce(algorithm="ring")`` (K1),
-   equal to the single-process grads within the stated limit. K1-K5's
-   launch counts are set to 0 just before phase 8 and read after phase
-   10: each must have run.
-11. One JSON line of kernel figures, then the last line
-   ``{"ok": true, "device": {...}}``.
+   equal to the single-process grads within the stated limit. K1, K2,
+   K4 and K5's launch counts are set to 0 just before phase 9 and read
+   after phase 10: each must have run.
+11. One JSON line of kernel figures, each with the path whose launches
+   it counts, then the last line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is non-zero and no result line
 is printed.
@@ -82,6 +84,7 @@ is printed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -1578,7 +1581,9 @@ def phase_vjp(dev) -> dict:
     under the normalised o'/l' (all three; 'pallas_fast' is exact only
     there), and a chain of two updates whose second block is fully
     masked (the ring step), normalised. (m', l', o') are the same bits in
-    every mode (K2 runs the forward of all three)."""
+    every mode (K2 runs the forward of all three). The exact-mode chain
+    is K3's path (the training step runs 'pallas_fast' and no K3): its
+    K3 launches are counted from 0 around that chain alone."""
     import torch
     from rlo_tpu_torch.kernels import flash as kf
 
@@ -1638,16 +1643,25 @@ def phase_vjp(dev) -> dict:
         check(same_bits(a, b), "(m', l', o') of pallas differ")
     chain_x = chain("xla")
     names5 = ("dq", "dk1", "dv1", "dk2", "dv2")
-    for mode in ("pallas", "pallas_fast"):
-        worst = max(worst, _grads_close(chain(mode), chain_x, names5,
+    # K3's path: the exact-mode chained block update (the ring
+    # composition), counted in a window of its own
+    kf.rowstats.launches = 0
+    chain_p = chain("pallas")
+    k3_launches = kf.rowstats.launches
+    check(k3_launches > 0, "rowstats was not launched on the exact-mode "
+                           "chained block update")
+    for mode, g in (("pallas", chain_p),
+                    ("pallas_fast", chain("pallas_fast"))):
+        worst = max(worst, _grads_close(g, chain_x, names5,
                                         f"{mode}, chain of two"))
     torch.cuda.synchronize()
     print(f"[vjp] {h} heads x {n} x 64 bf16 causal: 'pallas' and "
           f"'pallas_fast' against 'xla' on one update (raw and normalised "
           f"cotangents) and a chain of two (ring step): values bit-identical "
           f"across modes, grads within 2 bf16 ulps (dq/dk/dv) or rtol 1e-4 "
-          f"(dm/dl/do); max |err| {worst:.3g}")
-    return {"max_abs_err": worst}
+          f"(dm/dl/do); max |err| {worst:.3g}; K3 launches on the "
+          f"exact-mode chain {k3_launches}")
+    return {"max_abs_err": worst, "k3_launches": k3_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1672,28 +1686,25 @@ DP_REL_LIMIT = 2e-2
 SGD_LR, ADAM_LR = 0.05, 3e-4
 
 
-def _attention_xla(q, k, v):
-    """The model's causal attention with the flash backward in 'xla'
-    mode (autograd through K2's plain version): the same fold and forward
-    (K2) as ``_local_attention``, the oracle backward."""
-    import torch
+@contextlib.contextmanager
+def _attention_backward_xla():
+    """For the duration, ``flash_attention`` (the model's attention)
+    hands its block update the 'xla' backward (autograd through K2's
+    plain version) in place of 'pallas_fast': the model's own fold and
+    K2 forward, the oracle backward. K2's launch count carries over."""
     from rlo_tpu_torch.kernels import flash as kf
-    b, L, nh, hd = q.shape
+    orig = kf.flash_block_update_hld
 
-    def fold(t):
-        return t.transpose(0, 1).reshape(L, b * t.shape[2], hd) \
-            .transpose(0, 1).contiguous()
+    def xla(*args, **kw):
+        return orig(*args, **dict(kw, bwd="xla"))
 
-    H, dev = b * nh, q.device
-    pos = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, L)
-    _, l, o = kf.flash_block_update_hld(
-        fold(q), fold(k), fold(v),
-        torch.full((H, 1, L), kf.NEG, device=dev),
-        torch.zeros(H, 1, L, device=dev), torch.zeros(H, L, hd, device=dev),
-        pos, pos, causal=True, scale=1.0 / hd ** 0.5, bwd="xla")
-    lt = l.transpose(1, 2)
-    out = (o / torch.where(lt > 0, lt, torch.ones_like(lt))).transpose(0, 1)
-    return out.to(q.dtype).reshape(L, b, nh, hd).transpose(0, 1)
+    xla.launches = orig.launches
+    kf.flash_block_update_hld = xla
+    try:
+        yield
+    finally:
+        kf.flash_block_update_hld = orig
+        orig.launches = xla.launches
 
 
 def _rel_l2(got, want) -> list:
@@ -1731,12 +1742,8 @@ def phase_train(dev, flash_fns) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     loss_k, grads_k = tt.grads_and_loss(params, tokens, cfg)
-    orig = tt._local_attention
-    tt._local_attention = _attention_xla
-    try:
+    with _attention_backward_xla():
         loss_x, grads_x = tt.grads_and_loss(params, tokens, cfg)
-    finally:
-        tt._local_attention = orig
     check(bool(torch.isfinite(loss_k)) and torch.equal(loss_k, loss_x),
           f"the kernel path's loss {float(loss_k)} != the xla mode's "
           f"{float(loss_x)}")
@@ -1894,9 +1901,11 @@ def build_all() -> None:
             f.result()
 
 
-def kernel_entry(name, source, replaces, launches, st) -> dict:
+def kernel_entry(name, source, replaces, launches, st, path) -> dict:
+    """One kernel of the ``kernels`` line; ``path`` names the run whose
+    launches it counts."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": launches, "path": path,
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"]}
@@ -1974,18 +1983,20 @@ def main() -> int:
 
     k345_stats = phase_k345(dev)
     torch.cuda.empty_cache()
-    # the training path: the VJP modes, the full-width step, the dp combine
-    trained = (k1.fused_combine, k2.flash_block_update_hld, k2.rowstats,
-               k2.bwd_dq, k2.bwd_dkv)
+    # the VJP modes; K3's launches are those of its exact-mode chain
+    vjp = phase_vjp(dev)
+    torch.cuda.empty_cache()
+    # the training path: the full-width step and the dp combine
+    trained = (k1.fused_combine, k2.flash_block_update_hld, k2.bwd_dq,
+               k2.bwd_dkv)
     for fn in trained:
         fn.launches = 0
     t0 = time.perf_counter()
-    vjp = phase_vjp(dev)
-    torch.cuda.empty_cache()
-    train = phase_train(dev, trained[1:])
+    train = phase_train(dev, (k2.flash_block_update_hld, k2.rowstats,
+                              k2.bwd_dq, k2.bwd_dkv))
     dp = phase_dp(dev, train)
     train_launches = {fn.__name__: fn.launches for fn in trained}
-    print(f"[train] training path (phases 8-10) took "
+    print(f"[train] training path (phases 9-10) took "
           f"{time.perf_counter() - t0:.1f} s, launches "
           f"{json.dumps(train_launches)}")
     for fn in trained:
@@ -2000,40 +2011,48 @@ def main() -> int:
                       "k9_int8": k9_stats["int8"], "vjp": vjp,
                       "training": train["stats"], "dp_combine": dp}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    # the path whose run counted each kernel's launches
+    facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
+    paged_p = "paged serving (phase 6)"
+    chain_p = "exact-mode chained block update (phase 8)"
+    train_p = "training step and dp combine (phases 9-10)"
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
                      dict(k1_stats["256MB"],
-                          max_abs_err=k1_stats["max_abs_err"])),
+                          max_abs_err=k1_stats["max_abs_err"]), facade_p),
         kernel_entry("K2 flash_block_update_hld", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:114",
-                     served["flash_block_update_hld"], k2_stats),
+                     served["flash_block_update_hld"], k2_stats, serve_p),
         kernel_entry("K6 flash_block_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:70",
-                     served["flash_block_decode"], k6_stats),
+                     served["flash_block_decode"], k6_stats, serve_p),
         kernel_entry("K7 write_kv_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:141",
-                     served["write_kv_row"], w_stats["K7"]),
+                     served["write_kv_row"], w_stats["K7"], serve_p),
         kernel_entry("K8 write_kv_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:168",
-                     served["write_kv_block"], w_stats["K8"]),
+                     served["write_kv_block"], w_stats["K8"], serve_p),
         kernel_entry("K9 paged_flash_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:466",
-                     paged_launches["paged_flash_decode"], k9_stats["bf16"]),
+                     paged_launches["paged_flash_decode"], k9_stats["bf16"],
+                     paged_p),
         kernel_entry("K10 write_kv_page_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:350",
-                     paged_launches["write_kv_page_row"], pw_stats["K10"]),
+                     paged_launches["write_kv_page_row"], pw_stats["K10"],
+                     paged_p),
         kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:402",
-                     paged_launches["write_kv_page_block"], pw_stats["K11"]),
+                     paged_launches["write_kv_page_block"], pw_stats["K11"],
+                     paged_p),
         kernel_entry("K3 rowstats", FLASH_SOURCE,
-                     "rlo_tpu/pallas/flash.py:249",
-                     train_launches["rowstats"], k345_stats["K3"]),
+                     "rlo_tpu/pallas/flash.py:249", vjp["k3_launches"],
+                     k345_stats["K3"], chain_p),
         kernel_entry("K4 bwd_dq", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:296",
-                     train_launches["bwd_dq"], k345_stats["K4"]),
+                     train_launches["bwd_dq"], k345_stats["K4"], train_p),
         kernel_entry("K5 bwd_dkv", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:320",
-                     train_launches["bwd_dkv"], k345_stats["K5"])]}))
+                     train_launches["bwd_dkv"], k345_stats["K5"], train_p)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

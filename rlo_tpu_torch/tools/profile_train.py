@@ -1,14 +1,13 @@
 """Where the time of one training step goes, on the card.
 
-    python3 -m rlo_tpu_torch.tools.profile_train [--batch 4] [--seq 1024]
-                                                 [--steps 8] [--seed 0]
+    python3 -m rlo_tpu_torch.tools.profile_train
 
 Builds the flagship training config (vocab 32768, d 1024, 16 heads, 8
 layers, d_ff 4096, bf16; ``benchmarks/train_bench.py:65-67``) with
-random weights from ``--seed`` and one fixed batch of ``--batch`` x
-``--seq`` random tokens, warms up two SGD ``train_step``s, then times
-``--steps`` steps on the host clock (each ends in a device synchronise;
-median reported) and traces one step with ``torch.profiler``. Prints the
+random weights from a seed and one fixed batch of 4 x 1024 random tokens
+(the flagship batch), warms up two SGD ``train_step``s, then times 8
+steps on the host clock (each ends in a device synchronise; median
+reported) and traces one step with ``torch.profiler``. Prints the
 host wall time, the device time summed over kernels (one stream, so
 kernels do not overlap), the device's idle share of the traced step and
 of the unprofiled median step, the device time and launches by group (K2
@@ -21,7 +20,6 @@ device time.
 
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import subprocess
@@ -38,17 +36,11 @@ GROUPS = (("K2 flash forward", ("flash_fwd_kernel",)),
           ("K5 flash dk/dv", ("flash_bwd_dkv_kernel",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",
                                "cublas")))
+#: the flagship batch (benchmarks/train_bench.py:65-67), timed steps, seed
+BATCH, SEQ, STEPS, SEED = 4, 1024, 8, 0
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=1024)
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--lr", type=float, default=1e-2)
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
@@ -66,28 +58,28 @@ def main(argv=None) -> int:
     cfg = TransformerConfig(vocab=32768, d_model=1024, n_heads=16,
                             n_layers=8, d_ff=4096, dtype="bfloat16")
     dev = torch.device("cuda", torch.cuda.current_device())
-    params = init_params(cfg, seed=args.seed, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.seq),
+    params = init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ),
                            generator=gen, device=dev, dtype=torch.int32)
 
     def step():
         nonlocal params
-        params, _ = train_step(params, tokens, cfg, lr=args.lr)
+        params, _ = train_step(params, tokens, cfg, lr=1e-2)
 
     for _ in range(2):
         step()
     walls = []
-    for _ in range(args.steps):
+    for _ in range(STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(walls)
-    n_tok = args.batch * args.seq
-    print(f"[train] batch {args.batch} x seq {args.seq}: median step "
-          f"{step_ms:.3f} ms over {args.steps} steps "
+    n_tok = BATCH * SEQ
+    print(f"[train] batch {BATCH} x seq {SEQ}: median step "
+          f"{step_ms:.3f} ms over {STEPS} steps "
           f"({n_tok / step_ms * 1e3:.0f} tokens/s), no profiler")
     r = trace(step, GROUPS)
     # the profiler slows the host: the idle share of an unprofiled step
@@ -96,7 +88,7 @@ def main(argv=None) -> int:
     print(f"[profile] device time {r['device_ms']:.3f} ms of the "
           f"unprofiled {step_ms:.3f} ms step: idle "
           f"{100 * r['idle_share_unprofiled']:.1f}%")
-    print(json.dumps({"card": card, "batch": args.batch, "seq": args.seq,
+    print(json.dumps({"card": card, "batch": BATCH, "seq": SEQ,
                       "step_ms_median": step_ms, "train_step": r}))
     return 0
 
