@@ -11,7 +11,9 @@ Phases, each printing its own lines:
 
 1. Card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    builds every kernel of the port from ``rlo_tpu_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together); the SASS of the
+   flash library must hold HMMA (tensor-core) instructions in every bf16
+   instantiation of K2-K5 and none in the f32 ones.
 2. K1 (the fused combine) against its plain PyTorch version on the card:
    f32/bf16 x sum/min/max, int32 x sum/min/max/and/or, with NaN inputs,
    int32 values above 2^24, ragged and unaligned sizes, the in-place
@@ -26,9 +28,14 @@ Phases, each printing its own lines:
    launch count is set to 0 before this phase and read after it.
 4. K2 (flash forward), K6 (flash decode), K7 and K8 (cache writes)
    against their plain versions at the serving path's shapes, plus
-   ragged edges, GQA group sizes 1/2/8 and int8 caches; K7 and K8 must
-   be bit-identical. Then K9 (paged decode) at the paged decode shape
-   (289 permuted pages of 128), a prefill chunk, GQA group 4 and pages
+   ragged edges, GQA group sizes 1/2/8 and int8 caches, and K2's
+   tensor-core route at head dims 16/32/64/128 (ragged, GQA 2 and 8,
+   carried state, fully masked rows, permuted ring positions); K7 and K8
+   must be bit-identical. K2 is timed at the prefill shape, the training
+   shape and on its f32 route, in turns with
+   ``scaled_dot_product_attention``. Then K9 (paged decode) at the paged
+   decode shape (289 permuted pages of 128), a prefill chunk, GQA group 4
+   and pages
    of 256, and on pages holding a dense cache's columns, where it must
    equal K6 bit for bit; K10 and K11 (page writes) bit-identical,
    sentinels included. Times each kernel, its plain version, its bound
@@ -56,7 +63,10 @@ Phases, each printing its own lines:
    their plain versions at the training path's shapes (64 folded heads x
    1024 x 64 bf16, causal and not, f32, GQA group 4 through the host
    fold, ragged Lq/Lk, the ring step, fully masked rows, structural ties):
-   K3's counts equal exactly, K4/K5 within rtol 1e-4. Times each kernel,
+   K3's counts equal exactly (each side on its own forward's m'), K4/K5
+   within rtol 1e-4 (each side on that m' too); K3 ties K2's m' on every
+   row from the initial state at bf16 head dims 16/32/128 too (ragged,
+   causal and not). Times each kernel,
    its plain version, its bound and (K4, K5) the backward of
    ``scaled_dot_product_attention`` at the same shape.
 8. The VJP (``FlashBlockUpdate``) in its three modes at 64 x 1024 x 64:
@@ -124,8 +134,11 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one ``fn()`` call, by CUDA events."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, per: int = 1) -> float:
+    """Median device time of one ``fn()`` call, by CUDA events around
+    ``per`` calls in a row (divided by ``per``). With ``per`` > 1 the host
+    enqueues the next call while the card runs this one, so a wrapper's
+    Python time is left out of a kernel that outlasts it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -134,10 +147,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -415,84 +429,146 @@ def _close(got, want, rtol: float, atol_unit: float) -> bool:
                                atol=atol_unit * scale))
 
 
+#: f32 FMA rate of an H100 SXM's CUDA cores (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12
+
+
+def _k2_bound(h, lq, lk, d, esize, pairs, flops_rate):
+    """(bytes, bound ms, bound_by) of one K2 launch on folded operands:
+    q, k, v read in their dtype, the carried f32 (m, l, o) read and
+    (m', l', o') written, against 4 * d FLOPs per unmasked pair at
+    ``flops_rate``."""
+    nbytes = (h * lq + 2 * h * lk) * d * esize + 2 * h * lq * d * 4 \
+        + 4 * h * lq * 4
+    bound_b = nbytes / PEAK_HBM_BYTES_S * 1e3
+    bound_f = 4 * d * pairs / flops_rate * 1e3
+    return nbytes, max(bound_b, bound_f), ("bytes" if bound_b >= bound_f
+                                           else "operations")
+
+
 def phase_k2(dev) -> dict:
     """K2 at the prefill shapes (batch x heads folded: 32*16 = 512 heads,
     L 64 and 1024, D 64), a carried (non-initial) state, ragged Lq/Lk and
-    GQA groups 1/2/8. Tolerance on m, l and o: rtol 1e-4 with atol 1e-4
-    per unit of the largest |value| (f32 sums in another order: the
-    kernel's FMA loop over 64-wide tiles against one BLAS pass)."""
+    GQA groups 1/2/8; then the tensor-core route at D 16/32/64/128 on
+    ragged Lq/Lk, GQA groups 2 and 8, a carried state, fully masked rows
+    and permuted (non-monotone) ring positions. Tolerance on m, l and o:
+    rtol 1e-4 with atol 1e-4 per unit of the largest |value| (f32 sums in
+    another order against one BLAS pass; bf16 p split into two bf16
+    terms, ~2^-17 relative; exp by the SFU, ~2^-22 relative)."""
     import torch
     import torch.nn.functional as F
     from rlo_tpu_torch.kernels import flash as k2
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
-    def case(h, hk, lq, lk, dtype, carried):
-        q = torch.randn(h, lq, 64, generator=gen, device=dev).to(dtype)
-        k = torch.randn(hk, lk, 64, generator=gen, device=dev).to(dtype)
-        v = torch.randn(hk, lk, 64, generator=gen, device=dev).to(dtype)
+    def case(h, hk, lq, lk, dtype, carried, d=64, kp_off=0, perm=False):
+        q = torch.randn(h, lq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(hk, lk, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(hk, lk, d, generator=gen, device=dev).to(dtype)
         if carried:
             m = torch.randn(h, 1, lq, generator=gen, device=dev)
             l = torch.rand(h, 1, lq, generator=gen, device=dev) + 0.5
-            o = torch.randn(h, lq, 64, generator=gen, device=dev)
+            o = torch.randn(h, lq, d, generator=gen, device=dev)
         else:
             m = torch.full((h, 1, lq), k2.NEG, device=dev)
             l = torch.zeros(h, 1, lq, device=dev)
-            o = torch.zeros(h, lq, 64, device=dev)
+            o = torch.zeros(h, lq, d, device=dev)
         qp = torch.arange(lk - lq, lk, dtype=torch.int32,
                           device=dev).reshape(1, lq)
-        kp = torch.arange(lk, dtype=torch.int32, device=dev).reshape(1, lk)
-        return q, k, v, m, l, o, qp, kp
+        kp = torch.arange(lk, dtype=torch.int32, device=dev) + kp_off
+        if perm:
+            kp = kp[torch.randperm(lk, generator=gen, device=dev)]
+        return q, k, v, m, l, o, qp, kp.reshape(1, lk).contiguous()
 
-    worst = 0.0
-    cases = [(512, 512, 64, 64, torch.bfloat16, False),
-             (512, 512, 1024, 1024, torch.bfloat16, False),
-             (64, 64, 200, 1000, torch.bfloat16, True),
-             (64, 64, 129, 77, torch.float32, True),
-             (32, 16, 128, 128, torch.bfloat16, False),
-             (32, 4, 128, 128, torch.bfloat16, False),
-             (32, 4, 100, 100, torch.float32, True)]
-    for h, hk, lq, lk, dtype, carried in cases:
-        args = case(h, hk, lq, lk, dtype, carried)
-        for causal in (True, False):
-            got = k2.flash_block_update_hld(*args, causal=causal,
-                                            scale=0.125)
-            want = k2.flash_block_update_hld_plain(*args, causal=causal,
-                                                   scale=0.125)
-            torch.cuda.synchronize()
-            for name, g, w in zip("mlo", got, want):
-                check(bool(torch.isfinite(g).all()) and _close(g, w, 1e-4,
-                                                               1e-4),
-                      f"K2 {name} H={h} Hkv={hk} Lq={lq} Lk={lk} {dtype} "
-                      f"causal={causal} differs from its plain version")
-            worst = max(worst, abs_err(got[2] / got[1].transpose(1, 2),
-                                       want[2] / want[1].transpose(1, 2)))
-    print(f"[k2] {2 * len(cases)} cases (folded heads 512 at L 64 and 1024, "
-          f"carried state, ragged Lq/Lk, GQA groups 1/2/8, bf16/f32) within "
-          f"rtol 1e-4 of the plain version; max |err| of o/l {worst:.3g}")
+    def held(cases):
+        worst = 0.0
+        for c in cases:
+            opts = dict(c[6]) if len(c) > 6 else {}
+            scale = opts.pop("scale", 0.125)
+            args = case(*c[:6], **opts)
+            for causal in (True, False):
+                got = k2.flash_block_update_hld(*args, causal=causal,
+                                                scale=scale)
+                want = k2.flash_block_update_hld_plain(*args, causal=causal,
+                                                       scale=scale)
+                torch.cuda.synchronize()
+                for name, g, w in zip("mlo", got, want):
+                    check(bool(torch.isfinite(g).all()) and
+                          _close(g, w, 1e-4, 1e-4),
+                          f"K2 {name} {c} causal={causal} differs from its "
+                          f"plain version")
+                l2g, l2w = (t[1].transpose(1, 2) for t in (got, want))
+                live = l2w > 0
+                worst = max(worst, abs_err(
+                    torch.where(live, got[2] / torch.where(live, l2g, 1), 0),
+                    torch.where(live, want[2] / torch.where(live, l2w, 1),
+                                0)))
+        return worst
 
-    q, k, v, m, l, o, qp, kp = case(512, 512, 1024, 1024, torch.bfloat16,
-                                    False)
-    kern = time_ms(lambda: k2.flash_block_update_hld(
-        q, k, v, m, l, o, qp, kp, causal=True, scale=0.125), iters=10)
-    plain = time_ms(lambda: k2.flash_block_update_hld_plain(
-        q, k, v, m, l, o, qp, kp, causal=True, scale=0.125), iters=5)
-    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, scale=0.125), iters=10)
-    nbytes = 3 * q.numel() * 2 + o.numel() * 4 + 2 * m.numel() * 4
-    flops = 4 * 512 * 64 * (1024 * 1025 // 2)
-    bound_b = nbytes / PEAK_HBM_BYTES_S * 1e3
-    bound_f = flops / PEAK_BF16_FLOPS * 1e3
-    bound = max(bound_b, bound_f)
-    by = "bytes" if bound_b >= bound_f else "operations"
-    print(f"[k2] causal 512 heads x 1024 x 64 bf16: kernel {kern:.4f} ms, "
-          f"plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-          f"bound {bound:.4f} ms ({by}: {nbytes} B / 3.35 TB/s = "
-          f"{bound_b:.4f} ms, {flops} flop / 989 TFLOP/s = {bound_f:.4f} ms),"
-          f" kernel at {100 * bound / kern:.1f}% of bound")
-    return dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                bound_by=by, max_abs_err=worst)
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = held([(512, 512, 64, 64, bf, False),
+                  (512, 512, 1024, 1024, bf, False),
+                  (64, 64, 200, 1000, bf, True),
+                  (64, 64, 129, 77, f32, True),
+                  (32, 16, 128, 128, bf, False),
+                  (32, 4, 128, 128, bf, False),
+                  (32, 4, 100, 100, f32, True)])
+    print(f"[k2] 14 cases (folded heads 512 at L 64 and 1024, carried "
+          f"state, ragged Lq/Lk, GQA groups 1/2/8, bf16/f32) within rtol "
+          f"1e-4 of the plain version; max |err| of o/l {worst:.3g}")
+    dims = []
+    for d in (16, 32, 64, 128):
+        dims += [(4, 4, 33, 7, bf, False, dict(d=d)),
+                 (8, 4, 129, 77, bf, True, dict(d=d)),
+                 (16, 2, 100, 130, bf, True, dict(d=d)),
+                 (8, 8, 64, 96, bf, False, dict(d=d, kp_off=48)),
+                 (8, 8, 70, 200, bf, True, dict(d=d, perm=True))]
+    # a negative scale (the row max is then the smallest raw score) and 0
+    dims += [(8, 4, 129, 77, bf, True, dict(scale=-0.125)),
+             (4, 4, 33, 7, bf, True, dict(d=128, scale=0.0))]
+    worst_d = held(dims)
+    print(f"[k2] {2 * len(dims)} tensor-core cases (bf16, D 16/32/64/128: "
+          f"ragged 33 x 7 and 129 x 77, GQA groups 2 and 8, carried state, "
+          f"fully masked rows, permuted ring positions; scale -0.125 and 0) "
+          f"within rtol 1e-4 of the plain version; max |err| of o/l "
+          f"{worst_d:.3g}")
+
+    stats = {}
+    for label, h, dtype, rate in (("prefill", 512, bf, PEAK_BF16_FLOPS),
+                                  ("training", 64, bf, PEAK_BF16_FLOPS),
+                                  ("f32 route", 512, f32, PEAK_F32_FLOPS)):
+        q, k, v, m, l, o, qp, kp = case(h, h, 1024, 1024, dtype, False)
+
+        def kern():
+            return k2.flash_block_update_hld(q, k, v, m, l, o, qp, kp,
+                                             causal=True, scale=0.125)
+        q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  scale=0.125)
+        # in turns (kernel, library, kernel, library): the card's clock
+        # drifts between calls
+        turns = [time_ms(fn, iters=10, per=10) for fn in (kern, sdpa) * 2]
+        ms = statistics.median(turns[0::2])
+        lib = statistics.median(turns[1::2])
+        one = time_ms(kern, iters=10)
+        plain = time_ms(lambda: k2.flash_block_update_hld_plain(
+            q, k, v, m, l, o, qp, kp, causal=True, scale=0.125), iters=5)
+        pairs = h * int((kp[0][None, :] <= qp[0][:, None]).sum())
+        nbytes, bound, by = _k2_bound(h, 1024, 1024, 64, q.element_size(),
+                                      pairs, rate)
+        stats[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                            bound_ms=bound, bound_by=by,
+                            max_abs_err=max(worst, worst_d))
+        print(f"[k2] {label}: causal {h} heads x 1024 x 64 {dtype}: kernel "
+              f"{ms:.4f} ms a launch in runs of 10 ({one:.4f} ms alone), "
+              f"scaled_dot_product_attention {lib:.4f} ms "
+              f"({ms / lib:.2f}x), plain {plain:.4f} ms, bound {bound:.4f} "
+              f"ms ({by}: {nbytes} B / 3.35 TB/s, {4 * 64 * pairs} flop / "
+              f"{rate / 1e12:.0f} TFLOP/s), kernel at "
+              f"{100 * bound / ms:.1f}% of bound")
+    return stats
 
 
 def _int8_cache(x):
@@ -1410,9 +1486,12 @@ def phase_k345(dev) -> dict:
     (K2's for the kernels, the plain forward's for the plain versions):
     K3's counts must equal the plain counts exactly, and be >= 1 on every
     row that starts from the initial state (K3's recomputed scores tie
-    K2's m'). K4 and K5 get the same operands as their plain versions
-    and must agree within rtol 1e-4 and atol 1e-4 per unit of the
-    largest |value|: f32 sums of up to 1024 products in another order."""
+    K2's m'). K4 and K5 get the same operands as their plain versions but
+    that m' too (the routed term lands where a side's own recomputed
+    score ties its own m': bf16 scores come from the tensor cores in the
+    kernels and from cuBLAS in the plain versions, whose last bits differ)
+    and must agree within rtol 1e-4 and atol 1e-4 per unit of the largest
+    |value|: f32 sums of up to 1024 products in another order."""
     import torch
     import torch.nn.functional as F
     from rlo_tpu_torch.kernels import flash as kf
@@ -1486,9 +1565,10 @@ def phase_k345(dev) -> dict:
         hq, nq = q.shape[0], q.shape[1]
         dl2, do2, route = rand(hq, 1, nq), rand(hq, nq, d), rand(hq, 1, nq)
         ops = (q, k, v, m2k, dl2, do2, route, qp, kp)
+        pops = (q, k, v, m2p, dl2, do2, route, qp, kp)
         dq, (dk, dv) = kf.bwd_dq(*ops, **kw), kf.bwd_dkv(*ops, **kw)
-        pdq, (pdk, pdv) = kf.bwd_dq_plain(*ops, **kw), \
-            kf.bwd_dkv_plain(*ops, **kw)
+        pdq, (pdk, pdv) = kf.bwd_dq_plain(*pops, **kw), \
+            kf.bwd_dkv_plain(*pops, **kw)
         torch.cuda.synchronize()
         check(torch.equal(cnt, cnt_p), f"K3 counts differ from the plain "
                                        f"counts ({name})")
@@ -1510,6 +1590,32 @@ def phase_k345(dev) -> dict:
           f"exactly; K4/K5 within rtol 1e-4 of the plain versions; max "
           f"|err| K4 {worst[4]:.3g}, K5 {worst[5]:.3g}")
 
+    # the bf16 tie contract at every head dim: K3 recomputes K2's
+    # tensor-core scores, so each row from the initial state ties K2's m'
+    for dd in (16, 32, 128):
+        for lq, lk in ((33, 7), (129, 77), (256, 256)):
+            q, k, v = (torch.randn(8, ll, dd, generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for ll in (lq, lk, lk))
+            m = torch.full((8, 1, lq), kf.NEG, device=dev)
+            state = (m, torch.zeros_like(m), torch.zeros(8, lq, dd,
+                                                         device=dev))
+            qp = torch.arange(lk - lq, lk, dtype=torch.int32,
+                              device=dev).reshape(1, lq)
+            kp = torch.arange(lk, dtype=torch.int32, device=dev).reshape(1,
+                                                                         lk)
+            for causal in (True, False):
+                kw = dict(causal=causal, scale=scale)
+                with torch.no_grad():
+                    m2 = kf.flash_block_update_hld(q, k, v, *state, qp, kp,
+                                                   **kw)[0]
+                cnt = kf.rowstats(q, k, m2, qp, kp, **kw)
+                check(bool((cnt >= 1).all()),
+                      f"K3 found no tie with K2's m' on some row (bf16, "
+                      f"D={dd}, {lq} x {lk}, causal={causal})")
+    print("[k3-k5] bf16 at D 16/32/128 (33 x 7, 129 x 77, 256 x 256, causal "
+          "and not): K3 ties K2's m' on every row")
+
     # times at the path's shape: causal 64 x 1024 x 64 bf16
     q, k, v, m, l, o, qp, kp = cases[0][1]
     kw = dict(causal=True, scale=scale)
@@ -1524,7 +1630,8 @@ def phase_k345(dev) -> dict:
     dout = torch.randn(out.shape, generator=gen, device=dev,
                        dtype=out.dtype)
     lib = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout,
-                                              retain_graph=True), iters=10)
+                                              retain_graph=True), iters=10,
+                  per=10)
     pairs = h * int((kp[0][None, :] <= qp[0][:, None]).sum())
     stats = {}
     for which, kern, plain, library in (
@@ -1534,14 +1641,15 @@ def phase_k345(dev) -> dict:
              lambda: kf.bwd_dq_plain(*ops, **kw), lib),
             (5, lambda: kf.bwd_dkv(*ops, **kw),
              lambda: kf.bwd_dkv_plain(*ops, **kw), lib)):
-        ms = time_ms(kern, iters=10)
+        ms = time_ms(kern, iters=10, per=10)
         plain_ms = time_ms(plain, iters=5)
         bound, by = _bwd_bound(which, h, n, n, d, 2, pairs)
         stats[f"K{which}"] = dict(ms=ms, plain_ms=plain_ms,
                                   library_ms=library, bound_ms=bound,
                                   bound_by=by, max_abs_err=worst[which])
         print(f"[k3-k5] K{which} causal {h} heads x {n} x 64 bf16: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"{ms:.4f} ms a launch in runs of 10, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms "
               f"({by}), kernel at {100 * bound / ms:.1f}% of bound")
     print(f"[k3-k5] scaled_dot_product_attention backward at the same "
           f"shape (the yardstick of K4+K5, "
@@ -1901,6 +2009,44 @@ def build_all() -> None:
             f.result()
 
 
+def check_tensor_cores() -> None:
+    """K2-K5's bf16 instantiations run on the tensor cores and their f32
+    ones on the CUDA cores: count HMMA instructions per kernel in the
+    SASS of the built flash library (``cuobjdump`` beside ``nvcc``)."""
+    import re
+    from pathlib import Path
+    from rlo_tpu_torch.kernels import build
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass",
+                           str(build._lib_path("flash"))], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            hmma[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma[fn] += 1
+    kinds = {"K2": "flash_fwd_", "K3": "flash_rowstats_kernel",
+             "K4": "flash_bwd_dq_kernel", "K5": "flash_bwd_dkv_kernel"}
+    seen = {}
+    for fn, n in hmma.items():
+        for k, frag in kinds.items():
+            if frag in fn:
+                bf16 = "mma_kernel" in fn or "__nv_bfloat16" in fn
+                check((n > 0) == bf16,
+                      f"{k} {'bf16' if bf16 else 'f32'} instantiation {fn} "
+                      f"has {n} HMMA instructions")
+                seen.setdefault((k, bf16), []).append(n)
+    check(len(seen) == 8 and all(len(v) == 4 for v in seen.values()),
+          f"expected K2-K5 x bf16/f32 x 4 head dims in the SASS: {seen}")
+    print("[build] SASS HMMA counts (head dims 16/32/64/128): " + "; ".join(
+        f"{k} {'bf16' if b else 'f32'} {sorted(v)}"
+        for (k, b), v in sorted(seen.items())))
+
+
 def kernel_entry(name, source, replaces, launches, st, path) -> dict:
     """One kernel of the ``kernels`` line; ``path`` names the run whose
     launches it counts."""
@@ -1937,6 +2083,7 @@ def main() -> int:
     build_all()
     print(f"[build] csrc/{{reduce,flash,decode}}.cu built with nvcc (in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
+    check_tensor_cores()
 
     k1_stats = phase_k1(dev, N_FULL)
 
@@ -2022,7 +2169,8 @@ def main() -> int:
                           max_abs_err=k1_stats["max_abs_err"]), facade_p),
         kernel_entry("K2 flash_block_update_hld", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:114",
-                     served["flash_block_update_hld"], k2_stats, serve_p),
+                     served["flash_block_update_hld"], k2_stats["prefill"],
+                     serve_p),
         kernel_entry("K6 flash_block_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:70",
                      served["flash_block_decode"], k6_stats, serve_p),

@@ -10,47 +10,77 @@
 //   corr = exp(m - m')
 //   l'   = l * corr + rowsum(p);   o' = o * corr + p . v
 // The TPU kernel ran a sequential grid axis over K tiles with the state in
-// VMEM scratch; here one block owns (query head h, a tile of BQ query rows)
-// and loops over the K tiles itself, carrying m and l in shared memory and
-// o in registers, starting from the carried (m, l, o) it is given. q, k and
-// v share one head count: the wrapper folds a GQA group into the query axis,
-// as the TPU wrapper does. Ragged Lq and Lk edges are masked (rows past Lq are not stored,
-// columns past Lk count as masked), so any L is accepted. A K tile whose
-// every position lies beyond the tile's last query position (causal) is
-// skipped: such a tile changes neither m, l nor o.
+// VMEM scratch; here one block owns (query head h, a tile of query rows)
+// and loops over the K tiles itself, starting from the carried (m, l, o)
+// it is given. q, k and v share one head count: the wrapper folds a GQA
+// group into the query axis, as the TPU wrapper does, so the positions of
+// one query tile need not be monotone and nothing here takes a row index
+// for a position. Ragged Lq and Lk edges are masked (rows past Lq are not
+// stored, columns past Lk count as masked), so any L is accepted. A K tile
+// that no query row may see (causal) changes neither m, l nor o, whether it
+// is skipped or computed.
 //
 // Bound: max(bytes / 3.35 TB/s, causal FLOPs / 989 TFLOP/s) on an H100 SXM;
-// bytes = q, k, v read plus m, l, o written; FLOPs = 4 * H * D * (the
-// unmasked (q, k) pairs). At the prefill shapes (folded heads 512, L 1024,
-// D 64) the bytes bound it. This first kernel is simple rather than fast:
-// every product is an f32 FMA on the CUDA cores (about 67 TFLOP/s at best,
-// no tensor cores), tiles are staged in shared memory as f32, each thread
-// keeps a 4 x (D/16) patch of the score tile and of o. The design keeps the
-// (BQ, Lk) score matrix out of device memory, which is what the TPU kernel
-// existed for; wgmma, TMA and bf16 tensor-core products are later work.
+// bytes = q, k, v and the carried m, l, o read plus m', l', o' written (the
+// f32 o read and written is most of it); FLOPs = 4 * H * D * (the unmasked
+// (q, k) pairs). At the prefill shapes (folded heads 512, L 1024, D 64) the
+// bytes bound it, the products close behind. On the CUDA cores (67 TFLOP/s
+// f32) the products alone took 7x the bound; on the tensor cores what holds
+// it back is the instructions issued around each product (the online
+// softmax, the split of p) and the latency of the mma chains.
+//
+// Design, by dtype (a dispatch written here, not a fallback):
+// - bf16 q, k, v (the main path: training, prefill, flash_attention) take
+//   the tensor cores (flash_fwd_mma_kernel). Each warp owns 16 query rows,
+//   a block of 4 warps 64. The Q tile is loaded once and its mma fragments
+//   stay in registers; K and V tiles of 64 rows are double-buffered in
+//   shared memory as bf16 by cp.async (16-byte copies, zero-filled past
+//   Lk), so the next tile's copy runs under this tile's products. Scores
+//   are mma.sync m16n8k16 bf16 products with f32 accumulation (mma_scores,
+//   the score routine of K2-K5), then an uncontracted __fmul_rn by scale.
+//   The online softmax stays in the mma fragments: a row's max and sum are
+//   taken across the 4 lanes of a quad that share it (__shfl_xor_sync), p
+//   by the SFU's 2^x (ex2.approx, relative error ~2^-22). P.V runs on the
+//   tensor cores at the reference's precision: p is split exactly as
+//   p_hi = bf16(p), p_lo = bf16(p - p_hi) and p_lo.v + p_hi.v accumulate
+//   into the f32 o fragments (~16 bits of p, against bf16's 8, which would
+//   move o by ~2^-9 relative). A tile no row of a warp sees is skipped by
+//   that warp; a tile all its rows see whole is not masked.
+// - f32 q, k, v keep the CUDA-core route (flash_fwd_f32_kernel): the tensor
+//   cores cannot form f32 products exactly, and K3-K5 must recompute K2's
+//   score bits, so all four f32 kernels form scores with tile_dots' fmaf
+//   chain from f32 tiles in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr float kNeg = -1e30f;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int kThreads = 256;  // 16 x 16: each thread 4 rows x 4 (or D/16) cols
 constexpr int SP = BK + 1;     // padded score-tile row
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T>
+constexpr bool kTensor = std::is_same<T, bf16>::value;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-// The one score routine of K2-K5: s[i][j] = sum over d = 0..D-1 of
+// The f32 score routine of K2-K5: s[i][j] = sum over d = 0..D-1 of
 // a[ty*4+i][d] * b[tx+16*j][d], one fmaf chain in that order from 0, on
 // f32 tiles of row stride D + 1. The backward's tie routing compares the
 // recomputed score with the forward's running max m' for equality, so every
-// kernel must form each score with these bits: the same chain, then a
-// separate multiply by scale (__fmul_rn in K3-K5, which nothing contracts).
+// f32 kernel forms each score with these bits, then a separate multiply by
+// scale (__fmul_rn in K3-K5, which nothing contracts).
 template <int D>
 __device__ __forceinline__ void tile_dots(const float* a, const float* b,
                                           int ty, int tx, float s[4][4]) {
@@ -73,21 +103,154 @@ __device__ __forceinline__ void tile_dots(const float* a, const float* b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks (sm_80+ instructions, run on sm_90a).
+// bf16 tiles in shared memory have rows of D + 8 elements: the 16-byte pad
+// puts the 8 rows an ldmatrix reads in 8 different bank groups.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a . b on one 16 x 8 tile, k = 16, bf16 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok (src must
+// still be a valid address).
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU (relative error about 2^-22; 0 for x below -126)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// The exact split of two f32 values into bf16 pairs hi + lo (hi = bf16(x),
+// lo = bf16(x - hi); x - hi is exact in f32), packed as mma A registers.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+// The mma A fragments of 16 query rows (row stride D + 8) for every
+// 16-wide step of d.
+template <int D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
+                                             const bf16* rows, int lane) {
+  const bf16* p = rows + (lane & 15) * (D + 8) + (lane >> 4) * 8;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) ldsm_x4(qf[kc], p + kc * 16);
+}
+
+// The bf16 score routine of K2-K5: the raw scores of 16 query rows (qf)
+// against NT * 8 key rows of kb (row stride D + 8), s[j] the 16 x 8 mma
+// tile of keys 8j..8j+7. Each score is mma.sync m16n8k16 accumulation over
+// d in 16-wide steps, in order 0..D from a zero accumulator; the caller
+// multiplies by scale with __fmul_rn. The backward's tie routing compares
+// K3-K5's recomputed score with K2's running max m' for equality, so every
+// bf16 kernel forms each score here, with its query rows at the same
+// offsets mod 16 and its keys at the same offsets mod 8 (tiles start at
+// multiples of 64).
+template <int D, int NT>
+__device__ __forceinline__ void mma_scores(const uint32_t (&qf)[D / 16][4],
+                                           const bf16* kb, int lane,
+                                           float (&s)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  // lanes 0-7: keys 0-7, d 0-7; 8-15: keys 0-7, d 8-15; 16-23: keys
+  // 8-15, d 0-7; 24-31: keys 8-15, d 8-15 of each 16-key pair of tiles
+  const bf16* p = kb + ((lane & 7) + ((lane >> 4) << 3)) * (D + 8) + (lane & 8);
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(b, p + jp * 16 * (D + 8) + kc * 16);
+      mma_bf16(s[2 * jp], qf[kc], b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qf[kc], b[2], b[3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K2, f32 route: CUDA cores, f32 tiles, each thread a 4 x 4 patch of the
+// score tile and a 4 x (D/16) patch of o.
+// ---------------------------------------------------------------------------
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
                           (size_t)BK * D + (size_t)BQ * SP);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ m_in,
-                 const float* __restrict__ l_in, const float* __restrict__ o_in,
-                 const int* __restrict__ qpos, const int* __restrict__ kpos,
-                 float* __restrict__ m_out, float* __restrict__ l_out,
-                 float* __restrict__ o_out, int Lq, int Lk, int causal,
-                 float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ l_in,
+                     const float* __restrict__ o_in,
+                     const int* __restrict__ qpos,
+                     const int* __restrict__ kpos, float* __restrict__ m_out,
+                     float* __restrict__ l_out, float* __restrict__ o_out,
+                     int Lq, int Lk, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;  // o columns per thread
   extern __shared__ float smem[];
@@ -102,13 +265,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const T* qh = q + (size_t)h * Lq * D;
-  const T* kh = k + (size_t)h * Lk * D;
-  const T* vh = v + (size_t)h * Lk * D;
+  const float* qh = q + (size_t)h * Lq * D;
+  const float* kh = k + (size_t)h * Lk * D;
+  const float* vh = v + (size_t)h * Lk * D;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     int r = i / D, c = i % D, qr = q0 + r;
-    qs[r * DP + c] = qr < Lq ? to_f(qh[(size_t)qr * D + c]) : 0.f;
+    qs[r * DP + c] = qr < Lq ? qh[(size_t)qr * D + c] : 0.f;
   }
   if (tid < BQ) {
     int qr = q0 + tid;
@@ -142,8 +305,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += kThreads) {
       int r = i / D, c = i % D, kr = k0 + r;
       bool ok = kr < Lk;
-      ks[r * DP + c] = ok ? to_f(kh[(size_t)kr * D + c]) : 0.f;
-      vs[r * D + c] = ok ? to_f(vh[(size_t)kr * D + c]) : 0.f;
+      ks[r * DP + c] = ok ? kh[(size_t)kr * D + c] : 0.f;
+      vs[r * D + c] = ok ? vh[(size_t)kr * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -168,8 +331,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = kNeg;
 #pragma unroll
       for (int cc = 0; cc < 16; ++cc) mx = fmaxf(mx, ss[r * SP + part * 16 + cc]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
@@ -181,8 +344,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ss[r * SP + c] = p;
         sum += p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
       if (part == 0) {
         float corr = expf(m_old - m_new);
         row_l[r] = row_l[r] * corr + sum;
@@ -228,21 +391,311 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2, bf16 route: tensor cores (see the header).
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows = BQ
+
+template <int D>
+constexpr size_t mma_smem_bytes() {  // Q tile, 2 K and 2 V tiles, bf16
+  return sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ l_in,
+                     const float* __restrict__ o_in,
+                     const int* __restrict__ qpos,
+                     const int* __restrict__ kpos, float* __restrict__ m_out,
+                     float* __restrict__ l_out, float* __restrict__ o_out,
+                     int Lq, int Lk, int causal, float scale) {
+  constexpr int DS = D + 8;             // bf16 row stride in shared memory
+  constexpr int CH = D / 8;             // 16-byte chunks per row
+  constexpr int RPP = kMmaThreads / CH; // rows per pass of the block's copies
+  constexpr int NO = D / 8;             // o fragments (8 columns each)
+  constexpr int NS = BK / 8;            // score fragments (8 keys each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x DS
+  bf16* ks = qs + BQ * DS;                        // 2 x BK x DS
+  bf16* vs = ks + 2 * BK * DS;                    // 2 x BK x DS
+  __shared__ int kp_s[2][BK];
+  __shared__ int span_s[3];  // max query position; first, last live tile
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y;
+  // the longest causal rows first: they finish last
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const size_t hq = (size_t)h * Lq;
+  const bf16* kh = k + (size_t)h * Lk * D;
+  const bf16* vh = v + (size_t)h * Lk * D;
+  // this thread's 16-byte chunk of each copied row: rows cr + RPP * i
+  const int cr = tid / CH, cc = (tid % CH) * 8;
+
+#pragma unroll
+  for (int i = 0; i < BQ / RPP; ++i) {
+    const int r = cr + i * RPP;
+    const bool ok = q0 + r < Lq;
+    cp_async16(qs + r * DS + cc, q + (hq + (ok ? q0 + r : 0)) * D + cc, ok);
+  }
+  cp_async_commit();
+
+  // this lane's rows: hf = 0, 1 is row g + 8 hf of the warp's 16
+  bool rok[2];
+  int qp[2];
+  float mrow[2], lrow[2], o[NO][4];
+  int wmax = INT_MIN, wmin = INT_MAX;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + warp * 16 + g + 8 * hf;
+    const bool ok = r < Lq;
+    rok[hf] = ok;
+    qp[hf] = ok ? qpos[r] : INT_MIN;
+    mrow[hf] = ok ? m_in[hq + r] : kNeg;
+    lrow[hf] = ok ? l_in[hq + r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const size_t c = (hq + r) * D + j * 8 + t4 * 2;
+      o[j][2 * hf] = ok ? o_in[c] : 0.f;
+      o[j][2 * hf + 1] = ok ? o_in[c + 1] : 0.f;
+    }
+    if (ok) {
+      wmax = max(wmax, qp[hf]);
+      wmin = min(wmin, qp[hf]);
+    }
+  }
+  // the warp's span of query positions (rows past Lq left out)
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    wmax = max(wmax, __shfl_xor_sync(kFull, wmax, off));
+    wmin = min(wmin, __shfl_xor_sync(kFull, wmin, off));
+  }
+  const bool warp_rows = __any_sync(kFull, rok[0]);
+
+  // the K tiles some row of the block may see: all of them, or (causal) the
+  // span from the first to the last tile holding a position <= the block's
+  // largest query position (a dead tile inside the span is a no-op)
+  const int ntiles = (Lk + BK - 1) / BK;
+  int first = 0, last = ntiles - 1;
+  if (causal) {
+    if (tid == 0) {
+      span_s[0] = INT_MIN;
+      span_s[1] = INT_MAX;
+      span_s[2] = -1;
+    }
+    __syncthreads();
+    if (lane == 0) atomicMax(&span_s[0], wmax);
+    __syncthreads();
+    const int qmax = span_s[0];
+    int f = INT_MAX, l = -1;
+    for (int i = tid; i < Lk; i += kMmaThreads)
+      if (kpos[i] <= qmax) {
+        f = min(f, i / BK);
+        l = i / BK;
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      f = min(f, __shfl_xor_sync(kFull, f, off));
+      l = max(l, __shfl_xor_sync(kFull, l, off));
+    }
+    if (lane == 0) {
+      atomicMin(&span_s[1], f);
+      atomicMax(&span_s[2], l);
+    }
+    __syncthreads();
+    first = span_s[1];
+    last = span_s[2];
+  }
+
+  auto load_tile = [&](int t, int buf) {
+    const int k0 = t * BK;
+    bf16* kd = ks + buf * BK * DS + cr * DS + cc;
+    bf16* vd = vs + buf * BK * DS + cr * DS + cc;
+#pragma unroll
+    for (int i = 0; i < BK / RPP; ++i) {
+      const int r = k0 + cr + i * RPP;
+      const bool ok = r < Lk;
+      const size_t src = (size_t)(ok ? r : 0) * D + cc;
+      cp_async16(kd + i * RPP * DS, kh + src, ok);
+      cp_async16(vd + i * RPP * DS, vh + src, ok);
+    }
+    if (tid < BK) {
+      const bool ok = k0 + tid < Lk;
+      cp_async4(&kp_s[buf][tid], kpos + (ok ? k0 + tid : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  // one commit group per tile (an empty one past the last), so waiting
+  // for all groups but the newest waits for exactly the tile needed
+  if (first <= last)
+    load_tile(first, 0);
+  else
+    cp_async_commit();
+  cp_async_wait<1>();  // the Q tile
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(qf, qs + warp * 16 * DS, lane);
+
+  for (int t = first, buf = 0; t <= last; ++t, buf ^= 1) {
+    if (t < last)
+      load_tile(t + 1, buf ^ 1);  // freed by the last iteration's barrier
+    else
+      cp_async_commit();
+    cp_async_wait<1>();  // tile t
+    __syncthreads();
+
+    const int k0 = t * BK;
+    const int* kp = kp_s[buf];
+    // does a row of the warp see a column of this lane; do all see all
+    bool sees = false, whole_lane = true;
+#pragma unroll
+    for (int c = lane; c < BK; c += 32) {
+      const bool valid = k0 + c < Lk;
+      sees |= valid && (!causal || kp[c] <= wmax);
+      whole_lane &= valid && (!causal || kp[c] <= wmin);
+    }
+    // one tile's update; `masked` (a std::bool_constant) is false for a
+    // tile every row of the warp sees whole, which needs no mask
+    auto update = [&](auto masked) {
+      float s[NS][4];
+      mma_scores<D, NS>(qf, ks + buf * BK * DS, lane, s);
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = __fmul_rn(s[j][e], scale);
+          if constexpr (decltype(masked)::value) {
+            const int c = j * 8 + t4 * 2 + (e & 1);
+            if (!(k0 + c < Lk && (!causal || kp[c] <= qp[e >> 1]))) x = kNeg;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      // m' = max(m, the row's scaled scores) over the quad; p =
+      // 2^(s log2e - m' log2e): a masked score (-1e30) gives 0 against a
+      // finite m', and a row whose m' is still -1e30 (all masked) takes 0
+      // for m' log2e, so its p is 0 too: exp(-1e30 - (-1e30)) = 1 must not
+      // leak
+      float ml[2], corr[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float x = mx[hf];
+        x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+        const float mn = fmaxf(mrow[hf], x);
+        ml[hf] = mn == kNeg ? 0.f : mn * kLog2e;
+        corr[hf] = mrow[hf] == mn ? 1.f
+                                  : ex2_approx((mrow[hf] - mn) * kLog2e);
+        mrow[hf] = mn;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2_approx(fmaf(s[j][e], kLog2e, -ml[e >> 1]));
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        sum[hf] += __shfl_xor_sync(kFull, sum[hf], 1);
+        sum[hf] += __shfl_xor_sync(kFull, sum[hf], 2);
+        lrow[hf] = lrow[hf] * corr[hf] + sum[hf];
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+      // o += p_lo . v + p_hi . v; the score fragments of keys
+      // 16kc..16kc+15 are the A fragment of step kc. All lo products of a
+      // step go before its hi products, so no two neighbouring mma feed
+      // one accumulator
+      const bf16* vrow =
+          vs + (buf * BK + (lane & 15)) * DS + (lane >> 4) * 8;
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        uint32_t hi[4], lo[4];
+        split_bf16(s[2 * kc][0], s[2 * kc][1], hi[0], lo[0]);
+        split_bf16(s[2 * kc][2], s[2 * kc][3], hi[1], lo[1]);
+        split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
+        uint32_t b[D / 16][4];
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp)
+          ldsm_x4_t(b[dp], vrow + kc * 16 * DS + dp * 16);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          mma_bf16(o[2 * dp], lo, b[dp][0], b[dp][1]);
+          mma_bf16(o[2 * dp + 1], lo, b[dp][2], b[dp][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          mma_bf16(o[2 * dp], hi, b[dp][0], b[dp][1]);
+          mma_bf16(o[2 * dp + 1], hi, b[dp][2], b[dp][3]);
+        }
+      }
+    };
+    // warp-uniform: skip a tile none of the warp's rows sees
+    if (warp_rows && __any_sync(kFull, sees)) {
+      if (__all_sync(kFull, whole_lane))
+        update(std::false_type{});
+      else
+        update(std::true_type{});
+    }
+    __syncthreads();  // every warp is done with buf before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!rok[hf]) continue;
+    const size_t r = hq + q0 + warp * 16 + g + 8 * hf;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<float2*>(o_out + r * D + j * 8 + t4 * 2) =
+          make_float2(o[j][2 * hf], o[j][2 * hf + 1]);
+    if (t4 == 0) {
+      m_out[r] = mrow[hf];
+      l_out[r] = lrow[hf];
+    }
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* m,
            const float* l, const float* o, const int* qp, const int* kp,
            float* m2, float* l2, float* o2, int H, int Lq, int Lk,
            int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Lq + BQ - 1) / BQ, H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), m, l, o, qp, kp, m2, l2, o2, Lq, Lk,
-      causal, scale);
+  const dim3 grid((Lq + BQ - 1) / BQ, H);
+  int e;
+  if constexpr (kTensor<T>) {
+    constexpr size_t smem = mma_smem_bytes<D>();
+    if ((e = set_smem(flash_fwd_mma_kernel<D>, smem))) return e;
+    flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), m, l, o, qp, kp, m2, l2, o2, Lq, Lk,
+        causal, scale);
+  } else {
+    constexpr size_t smem = smem_bytes<D>();
+    if ((e = set_smem(flash_fwd_f32_kernel<D>, smem))) return e;
+    flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), m, l, o, qp, kp, m2, l2, o2, Lq, Lk,
+        causal, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -271,7 +724,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 // per-row pieces m' (the forward's running max), dl' (the l' cotangent),
 // do' (the o' cotangent, f32) and route (the m' cotangent's share per tied
 // position, 0 in the fast mode). With the recomputed score tile
-//   s~  = where(mask, (q . k^T) * scale, -1e30)     (tile_dots, K2's bits)
+//   s~  = where(mask, (q . k^T) * scale, -1e30)     (K2's bits)
 //   u   = exp(s~ - m')
 //   ds~ = u * where(mask, dl' + do' . v^T, 0) + where(mask & s~ == m', route, 0)
 // K3 counts, per row, the positions with s~ == m' (masked ones included);
@@ -287,17 +740,21 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 // such a tile in closed form instead: every position there is masked, so
 // s~ = -1e30 and it ties exactly the rows whose m' is -1e30.
 //
+// The score tile fixes the tie bits. bf16 operands form it with K2's
+// routine, mma_scores (tensor-core m16n8k16 steps over d from a zero
+// accumulator, staged as bf16 tiles, written raw to a shared f32 tile);
+// f32 operands with tile_dots. Both are followed by __fmul_rn by scale, as
+// in K2, so s~ == m' holds where K2's max came from a score.
+//
 // Bound: K4 does 3 and K5 4 products of 2 * D FLOPs per unmasked (q, k)
 // pair, K3 one; bytes are q, k, v, do' read once and the outputs written
 // once. On an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the training
 // shapes (64 folded heads, L 1024, D 64, bf16, causal) the bytes bound all
 // three, the products close behind for K4 and K5 (the f32 do' and outputs
-// are most of the bytes). Like K2
-// these first kernels are simple rather than fast: f32 FMAs on the CUDA
+// are most of the bytes). Past the score tile these kernels are simple
+// rather than fast: dp = do' . v^T, dq, dk and dv are f32 FMAs on the CUDA
 // cores from f32 tiles in shared memory, each thread a 4 x 4 patch of the
-// score tile and a 4 x (D/16) patch of the output; wgmma, TMA and bf16
-// tensor-core products are later work, and they too must reproduce
-// tile_dots' bits for the tie comparison or route it differently.
+// score tile and a 4 x (D/16) patch of the output.
 
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
@@ -309,10 +766,71 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
   }
 }
 
+// A 64-row bf16 tile (row stride D + 8) for the mma score routine, zero
+// past n_rows; 16-byte copies (the wrapper checks the alignment).
 template <int D>
-constexpr size_t bwd_smem_bytes(int n_row_tiles, int n_score_tiles) {
-  return sizeof(float) * ((size_t)n_row_tiles * 64 * (D + 1) +
-                          (size_t)n_score_tiles * 64 * SP);
+__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
+                                               int r0, int n_rows, int tid) {
+  constexpr int CH = D / 8;
+  for (int i = tid; i < 64 * CH; i += kThreads) {
+    int r = i / CH, c = i % CH, gr = r0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (gr < n_rows)
+      x = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = x;
+  }
+}
+
+// The raw 64 x 64 score tile of bf16 tiles qb (query rows) and kb (key
+// rows) into sc (row stride SP) by mma_scores: warp w takes the 16 query
+// rows 16 * (w % 4) against the 32 keys 32 * (w / 4).
+template <int D>
+__device__ __forceinline__ void mma_score_tile(const bf16* qb, const bf16* kb,
+                                               float* sc, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(qf, qb + r0 * (D + 8), lane);
+  float s[4][4];
+  mma_scores<D, 4>(qf, kb + c0 * (D + 8), lane, s);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[(r0 + g + (e >> 1) * 8) * SP + c0 + j * 8 + t4 * 2 + (e & 1)] = s[j][e];
+}
+
+// This thread's 4 x 4 patch (rows ty*4+i, columns tx+16*j) of the raw
+// score tile: tile_dots on the f32 tiles, or (bf16) the mma tile through
+// sc. Every thread of the block calls it (bf16: a barrier inside); sc may
+// be a tile the caller later writes at the same patch positions.
+template <typename T, int D>
+__device__ __forceinline__ void score_patch(const float* qs, const float* ks,
+                                            const bf16* qb, const bf16* kb,
+                                            float* sc, int tid,
+                                            float s[4][4]) {
+  const int ty = tid / 16, tx = tid % 16;
+  if constexpr (kTensor<T>) {
+    mma_score_tile<D>(qb, kb, sc, tid);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = sc[(ty * 4 + i) * SP + tx + 16 * j];
+  } else {
+    tile_dots<D>(qs, ks, ty, tx, s);
+  }
+}
+
+// Dynamic shared memory of K3-K5: f32 row tiles (row stride D + 1), f32
+// score tiles (row stride SP) and, for bf16, the two bf16 score-operand
+// tiles (64 x (D + 8) each, the bytes of 64 x (D + 8) floats).
+template <typename T, int D>
+constexpr size_t bwd_smem_bytes(int f32_row_tiles, int score_tiles) {
+  return sizeof(float) * ((size_t)f32_row_tiles * 64 * (D + 1) +
+                          (size_t)score_tiles * 64 * SP +
+                          (kTensor<T> ? (size_t)64 * (D + 8) : 0));
 }
 
 template <typename T, int D>
@@ -323,15 +841,22 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ kpos, float* __restrict__ cnt,
                       int Lq, int Lk, int causal, float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                 // BQ x DP
-  float* ks = qs + BQ * (D + 1);    // BK x DP
+  // f32: qs | ks (BQ, BK x D + 1); bf16: qb | kb (64 x D + 8) | sc (BQ x SP)
+  float* qs = smem;
+  float* ks = qs + BQ * (D + 1);
+  bf16* qb = reinterpret_cast<bf16*>(smem);
+  bf16* kb = qb + 64 * (D + 8);
+  float* sc = smem + 64 * (D + 8);
   __shared__ float m2_s[BQ];
   __shared__ int qp_s[BQ], kp_s[BK];
   __shared__ int qmax_s;
 
   const int tid = threadIdx.x, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const T* kh = k + (size_t)h * Lk * D;
-  load_rows<T, D>(qs, q + (size_t)h * Lq * D, q0, Lq, tid);
+  if constexpr (kTensor<T>)
+    load_rows_bf16<D>(qb, q + (size_t)h * Lq * D, q0, Lq, tid);
+  else
+    load_rows<T, D>(qs, q + (size_t)h * Lq * D, q0, Lq, tid);
   if (tid < BQ) {
     int qr = q0 + tid;
     bool ok = qr < Lq;
@@ -358,10 +883,13 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       continue;
     }
-    load_rows<T, D>(ks, kh, k0, Lk, tid);
+    if constexpr (kTensor<T>)
+      load_rows_bf16<D>(kb, kh, k0, Lk, tid);
+    else
+      load_rows<T, D>(ks, kh, k0, Lk, tid);
     __syncthreads();
     float s[4][4];
-    tile_dots<D>(qs, ks, ty, tx, s);
+    score_patch<T, D>(qs, ks, qb, kb, sc, tid, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       int r = ty * 4 + i;
@@ -380,7 +908,7 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
-      n[i] += __shfl_xor_sync(0xffffffffu, n[i], off);
+      n[i] += __shfl_xor_sync(kFull, n[i], off);
     int qr = q0 + ty * 4 + i;
     if (tx == 0 && qr < Lq) cnt[(size_t)h * Lq + qr] = (float)n[i];
   }
@@ -424,8 +952,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
-  float* qs = smem;             // BQ x DP
-  float* dos = qs + BQ * DP;    // BQ x DP
+  // f32: qs | dos | ks | vs | dss; bf16: qb kb (in qs's place, 64 x D + 8
+  // each) | dos | ks | vs | dss (the raw score tile first)
+  float* qs = smem;                                         // BQ x DP
+  bf16* qb = reinterpret_cast<bf16*>(smem);
+  bf16* kb = qb + 64 * (D + 8);
+  float* dos = smem + (kTensor<T> ? 64 * (D + 8) : BQ * DP);  // BQ x DP
   float* ks = dos + BQ * DP;    // BK x DP
   float* vs = ks + BK * DP;     // BK x DP
   float* dss = vs + BK * DP;    // BQ x SP
@@ -437,7 +969,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t hq = (size_t)h * Lq;
   const T* kh = k + (size_t)h * Lk * D;
   const T* vh = v + (size_t)h * Lk * D;
-  load_rows<T, D>(qs, q + hq * D, q0, Lq, tid);
+  if constexpr (kTensor<T>)
+    load_rows_bf16<D>(qb, q + hq * D, q0, Lq, tid);
+  else
+    load_rows<T, D>(qs, q + hq * D, q0, Lq, tid);
   load_rows<float, D>(dos, do2 + hq * D, q0, Lq, tid);
   if (tid < BQ) {
     int qr = q0 + tid;
@@ -466,9 +1001,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!live) continue;
     load_rows<T, D>(ks, kh, k0, Lk, tid);
     load_rows<T, D>(vs, vh, k0, Lk, tid);
+    if constexpr (kTensor<T>) load_rows_bf16<D>(kb, kh, k0, Lk, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
-    tile_dots<D>(qs, ks, ty, tx, s);
+    score_patch<T, D>(qs, ks, qb, kb, dss, tid, s);
     tile_dots<D>(dos, vs, ty, tx, dp);
     ds_tile(s, dp, ty, tx, q0, k0, Lq, Lk, causal, scale, qp_s, kp_s, m2_s,
             dl_s, rt_s, dss, nullptr);
@@ -511,10 +1047,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
+  // f32: qs | dos | ks | vs | dss | ps; bf16: qs | dos | qb kb (in ks's
+  // place, 64 x D + 8 each) | vs | dss (the raw score tile first) | ps
   float* qs = smem;             // BQ x DP
   float* dos = qs + BQ * DP;    // BQ x DP
   float* ks = dos + BQ * DP;    // BK x DP
-  float* vs = ks + BK * DP;     // BK x DP
+  bf16* qb = reinterpret_cast<bf16*>(ks);
+  bf16* kb = qb + 64 * (D + 8);
+  float* vs = ks + (kTensor<T> ? 64 * (D + 8) : BK * DP);  // BK x DP
   float* dss = vs + BK * DP;    // BQ x SP
   float* ps = dss + BQ * SP;    // BQ x SP
   __shared__ float m2_s[BQ], dl_s[BQ], rt_s[BQ];
@@ -524,7 +1064,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, h = blockIdx.y, k0 = blockIdx.x * BK;
   const size_t hq = (size_t)h * Lq;
   const size_t hk = (size_t)h * Lk;
-  load_rows<T, D>(ks, k + hk * D, k0, Lk, tid);
+  if constexpr (kTensor<T>)
+    load_rows_bf16<D>(kb, k + hk * D, k0, Lk, tid);
+  else
+    load_rows<T, D>(ks, k + hk * D, k0, Lk, tid);
   load_rows<T, D>(vs, v + hk * D, k0, Lk, tid);
   if (tid < BK) kp_s[tid] = k0 + tid < Lk ? kpos[k0 + tid] : INT_MAX;
   if (tid == 0) kmin_s = INT_MAX;
@@ -556,9 +1099,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!live) continue;
     load_rows<T, D>(qs, q + hq * D, q0, Lq, tid);
     load_rows<float, D>(dos, do2 + hq * D, q0, Lq, tid);
+    if constexpr (kTensor<T>) load_rows_bf16<D>(qb, q + hq * D, q0, Lq, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
-    tile_dots<D>(qs, ks, ty, tx, s);
+    score_patch<T, D>(qs, ks, qb, kb, dss, tid, s);
     tile_dots<D>(dos, vs, ty, tx, dp);
     ds_tile(s, dp, ty, tx, q0, k0, Lq, Lk, causal, scale, qp_s, kp_s, m2_s,
             dl_s, rt_s, dss, ps);
@@ -597,12 +1141,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // The three backward launches for one (dtype, head_dim). `which` is 3 (K3),
 // 4 (K4) or 5 (K5); unused pointers may be null.
 template <typename T, int D>
@@ -615,20 +1153,22 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   dim3 qgrid((Lq + BQ - 1) / BQ, H), kgrid((Lk + BK - 1) / BK, H);
+  // f32 row tiles: bf16 stages its score operands in place of one
+  constexpr int R = kTensor<T> ? 1 : 0;
   int e;
   if (which == 3) {
-    constexpr size_t smem = bwd_smem_bytes<D>(2, 0);
+    constexpr size_t smem = bwd_smem_bytes<T, D>(2 - 2 * R, R);
     if ((e = set_smem(flash_rowstats_kernel<T, D>, smem))) return e;
     flash_rowstats_kernel<T, D><<<qgrid, kThreads, smem, stream>>>(
         tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
   } else if (which == 4) {
-    constexpr size_t smem = bwd_smem_bytes<D>(4, 1);
+    constexpr size_t smem = bwd_smem_bytes<T, D>(4 - R, 1);
     if ((e = set_smem(flash_bwd_dq_kernel<T, D>, smem))) return e;
     flash_bwd_dq_kernel<T, D><<<qgrid, kThreads, smem, stream>>>(
         tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal, scale);
   } else if (which == 5) {
     if (Lk <= 0) return 0;
-    constexpr size_t smem = bwd_smem_bytes<D>(4, 2);
+    constexpr size_t smem = bwd_smem_bytes<T, D>(4 - R, 2);
     if ((e = set_smem(flash_bwd_dkv_kernel<T, D>, smem))) return e;
     flash_bwd_dkv_kernel<T, D><<<kgrid, kThreads, smem, stream>>>(
         tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
@@ -671,18 +1211,19 @@ int bwd_entry(int which, int dtype, const void* q, const void* k,
         static_cast<cudaStream_t>(stream));
   };
   if (dtype == 1) return args(float{});
-  if (dtype == 2) return args(__nv_bfloat16{});
+  if (dtype == 2) return args(bf16{});
   return -1;
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype 1 = f32, 2 = bf16 (q, k, v).
-// Layouts: q (H, Lq, D); k, v (H, Lk, D); m, l (H, Lq); o (H, Lq, D);
-// q_pos (Lq), k_pos (Lk) int32; outputs m2, l2, o2 like m, l, o. Returns the
-// cudaGetLastError() code after the launch (0 = success) or -1 for a dtype or
-// head_dim the kernel does not take. Launches on `stream`, does not
-// synchronise, allocates nothing.
+// Plain C interface, loaded with ctypes. dtype 1 = f32, 2 = bf16 (q, k, v;
+// bf16 pointers 16-byte aligned). Layouts: q (H, Lq, D); k, v (H, Lk, D);
+// m, l (H, Lq); o (H, Lq, D); q_pos (Lq), k_pos (Lk) int32; outputs m2, l2,
+// o2 like m, l, o (o2 8-byte aligned). Returns the cudaGetLastError() code
+// after the launch (0 = success) or -1 for a dtype or head_dim the kernel
+// does not take. Launches on `stream`, does not synchronise, allocates
+// nothing.
 extern "C" int rlo_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, const void* m, const void* l,
                              const void* o, const void* q_pos,
@@ -703,8 +1244,8 @@ extern "C" int rlo_flash_fwd(int dtype, const void* q, const void* k,
     return dispatch_d<float>(D, q, k, v, fm, fl, fo, qp, kp, m2f, l2f, o2f, H,
                              Lq, Lk, causal, scale, s);
   if (dtype == 2)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, fm, fl, fo, qp, kp, m2f, l2f,
-                                     o2f, H, Lq, Lk, causal, scale, s);
+    return dispatch_d<bf16>(D, q, k, v, fm, fl, fo, qp, kp, m2f, l2f, o2f, H,
+                            Lq, Lk, causal, scale, s);
   return -1;
 }
 

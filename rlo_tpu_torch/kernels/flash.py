@@ -130,7 +130,8 @@ def _kernel():
 def _cuda_checks(name: str, tensors: dict, d: int) -> None:
     """What every kernel of this module takes on the card: q, k, v in
     f32 or bf16, head_dim 16/32/64/128, contiguous operands, int32
-    positions."""
+    positions; bf16 q, k, v start on 16 bytes (the tensor-core route
+    copies 16-byte chunks)."""
     q = tensors["q"]
     if q.dtype not in _DT_CODE:
         raise TypeError(f"{name} takes float32 and bfloat16, not {q.dtype}")
@@ -140,6 +141,10 @@ def _cuda_checks(name: str, tensors: dict, d: int) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors ({tname} is "
                              f"not)")
+        if tname in ("q", "k", "v") and t.dtype == torch.bfloat16 and \
+                t.data_ptr() % 16:
+            raise ValueError(f"{name} needs bfloat16 operands aligned to "
+                             f"16 bytes ({tname} is not)")
     if tensors["q_pos"].dtype != torch.int32 or \
             tensors["k_pos"].dtype != torch.int32:
         raise TypeError("q_pos and k_pos must be int32")

@@ -38,7 +38,7 @@ GROUPS = (("K9 paged decode attention", ("paged_decode_kernel",)),
           ("K10 page row write", ("write_page_row_kernel",)),
           ("K11 page chunk write", ("write_page_block_kernel",)),
           ("K7 cache write", ("write_row_kernel",)),
-          ("K2 flash", ("flash_fwd_kernel",)),
+          ("K2 flash", ("flash_fwd_",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",
                                "cublas")))
 

@@ -93,6 +93,98 @@ def test_flash_attention_matches_jax(g):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+def _tensor_core_emulation(q, k, v, m, l, o, qp, kp, causal, scale,
+                           split=True):
+    """K2's bf16 route restated in torch on the CPU: scores as sums of
+    exact bf16 products in f32 over 16-wide steps of d, an f32 multiply by
+    scale, and P.V with p split exactly as p_hi = bf16(p), p_lo = bf16(p -
+    p_hi) (or, with ``split`` False, rounded once to bf16, the usual
+    FlashAttention choice)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.zeros(q.shape[0], q.shape[1], k.shape[1])
+    for d0 in range(0, q.shape[2], 16):
+        s = s + torch.einsum("hqd,hkd->hqk", qf[..., d0:d0 + 16],
+                             kf[..., d0:d0 + 16])
+    s = s * scale
+    mask = (kp[0][None, :] <= qp[0][:, None])[None] if causal else \
+        torch.ones_like(s, dtype=torch.bool)
+    s = torch.where(mask, s, k2.NEG)
+    m_new = torch.maximum(m[:, 0, :], s.amax(-1))
+    p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    p_hi = p.to(torch.bfloat16).float()
+    p_lo = (p - p_hi).to(torch.bfloat16).float() if split else \
+        torch.zeros_like(p)
+    corr = torch.exp(m[:, 0, :] - m_new)
+    l_new = l[:, 0, :] * corr + (p_hi + p_lo).sum(-1)
+    o_new = o * corr[..., None] + torch.einsum("hqk,hkd->hqd", p_hi, vf) \
+        + torch.einsum("hqk,hkd->hqd", p_lo, vf)
+    return m_new[:, None, :], l_new[:, None, :], o_new
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["initial", "carried"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64])
+def test_split_p_precision_matches_pallas_interpret(d, causal, carried,
+                                                   record_property):
+    """The precision argument of the tensor-core route, emulated on the
+    CPU: bf16 score products with the f32 scale multiply and P.V with the
+    exact p_hi/p_lo split stay within rtol 1e-4 (atol 1e-4 per unit of the
+    largest value) of the Pallas kernel in interpret mode. How far the
+    single-bf16 p lies from it is reported, not asserted."""
+    args = _inputs(4, 4, 64, 64, d, seed=d + causal, bf16=True,
+                   carried=carried)
+    want = [np.asarray(w) for w in jflash.flash_block_update_hld(
+        *(jnp.asarray(a) for a in args), causal=causal, scale=0.125,
+        block_q=16, interpret=True)]
+    ts = from_numpy(list(args), "cpu")
+    got = to_numpy(list(_tensor_core_emulation(*ts, causal, 0.125)))
+    single = to_numpy(list(_tensor_core_emulation(*ts, causal, 0.125,
+                                                  split=False)))
+    unit = max(1.0, float(np.abs(want[2]).max()))
+    dev = {"split": float(np.abs(got[2] - want[2]).max()) / unit,
+           "single": float(np.abs(single[2] - want[2]).max()) / unit}
+    record_property("o_dev_per_unit", dev)
+    print(f"o' from the reference, per unit of max|o'|: split p "
+          f"{dev['split']:.3g}, single-bf16 p {dev['single']:.3g}")
+    for name, g, w in zip("mlo", got, want):
+        np.testing.assert_allclose(
+            g, w, rtol=1e-4, atol=1e-4 * max(1.0, float(np.abs(w).max())),
+            err_msg=f"{name}': split p {dev['split']:.3g} and single-bf16 "
+                    f"p {dev['single']:.3g} from the reference (o', per "
+                    f"unit of max|o'|)")
+
+
+def test_cuda_checks_want_aligned_bf16():
+    """The tensor-core route copies 16-byte chunks: a bf16 operand that
+    does not start on 16 bytes is refused before any launch (the check
+    reads only pointers, so it runs on CPU tensors)."""
+    q, k, v, m, l, o, qp, kp = from_numpy(list(_inputs(2, 2, 4, 4, 16, 1)),
+                                          "cpu")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    ops = dict(q=q, k=k, v=v, m=m, l=l, o=o, q_pos=qp, k_pos=kp)
+    k2._cuda_checks("K2", ops, 16)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
+    ops["k"] = shifted.reshape(q.shape)
+    assert ops["k"].is_contiguous() and ops["k"].data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        k2._cuda_checks("K2", ops, 16)
+    f32 = torch.zeros(q.numel() + 1)[1:].reshape(q.shape)
+    assert f32.data_ptr() % 16
+    ops.update(q=f32, k=f32, v=f32)
+    k2._cuda_checks("K2", ops, 16)  # f32 takes the CUDA-core route
+
+
+def test_profilers_group_both_k2_routes():
+    """The profilers file K2's two instantiated kernels (the bf16
+    tensor-core and the f32 CUDA-core route) under K2 by name."""
+    from rlo_tpu_torch.tools import profile_decode, profile_train
+    for name in ("void (anonymous namespace)::flash_fwd_mma_kernel<64>(...)",
+                 "void (anonymous namespace)::flash_fwd_f32_kernel<64>(...)"):
+        assert profile_decode._group(name) == "K2 flash"
+        assert profile_decode._group(name, profile_train.GROUPS) == \
+            "K2 flash forward"
+
+
 def test_forward_only():
     """Without grad the update is the forward alone (no graph); with an
     operand that requires grad the gradient flows to q, k and v (the
@@ -149,10 +241,24 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hk,lq,lk,d", [(8, 8, 100, 130, 64),
                                           (8, 2, 64, 64, 128),
-                                          (4, 1, 33, 7, 16)])
-def test_kernel_matches_plain_on_card(cuda, h, hk, lq, lk, d, dtype):
-    args = from_numpy(list(_inputs(h, hk, lq, lk, d, seed=lq)), cuda)
+                                          (4, 1, 33, 7, 16),
+                                          (4, 4, 33, 7, 32),
+                                          (8, 4, 129, 77, 16),
+                                          (8, 4, 129, 77, 32),
+                                          (16, 2, 129, 77, 64),
+                                          (16, 2, 33, 7, 128)])
+@pytest.mark.parametrize("state", ["carried", "initial", "ring"])
+def test_kernel_matches_plain_on_card(cuda, h, hk, lq, lk, d, dtype, state):
+    """K2 against its plain version (bf16: the tensor-core route; f32: the
+    CUDA-core route): ragged Lq/Lk, GQA groups 1-8, a carried or the
+    initial state, and ("ring") key positions permuted and shifted so
+    some rows see no key (fully masked rows)."""
+    args = from_numpy(list(_inputs(h, hk, lq, lk, d, seed=lq,
+                                   carried=state == "carried")), cuda)
     args[:3] = [t.to(dtype) for t in args[:3]]
+    if state == "ring":
+        perm = np.random.default_rng(lk).permutation(lk)
+        args[7] = (args[7][:, perm] + lq // 2).contiguous()
     for causal in (True, False):
         before = k2.flash_block_update_hld.launches
         got = k2.flash_block_update_hld(*args, causal=causal, scale=0.125)
@@ -162,3 +268,5 @@ def test_kernel_matches_plain_on_card(cuda, h, hk, lq, lk, d, dtype):
                                                scale=0.125)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        if causal and state == "ring":
+            assert bool((got[1] == 0).any())  # some rows saw no key

@@ -482,7 +482,11 @@ def _bwd_operands(h, lq, lk, d, seed, dev, dtype, causal):
 def test_backward_kernels_match_plain_on_card(cuda, h, lq, lk, d, dtype):
     """K3's counts equal the plain counts (each on its own forward's m')
     and are >= 1 on every row (its recomputed scores tie K2's m'); K4
-    and K5 within rtol/atol 1e-4 of their plain versions."""
+    and K5 within rtol/atol 1e-4 of their plain versions, each side on
+    its own forward's m' too: the routed term lands where a side's own
+    recomputed score ties its m' (bf16 scores come from the tensor cores
+    in the kernels and from an f32 BLAS product in the plain versions,
+    whose last bits differ)."""
     for causal in (True, False):
         ops, m2p = _bwd_operands(h, lq, lk, d, lq, cuda, dtype, causal)
         q, k, v, m2, dl2, do2, route, qp, kp = ops
@@ -497,11 +501,36 @@ def test_backward_kernels_match_plain_on_card(cuda, h, lq, lk, d, dtype):
                 tf.bwd_dkv.launches) == tuple(b + 1 for b in before)
         assert torch.equal(cnt, tf.rowstats_plain(q, k, m2p, qp, kp, **kw))
         assert bool((cnt >= 1).all())
-        torch.testing.assert_close(dq, tf.bwd_dq_plain(*ops, **kw),
+        pops = (q, k, v, m2p, dl2, do2, route, qp, kp)
+        torch.testing.assert_close(dq, tf.bwd_dq_plain(*pops, **kw),
                                    rtol=1e-4, atol=1e-4)
-        pk, pv = tf.bwd_dkv_plain(*ops, **kw)
+        pk, pv = tf.bwd_dkv_plain(*pops, **kw)
         torch.testing.assert_close(dk, pk, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(dv, pv, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,hk,lq,lk", [(4, 4, 33, 7), (4, 2, 129, 77),
+                                        (8, 1, 64, 256)])
+def test_bf16_ties_with_k2_max_on_card(cuda, h, hk, lq, lk, d):
+    """bf16 operands: K3 recomputes each score with K2's tensor-core
+    routine, so from the initial state every row ties K2's m' at least
+    once (through the GQA fold too, whose folded rows repeat positions),
+    causal and not."""
+    q, k, v, _, _, _, qp, kp = from_numpy(make_hld(d + lq, h, lq, lk, d, hk),
+                                          cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    g = h // hk
+    qf, qpf = q.reshape(hk, g * lq, d), qp.repeat(1, g)
+    m = torch.full((hk, 1, g * lq), tf.NEG, device=cuda)
+    state = (m, torch.zeros_like(m), torch.zeros(hk, g * lq, d, device=cuda))
+    for causal in (True, False):
+        kw = dict(causal=causal, scale=0.125)
+        m2 = tf.flash_block_update_hld(qf, k, v, *state, qpf, kp, **kw)[0]
+        cnt = tf.rowstats(qf, k, m2, qpf, kp, **kw)
+        torch.cuda.synchronize()
+        assert bool((cnt >= 1).all()), int((cnt < 1).sum())
 
 
 @pytest.mark.gpu
