@@ -13,7 +13,8 @@ Phases, each printing its own lines:
    builds every kernel of the port from ``rlo_tpu_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); the SASS of the
    flash library must hold HMMA (tensor-core) instructions in every bf16
-   instantiation of K2-K5 and none in the f32 ones.
+   instantiation of K2-K5 and none in the f32 ones, and more in each bf16
+   K4/K5 than in K3 at the same head dim (their products moved too).
 2. K1 (the fused combine) against its plain PyTorch version on the card:
    f32/bf16 x sum/min/max, int32 x sum/min/max/and/or, with NaN inputs,
    int32 values above 2^24, ragged and unaligned sizes, the in-place
@@ -31,7 +32,9 @@ Phases, each printing its own lines:
    ragged edges, GQA group sizes 1/2/8 and int8 caches, and K2's
    tensor-core route at head dims 16/32/64/128 (ragged, GQA 2 and 8,
    carried state, fully masked rows, permuted ring positions); K7 and K8
-   must be bit-identical. K2 is timed at the prefill shape, the training
+   must be bit-identical; operands that are views (an offset-by-one,
+   misaligned bf16 k/v, a transposed q and o) give K2's bits for their
+   contiguous copies. K2 is timed at the prefill shape, the training
    shape and on its f32 route, in turns with
    ``scaled_dot_product_attention``. Then K9 (paged decode) at the paged
    decode shape (289 permuted pages of 128), a prefill chunk, GQA group 4
@@ -64,11 +67,14 @@ Phases, each printing its own lines:
    1024 x 64 bf16, causal and not, f32, GQA group 4 through the host
    fold, ragged Lq/Lk, the ring step, fully masked rows, structural ties):
    K3's counts equal exactly (each side on its own forward's m'), K4/K5
-   within rtol 1e-4 (each side on that m' too); K3 ties K2's m' on every
-   row from the initial state at bf16 head dims 16/32/128 too (ragged,
-   causal and not). Times each kernel,
-   its plain version, its bound and (K4, K5) the backward of
-   ``scaled_dot_product_attention`` at the same shape.
+   within rtol 1e-4 (each side on that m' too); at bf16 head dims
+   16/32/128 too (33 x 7, 129 x 77, 256 x 256, causal and not) K3 ties
+   K2's m' on every row from the initial state and K4/K5 hold rtol 1e-4;
+   100 repeat launches of K3-K5 give the bits of the first, and views
+   (misaligned, transposed) the bits of their contiguous copies. Times
+   each kernel, its plain version, its bound and (K4, K5) the backward of
+   ``scaled_dot_product_attention`` at the same shape (its device time,
+   by the profiler: timed by events, the call is bound by the host).
 8. The VJP (``FlashBlockUpdate``) in its three modes at 64 x 1024 x 64:
    'pallas' and 'pallas_fast' against 'xla' on one update and on a chain
    of two (the ring step); values bit-identical across the modes. The
@@ -76,8 +82,9 @@ Phases, each printing its own lines:
    K3's launch count is set to 0 just before it and read just after.
 9. Training at full width (the flagship config, batch 4 x 1024, one
    batch from the seed): the kernel path's loss and grads against the
-   attention backward in 'xla' mode, remat bit-identical to no remat, 10
-   SGD and 10 Adam steps with the loss falling, the median step time,
+   attention backward in 'xla' mode, 3 runs each with and without remat
+   bit-identical to the first, 10 SGD and 10 Adam steps with the loss
+   falling, the median step time,
    tokens/s, model FLOPs per token and their share of the bf16 peak,
    peak memory and launches per step.
 10. The explicit dp combine: 2 ranks of a ``LocalMesh`` on the card, each
@@ -153,6 +160,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, per: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one ``fn()`` call: its kernels' times summed by
+    ``torch.profiler`` over ``reps`` calls, divided by ``reps``. Leaves
+    out the host time between the kernels of a call (autograd's engine
+    around SDPA's backward), which CUDA events around a run include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us += float(getattr(evt, "device_time_total", 0)
+                        or getattr(evt, "cuda_time_total", 0))
+    check(us > 0, "the profiler recorded no device time")
+    return us / reps / 1e3
 
 
 def wall_ms(fn, reps: int = 3) -> float:
@@ -429,6 +458,21 @@ def _close(got, want, rtol: float, atol_unit: float) -> bool:
                                atol=atol_unit * scale))
 
 
+def _offset(t):
+    """The values of ``t`` as a contiguous view one element into its
+    storage: a bf16 one starts 2 bytes past 16 bytes."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def _transposed(t):
+    """The values of ``t`` as a non-contiguous view (the last two axes
+    swapped in storage)."""
+    return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 #: f32 FMA rate of an H100 SXM's CUDA cores (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12
 
@@ -532,6 +576,24 @@ def phase_k2(dev) -> dict:
           f"fully masked rows, permuted ring positions; scale -0.125 and 0) "
           f"within rtol 1e-4 of the plain version; max |err| of o/l "
           f"{worst_d:.3g}")
+
+    # views: the wrapper copies an operand that is not contiguous or (bf16
+    # q, k, v) does not start on 16 bytes, as the reference takes any
+    # array (one head count: a GQA fold would copy the views itself)
+    args = case(8, 8, 129, 77, bf, True)
+    views = [_transposed(args[0]), _offset(args[1]), _offset(args[2]),
+             args[3], args[4], _transposed(args[5])] + list(args[6:])
+    check(not views[0].is_contiguous() and views[1].data_ptr() % 16,
+          "the K2 view case holds no view")
+    for causal in (True, False):
+        got = k2.flash_block_update_hld(*views, causal=causal, scale=0.125)
+        want = k2.flash_block_update_hld(*args, causal=causal, scale=0.125)
+        torch.cuda.synchronize()
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"K2 on views differs from K2 on contiguous copies "
+              f"(causal={causal})")
+    print("[k2] views (transposed q and o, k and v one bf16 element into "
+          "their storage) give the bits of their contiguous copies")
 
     stats = {}
     for label, h, dtype, rate in (("prefill", 512, bf, PEAK_BF16_FLOPS),
@@ -1590,8 +1652,10 @@ def phase_k345(dev) -> dict:
           f"exactly; K4/K5 within rtol 1e-4 of the plain versions; max "
           f"|err| K4 {worst[4]:.3g}, K5 {worst[5]:.3g}")
 
-    # the bf16 tie contract at every head dim: K3 recomputes K2's
-    # tensor-core scores, so each row from the initial state ties K2's m'
+    # every bf16 head dim: K3 recomputes K2's tensor-core scores, so each
+    # row from the initial state ties K2's m'; K4/K5 (every product on the
+    # tensor cores) against their plain versions, each side on its own m'
+    n_dims = 0
     for dd in (16, 32, 128):
         for lq, lk in ((33, 7), (129, 77), (256, 256)):
             q, k, v = (torch.randn(8, ll, dd, generator=gen,
@@ -1604,34 +1668,86 @@ def phase_k345(dev) -> dict:
                               device=dev).reshape(1, lq)
             kp = torch.arange(lk, dtype=torch.int32, device=dev).reshape(1,
                                                                          lk)
+            dl2, do2, route = rand(8, 1, lq), rand(8, lq, dd), rand(8, 1, lq)
             for causal in (True, False):
                 kw = dict(causal=causal, scale=scale)
                 with torch.no_grad():
                     m2 = kf.flash_block_update_hld(q, k, v, *state, qp, kp,
                                                    **kw)[0]
+                    m2p = kf.flash_block_update_hld_plain(q, k, v, *state,
+                                                          qp, kp, **kw)[0]
                 cnt = kf.rowstats(q, k, m2, qp, kp, **kw)
                 check(bool((cnt >= 1).all()),
                       f"K3 found no tie with K2's m' on some row (bf16, "
                       f"D={dd}, {lq} x {lk}, causal={causal})")
-    print("[k3-k5] bf16 at D 16/32/128 (33 x 7, 129 x 77, 256 x 256, causal "
-          "and not): K3 ties K2's m' on every row")
+                ops = (q, k, v, m2, dl2, do2, route, qp, kp)
+                pops = (q, k, v, m2p, dl2, do2, route, qp, kp)
+                got = (kf.bwd_dq(*ops, **kw), *kf.bwd_dkv(*ops, **kw))
+                want = (kf.bwd_dq_plain(*pops, **kw),
+                        *kf.bwd_dkv_plain(*pops, **kw))
+                torch.cuda.synchronize()
+                for what, g, w, key in zip(("dq", "dk", "dv"), got, want,
+                                           (4, 5, 5)):
+                    check(bool(torch.isfinite(g).all()) and
+                          _close(g, w, 1e-4, 1e-4),
+                          f"K{key} {what} differs from its plain version "
+                          f"(bf16, D={dd}, {lq} x {lk}, causal={causal})")
+                    worst[key] = max(worst[key], abs_err(g, w))
+                n_dims += 1
+    print(f"[k3-k5] bf16 at D 16/32/128 (33 x 7, 129 x 77, 256 x 256, "
+          f"causal and not; {n_dims} cases): K3 ties K2's m' on every row; "
+          f"K4/K5 within rtol 1e-4 of the plain versions; max |err| K4 "
+          f"{worst[4]:.3g}, K5 {worst[5]:.3g}")
 
-    # times at the path's shape: causal 64 x 1024 x 64 bf16
+    # no atomics: two launches give the same bits; views (a transposed
+    # q, k and v one bf16 element into their storage, a misaligned do')
+    # give the bits of their contiguous copies
     q, k, v, m, l, o, qp, kp = cases[0][1]
     kw = dict(causal=True, scale=scale)
     with torch.no_grad():
         m2 = kf.flash_block_update_hld(q, k, v, m, l, o, qp, kp, **kw)[0]
-    ops = (q, k, v, m2, rand(h, 1, n), rand(h, n, d),
-           torch.zeros(h, 1, n, device=dev), qp, kp)
+    dl2, do2, route = rand(h, 1, n), rand(h, n, d), rand(h, 1, n)
+
+    def k345(q, k, v, do2):
+        return (kf.rowstats(q, k, m2, qp, kp, **kw),
+                kf.bwd_dq(q, k, v, m2, dl2, do2, route, qp, kp, **kw),
+                *kf.bwd_dkv(q, k, v, m2, dl2, do2, route, qp, kp, **kw))
+
+    # (a race between a block's warps shows as a rare launch that differs,
+    # so the check repeats the launches REPEATS times)
+    names = ("K3", "K4 dq", "K5 dk", "K5 dv")
+    first = k345(q, k, v, do2)
+    differ = dict.fromkeys(names, 0)
+    for _ in range(REPEATS):
+        for name, a, b in zip(names, first, k345(q, k, v, do2)):
+            differ[name] += not same_bits(a, b)
+    viewed = k345(_transposed(q), _offset(k), _offset(v), _offset(do2))
+    torch.cuda.synchronize()
+    print(f"[k3-k5] causal {h} heads x {n} x 64 bf16: launches differing "
+          f"from the first in {REPEATS} repeats {json.dumps(differ)}")
+    check(not any(differ.values()), "repeat launches of K3-K5 differ")
+    for name, a, c in zip(names, first, viewed):
+        check(same_bits(a, c), f"{name}: views differ from their "
+                               f"contiguous copies")
+    print(f"[k3-k5] causal {h} heads x {n} x 64 bf16: {REPEATS} repeat "
+          f"launches of K3-K5 give the same bits; views (transposed q, "
+          f"misaligned k, v, do') the bits of their contiguous copies")
+
+    # times at the path's shape: causal 64 x 1024 x 64 bf16 (the fast
+    # mode's zero route)
+    ops = (q, k, v, m2, dl2, do2, torch.zeros(h, 1, n, device=dev), qp, kp)
     q4, k4, v4 = (t.unsqueeze(0).detach().requires_grad_(True)
                   for t in (q, k, v))
     out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                          scale=scale)
     dout = torch.randn(out.shape, generator=gen, device=dev,
                        dtype=out.dtype)
-    lib = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout,
-                                              retain_graph=True), iters=10,
-                  per=10)
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (q4, k4, v4), dout, retain_graph=True)
+    # the library's device time: timed by events in runs of 10, the call
+    # is bound by the host (autograd's engine), not by its kernels
+    lib = device_ms(sdpa_bwd)
+    lib_events = time_ms(sdpa_bwd, iters=10, per=10)
     pairs = h * int((kp[0][None, :] <= qp[0][:, None]).sum())
     stats = {}
     for which, kern, plain, library in (
@@ -1651,9 +1767,11 @@ def phase_k345(dev) -> dict:
               f"{ms:.4f} ms a launch in runs of 10, plain {plain_ms:.4f} ms, "
               f"bound {bound:.4f} ms "
               f"({by}), kernel at {100 * bound / ms:.1f}% of bound")
+    k45 = stats['K4']['ms'] + stats['K5']['ms']
     print(f"[k3-k5] scaled_dot_product_attention backward at the same "
-          f"shape (the yardstick of K4+K5, "
-          f"{stats['K4']['ms'] + stats['K5']['ms']:.4f} ms): {lib:.4f} ms")
+          f"shape (the yardstick of K4+K5, {k45:.4f} ms): device {lib:.4f} "
+          f"ms by the profiler ({k45 / lib:.2f}x), {lib_events:.4f} ms a "
+          f"call in runs of 10 by CUDA events (host time included)")
     return stats
 
 
@@ -1781,6 +1899,8 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 #: (folded heads, length) of phases 7 and 8: the training path's
 #: attention (batch 4 x 16 heads, L 1024)
 BWD_SHAPE = (64, 1024)
+#: phase 7's repeat launches of K3-K5, each held bit-equal to the first
+REPEATS = 100
 #: per-tensor relative L2 error of the kernel path's grads against the
 #: same step with the attention backward in 'xla' mode: dq/dk/dv leave
 #: each layer's attention in bf16 on both sides, rounded from f32 sums
@@ -1791,6 +1911,8 @@ GRAD_REL_LIMIT = 1e-2
 #: grads: each rank's GEMMs have half the rows, so cuBLAS may sum in
 #: another order and bf16 activations round differently
 DP_REL_LIMIT = 2e-2
+#: runs of the step with and without remat held bit-equal to the first
+REMAT_REPEATS = 3
 SGD_LR, ADAM_LR = 0.05, 3e-4
 
 
@@ -1831,12 +1953,13 @@ def phase_train(dev, flash_fns) -> dict:
     batch from the seed): the kernel path's loss and grads (K2 forward,
     K4/K5 backward through ``flash_attention``'s 'pallas_fast') against
     the same step with the attention backward in 'xla' mode (losses
-    equal, grads within GRAD_REL_LIMIT per tensor); ``remat=True``
-    against ``remat=False`` (loss and grads bit-identical); 10 SGD steps
-    and 10 ``torch.optim.Adam`` steps (loss finite at every step, lower
-    after than before); the median step time, tokens/s, model FLOPs per
-    token (benchmarks/train_bench.py:40-42) and their share of the bf16
-    dense peak, peak device memory and launches per step."""
+    equal, grads within GRAD_REL_LIMIT per tensor); REMAT_REPEATS runs
+    each with ``remat=True`` and ``remat=False`` against the first (loss
+    and grads bit-identical); 10 SGD steps and 10 ``torch.optim.Adam``
+    steps (loss finite at every step, lower after than before); the
+    median step time, tokens/s, model FLOPs per token
+    (benchmarks/train_bench.py:40-42) and their share of the bf16 dense
+    peak, peak device memory and launches per step."""
     import dataclasses
     import torch
     from rlo_tpu_torch.models import transformer as tt
@@ -1868,18 +1991,24 @@ def phase_train(dev, flash_fns) -> dict:
           f"{max(rel):.3g}, median {statistics.median(rel):.3g} (limit "
           f"{GRAD_REL_LIMIT})")
 
-    loss_r, grads_r = tt.grads_and_loss(
-        params, tokens, dataclasses.replace(cfg, remat=True))
-    diffs = [float((a - b).abs().max()) for a, b in
-             zip(tt.tree_leaves(grads_r), tt.tree_leaves(grads_k))]
-    same = torch.equal(loss_r, loss_k) and all(
-        torch.equal(a, b) for a, b in zip(tt.tree_leaves(grads_r),
-                                          tt.tree_leaves(grads_k)))
-    print(f"[train] remat=True against remat=False: loss |delta| "
-          f"{float((loss_r - loss_k).abs())}, grads max |delta| "
-          f"{max(diffs)}")
-    check(same, "remat changed the loss or the grads")
-    del grads_r
+    # remat, and the step run again without it, each REMAT_REPEATS times
+    # (a rare race in a kernel shows as one run that parts)
+    diffs, parted = [0.0], {False: 0, True: 0}
+    for remat in (True, False) * REMAT_REPEATS:
+        loss_r, grads_r = tt.grads_and_loss(
+            params, tokens, dataclasses.replace(cfg, remat=remat))
+        diffs += [float((loss_r - loss_k).abs())] + [
+            float((a - b).abs().max()) for a, b in
+            zip(tt.tree_leaves(grads_r), tt.tree_leaves(grads_k))]
+        parted[remat] += not (torch.equal(loss_r, loss_k) and all(
+            torch.equal(a, b) for a, b in zip(tt.tree_leaves(grads_r),
+                                              tt.tree_leaves(grads_k))))
+        del grads_r
+    print(f"[train] {REMAT_REPEATS} runs each of remat=True and of "
+          f"remat=False against the first step: {parted[True]} and "
+          f"{parted[False]} parted; loss and grads max |delta| {max(diffs)}")
+    check(not parted[True], "remat changed the loss or the grads")
+    check(not parted[False], "the step's loss or grads changed between runs")
 
     walls, sgd = [], []
     p = params
@@ -2012,7 +2141,9 @@ def build_all() -> None:
 def check_tensor_cores() -> None:
     """K2-K5's bf16 instantiations run on the tensor cores and their f32
     ones on the CUDA cores: count HMMA instructions per kernel in the
-    SASS of the built flash library (``cuobjdump`` beside ``nvcc``)."""
+    SASS of the built flash library (``cuobjdump`` beside ``nvcc``). K4
+    and K5 run every product there, K3 only its scores: each bf16 K4/K5
+    must hold more HMMA than K3 at the same head dim."""
     import re
     from pathlib import Path
     from rlo_tpu_torch.kernels import build
@@ -2030,7 +2161,7 @@ def check_tensor_cores() -> None:
         elif fn and "HMMA" in line:
             hmma[fn] += 1
     kinds = {"K2": "flash_fwd_", "K3": "flash_rowstats_kernel",
-             "K4": "flash_bwd_dq_kernel", "K5": "flash_bwd_dkv_kernel"}
+             "K4": "flash_bwd_dq_", "K5": "flash_bwd_dkv_"}
     seen = {}
     for fn, n in hmma.items():
         for k, frag in kinds.items():
@@ -2039,11 +2170,19 @@ def check_tensor_cores() -> None:
                 check((n > 0) == bf16,
                       f"{k} {'bf16' if bf16 else 'f32'} instantiation {fn} "
                       f"has {n} HMMA instructions")
-                seen.setdefault((k, bf16), []).append(n)
-    check(len(seen) == 8 and all(len(v) == 4 for v in seen.values()),
+                d = int(re.search(r"Li(\d+)E", fn).group(1))
+                seen.setdefault((k, bf16), {})[d] = n
+    check(len(seen) == 8 and all(sorted(v) == [16, 32, 64, 128]
+                                 for v in seen.values()),
           f"expected K2-K5 x bf16/f32 x 4 head dims in the SASS: {seen}")
+    for k in ("K4", "K5"):
+        for d, n in seen[(k, True)].items():
+            check(n > seen[("K3", True)][d],
+                  f"bf16 {k} at D={d} has {n} HMMA, not more than K3's "
+                  f"{seen[('K3', True)][d]}: its products are not on the "
+                  f"tensor cores")
     print("[build] SASS HMMA counts (head dims 16/32/64/128): " + "; ".join(
-        f"{k} {'bf16' if b else 'f32'} {sorted(v)}"
+        f"{k} {'bf16' if b else 'f32'} {[v[d] for d in sorted(v)]}"
         for (k, b), v in sorted(seen.items())))
 
 

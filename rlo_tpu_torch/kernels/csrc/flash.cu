@@ -72,9 +72,6 @@ constexpr unsigned kFull = 0xffffffffu;
 template <typename T>
 constexpr bool kTensor = std::is_same<T, bf16>::value;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
 // The f32 score routine of K2-K5: s[i][j] = sum over d = 0..D-1 of
 // a[ty*4+i][d] * b[tx+16*j][d], one fmaf chain in that order from 0, on
 // f32 tiles of row stride D + 1. The backward's tie routing compares the
@@ -142,15 +139,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !ok (src must
 // still be a valid address).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool ok) {
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(int* dst, const int* src, bool ok) {
+template <typename T>
+__device__ __forceinline__ void cp_async4(T* dst, const T* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0)
@@ -733,7 +731,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 //
 // The TPU kernels ran a sequential grid axis with the sums in VMEM scratch;
 // here K3 and K4 own (head, 64 query rows) and loop over the K tiles, K5
-// owns (head, 64 key rows) and loops over every Q tile, each carrying its
+// owns (head, 64 key rows) and loops over the Q tiles, each carrying its
 // sums in registers, so no two blocks write one output and no atomics are
 // needed: gradients are the same bits from run to run. A causal tile that
 // no row of the block can see is skipped: its ds~ and p are 0. K3 counts
@@ -742,27 +740,53 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 //
 // The score tile fixes the tie bits. bf16 operands form it with K2's
 // routine, mma_scores (tensor-core m16n8k16 steps over d from a zero
-// accumulator, staged as bf16 tiles, written raw to a shared f32 tile);
+// accumulator, query rows at offsets that agree mod 16 and keys mod 8);
 // f32 operands with tile_dots. Both are followed by __fmul_rn by scale, as
 // in K2, so s~ == m' holds where K2's max came from a score.
 //
-// Bound: K4 does 3 and K5 4 products of 2 * D FLOPs per unmasked (q, k)
+// Bound: K4 runs 3 and K5 4 products of 2 * D FLOPs per unmasked (q, k)
 // pair, K3 one; bytes are q, k, v, do' read once and the outputs written
 // once. On an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the training
 // shapes (64 folded heads, L 1024, D 64, bf16, causal) the bytes bound all
 // three, the products close behind for K4 and K5 (the f32 do' and outputs
-// are most of the bytes). Past the score tile these kernels are simple
-// rather than fast: dp = do' . v^T, dq, dk and dv are f32 FMAs on the CUDA
-// cores from f32 tiles in shared memory, each thread a 4 x 4 patch of the
-// score tile and a 4 x (D/16) patch of the output.
+// are most of the bytes).
+//
+// Design, by dtype:
+// - K3 (both dtypes) and the f32 K4/K5 take the CUDA cores: 256 threads,
+//   each a 4 x 4 patch of the 64 x 64 score tile and a 4 x (D/16) patch of
+//   the output, from f32 tiles in shared memory (K3's bf16 scores come from
+//   mma_scores through a shared f32 tile).
+// - bf16 K4 and K5 run every product on the tensor cores (mma.sync
+//   m16n8k16, f32 accumulation). The f32 operands do', ds~ and p are split
+//   exactly into bf16 hi + lo (split_bf16: ~16 bits, against bf16's 8,
+//   whose one rounding would move the result ~2^-9 relative), so
+//   dP = do'_hi.v^T + do'_lo.v^T, dq = ds~_hi.k + ds~_lo.k,
+//   dk = ds~_hi^T.q + ds~_lo^T.q and dv = p_hi^T.do'_hi + p_hi^T.do'_lo +
+//   p_lo^T.do'_hi (the dropped lo.lo term is ~2^-16 relative): 5 products a
+//   pair in K4, 8 in K5, against the score's 1.
+//   K4 (flash_bwd_dq_mma_kernel): K2's shape. Each warp owns 16 query rows
+//   (a block of 4 warps 64); its Q fragments stay in registers, its do'
+//   rows are split once into bf16 tiles; K and V tiles of 64 keys are
+//   double-buffered by cp.async. Scores and dP land in mma C fragments,
+//   ds~ is formed there, and the ds~ fragments become the A operand of
+//   ds~ . k as K2's p does (K from the same tile by ldmatrix.trans).
+//   K5 (flash_bwd_dkv_mma_kernel): 8 warps own 64 keys (K and V tiles
+//   loaded once) and loop over Q tiles, whose Q, f32 do' and row values
+//   the next tile's cp.async copies while this one computes. Per tile,
+//   warp w first forms the scores, dP, p and ds~ of query rows 16 (w % 4)
+//   against keys 32 (w / 4) and stages p and ds~ as bf16 hi/lo tiles in
+//   shared memory; then it accumulates dk and dv for keys 16 (w % 4) and
+//   head-dim columns (w / 4) D/2 on, reading p^T and ds~^T back by
+//   ldmatrix.trans as A fragments (the contraction is over query rows).
+// ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int n_rows, int tid) {
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n_rows, int tid) {
   constexpr int DP = D + 1;
   for (int i = tid; i < 64 * D; i += kThreads) {
     int r = i / D, c = i % D, gr = r0 + r;
-    dst[r * DP + c] = gr < n_rows ? to_f(src[(size_t)gr * D + c]) : 0.f;
+    dst[r * DP + c] = gr < n_rows ? src[(size_t)gr * D + c] : 0.f;
   }
 }
 
@@ -823,9 +847,10 @@ __device__ __forceinline__ void score_patch(const float* qs, const float* ks,
   }
 }
 
-// Dynamic shared memory of K3-K5: f32 row tiles (row stride D + 1), f32
-// score tiles (row stride SP) and, for bf16, the two bf16 score-operand
-// tiles (64 x (D + 8) each, the bytes of 64 x (D + 8) floats).
+// Dynamic shared memory of the CUDA-core kernels: f32 row tiles (row
+// stride D + 1), f32 score tiles (row stride SP) and, for bf16 (K3), the
+// two bf16 score-operand tiles (64 x (D + 8) each, the bytes of 64 x
+// (D + 8) floats).
 template <typename T, int D>
 constexpr size_t bwd_smem_bytes(int f32_row_tiles, int score_tiles) {
   return sizeof(float) * ((size_t)f32_row_tiles * 64 * (D + 1) +
@@ -856,7 +881,7 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (kTensor<T>)
     load_rows_bf16<D>(qb, q + (size_t)h * Lq * D, q0, Lq, tid);
   else
-    load_rows<T, D>(qs, q + (size_t)h * Lq * D, q0, Lq, tid);
+    load_rows<D>(qs, q + (size_t)h * Lq * D, q0, Lq, tid);
   if (tid < BQ) {
     int qr = q0 + tid;
     bool ok = qr < Lq;
@@ -886,7 +911,7 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (kTensor<T>)
       load_rows_bf16<D>(kb, kh, k0, Lk, tid);
     else
-      load_rows<T, D>(ks, kh, k0, Lk, tid);
+      load_rows<D>(ks, kh, k0, Lk, tid);
     __syncthreads();
     float s[4][4];
     score_patch<T, D>(qs, ks, qb, kb, sc, tid, s);
@@ -939,25 +964,23 @@ __device__ __forceinline__ void ds_tile(
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ m2,
-                    const float* __restrict__ dl2,
-                    const float* __restrict__ do2,
-                    const float* __restrict__ route,
-                    const int* __restrict__ qpos,
-                    const int* __restrict__ kpos, float* __restrict__ dq,
-                    int Lq, int Lk, int causal, float scale) {
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ m2,
+                        const float* __restrict__ dl2,
+                        const float* __restrict__ do2,
+                        const float* __restrict__ route,
+                        const int* __restrict__ qpos,
+                        const int* __restrict__ kpos, float* __restrict__ dq,
+                        int Lq, int Lk, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
-  // f32: qs | dos | ks | vs | dss; bf16: qb kb (in qs's place, 64 x D + 8
-  // each) | dos | ks | vs | dss (the raw score tile first)
-  float* qs = smem;                                         // BQ x DP
-  bf16* qb = reinterpret_cast<bf16*>(smem);
-  bf16* kb = qb + 64 * (D + 8);
-  float* dos = smem + (kTensor<T> ? 64 * (D + 8) : BQ * DP);  // BQ x DP
+  float* qs = smem;             // BQ x DP
+  float* dos = qs + BQ * DP;    // BQ x DP
   float* ks = dos + BQ * DP;    // BK x DP
   float* vs = ks + BK * DP;     // BK x DP
   float* dss = vs + BK * DP;    // BQ x SP
@@ -967,13 +990,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const size_t hq = (size_t)h * Lq;
-  const T* kh = k + (size_t)h * Lk * D;
-  const T* vh = v + (size_t)h * Lk * D;
-  if constexpr (kTensor<T>)
-    load_rows_bf16<D>(qb, q + hq * D, q0, Lq, tid);
-  else
-    load_rows<T, D>(qs, q + hq * D, q0, Lq, tid);
-  load_rows<float, D>(dos, do2 + hq * D, q0, Lq, tid);
+  const float* kh = k + (size_t)h * Lk * D;
+  const float* vh = v + (size_t)h * Lk * D;
+  load_rows<D>(qs, q + hq * D, q0, Lq, tid);
+  load_rows<D>(dos, do2 + hq * D, q0, Lq, tid);
   if (tid < BQ) {
     int qr = q0 + tid;
     bool ok = qr < Lq;
@@ -999,12 +1019,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     int live = __syncthreads_or(!causal ||
                                 (tid < BK && k0 + tid < Lk && kp_s[tid] <= qmax));
     if (!live) continue;
-    load_rows<T, D>(ks, kh, k0, Lk, tid);
-    load_rows<T, D>(vs, vh, k0, Lk, tid);
-    if constexpr (kTensor<T>) load_rows_bf16<D>(kb, kh, k0, Lk, tid);
+    load_rows<D>(ks, kh, k0, Lk, tid);
+    load_rows<D>(vs, vh, k0, Lk, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
-    score_patch<T, D>(qs, ks, qb, kb, dss, tid, s);
+    tile_dots<D>(qs, ks, ty, tx, s);
     tile_dots<D>(dos, vs, ty, tx, dp);
     ds_tile(s, dp, ty, tx, q0, k0, Lq, Lk, causal, scale, qp_s, kp_s, m2_s,
             dl_s, rt_s, dss, nullptr);
@@ -1033,28 +1052,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ m2,
-                     const float* __restrict__ dl2,
-                     const float* __restrict__ do2,
-                     const float* __restrict__ route,
-                     const int* __restrict__ qpos,
-                     const int* __restrict__ kpos, float* __restrict__ dk,
-                     float* __restrict__ dv, int Lq, int Lk, int causal,
-                     float scale) {
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ m2,
+                         const float* __restrict__ dl2,
+                         const float* __restrict__ do2,
+                         const float* __restrict__ route,
+                         const int* __restrict__ qpos,
+                         const int* __restrict__ kpos, float* __restrict__ dk,
+                         float* __restrict__ dv, int Lq, int Lk, int causal,
+                         float scale) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
-  // f32: qs | dos | ks | vs | dss | ps; bf16: qs | dos | qb kb (in ks's
-  // place, 64 x D + 8 each) | vs | dss (the raw score tile first) | ps
   float* qs = smem;             // BQ x DP
   float* dos = qs + BQ * DP;    // BQ x DP
   float* ks = dos + BQ * DP;    // BK x DP
-  bf16* qb = reinterpret_cast<bf16*>(ks);
-  bf16* kb = qb + 64 * (D + 8);
-  float* vs = ks + (kTensor<T> ? 64 * (D + 8) : BK * DP);  // BK x DP
+  float* vs = ks + BK * DP;     // BK x DP
   float* dss = vs + BK * DP;    // BQ x SP
   float* ps = dss + BQ * SP;    // BQ x SP
   __shared__ float m2_s[BQ], dl_s[BQ], rt_s[BQ];
@@ -1064,11 +1081,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, h = blockIdx.y, k0 = blockIdx.x * BK;
   const size_t hq = (size_t)h * Lq;
   const size_t hk = (size_t)h * Lk;
-  if constexpr (kTensor<T>)
-    load_rows_bf16<D>(kb, k + hk * D, k0, Lk, tid);
-  else
-    load_rows<T, D>(ks, k + hk * D, k0, Lk, tid);
-  load_rows<T, D>(vs, v + hk * D, k0, Lk, tid);
+  load_rows<D>(ks, k + hk * D, k0, Lk, tid);
+  load_rows<D>(vs, v + hk * D, k0, Lk, tid);
   if (tid < BK) kp_s[tid] = k0 + tid < Lk ? kpos[k0 + tid] : INT_MAX;
   if (tid == 0) kmin_s = INT_MAX;
   __syncthreads();
@@ -1097,12 +1111,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     int live = __syncthreads_or(!causal || (tid < BQ && q0 + tid < Lq &&
                                             qp_mine >= kmin));
     if (!live) continue;
-    load_rows<T, D>(qs, q + hq * D, q0, Lq, tid);
-    load_rows<float, D>(dos, do2 + hq * D, q0, Lq, tid);
-    if constexpr (kTensor<T>) load_rows_bf16<D>(qb, q + hq * D, q0, Lq, tid);
+    load_rows<D>(qs, q + hq * D, q0, Lq, tid);
+    load_rows<D>(dos, do2 + hq * D, q0, Lq, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
-    score_patch<T, D>(qs, ks, qb, kb, dss, tid, s);
+    tile_dots<D>(qs, ks, ty, tx, s);
     tile_dots<D>(dos, vs, ty, tx, dp);
     ds_tile(s, dp, ty, tx, q0, k0, Lq, Lk, causal, scale, qp_s, kp_s, m2_s,
             dl_s, rt_s, dss, ps);
@@ -1141,6 +1154,553 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4 and K5, bf16 route: tensor cores (see the section header).
+// ---------------------------------------------------------------------------
+
+constexpr int kDkvThreads = 256;  // K5: 8 warps
+constexpr int PS = BK + 8;        // bf16 row stride of K5's p and ds~ tiles
+
+// The rows of one query row pair (hf = 0, 1: rows g and g + 8 of a warp's
+// 16) that ds_frags reads.
+struct RowVals {
+  bool ok[2];
+  int qp[2];
+  float m2[2], dl[2], rt[2];
+};
+
+// c[j] += a . b^T for the 16 rows of a (row stride D + 8, split into bf16
+// hi and lo tiles) against NT * 8 rows of b, as mma_scores lays them out:
+// the lo products of a 16-wide step of d before its hi products.
+template <int D, int NT>
+__device__ __forceinline__ void mma_rows_split(const bf16* a_hi,
+                                               const bf16* a_lo,
+                                               const bf16* b, int lane,
+                                               float (&c)[NT][4]) {
+  const int ao = (lane & 15) * (D + 8) + (lane >> 4) * 8;
+  const bf16* p = b + ((lane & 7) + ((lane >> 4) << 3)) * (D + 8) + (lane & 8);
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t hi[4], lo[4], bb[NT / 2][4];
+    ldsm_x4(hi, a_hi + ao + kc * 16);
+    ldsm_x4(lo, a_lo + ao + kc * 16);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp)
+      ldsm_x4(bb[jp], p + jp * 16 * (D + 8) + kc * 16);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      mma_bf16(c[2 * jp], lo, bb[jp][0], bb[jp][1]);
+      mma_bf16(c[2 * jp + 1], lo, bb[jp][2], bb[jp][3]);
+    }
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      mma_bf16(c[2 * jp], hi, bb[jp][0], bb[jp][1]);
+      mma_bf16(c[2 * jp + 1], hi, bb[jp][2], bb[jp][3]);
+    }
+  }
+}
+
+// ds~ (into s, over the raw scores) and, with P, p, in the mma C fragments
+// of 16 query rows against NT * 8 keys: element e of tile j is row
+// g + 8 (e >> 1), key 8j + 2 t4 + (e & 1) of the keys at kp (kvalid of them
+// lie before Lk). The elementwise rule of ds_tile.
+template <int NT, bool P>
+__device__ __forceinline__ void ds_frags(float (&s)[NT][4],
+                                         const float (&dp)[NT][4],
+                                         float (&p)[NT][4], const RowVals& rv,
+                                         const int* kp, int kvalid,
+                                         int causal, float scale, int t4) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = j * 8 + t4 * 2 + (e & 1), hf = e >> 1;
+      const bool mask =
+          rv.ok[hf] && c < kvalid && (!causal || kp[c] <= rv.qp[hf]);
+      const float st = mask ? __fmul_rn(s[j][e], scale) : kNeg;
+      const float u = expf(st - rv.m2[hf]);
+      float ds = u * (mask ? rv.dl[hf] + dp[j][e] : 0.f);
+      if (mask && st == rv.m2[hf]) ds += rv.rt[hf];
+      s[j][e] = ds;
+      if constexpr (P) p[j][e] = mask ? u : 0.f;
+    }
+}
+
+// ROWS f32 do' rows (row stride D, n of them valid) split into bf16 hi and
+// lo tiles (row stride D + 8), zero past n, by NT threads (t = 0..NT-1).
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void split_rows(bf16* hi, bf16* lo,
+                                           const float* src, int n, int t) {
+  constexpr int C4 = D / 4;
+  for (int i = t; i < ROWS * C4; i += NT) {
+    const int r = i / C4, c = (i % C4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n) x = *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
+    uint32_t h0, l0, h1, l1;
+    split_bf16(x.x, x.y, h0, l0);
+    split_bf16(x.z, x.w, h1, l1);
+    *reinterpret_cast<uint2*>(hi + r * (D + 8) + c) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(lo + r * (D + 8) + c) = make_uint2(l0, l1);
+  }
+}
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {  // do'_hi (the Q tile first),
+  return sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (D + 8);  // do'_lo, 2 K, 2 V
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ m2,
+                        const float* __restrict__ dl2,
+                        const float* __restrict__ do2,
+                        const float* __restrict__ route,
+                        const int* __restrict__ qpos,
+                        const int* __restrict__ kpos, float* __restrict__ dq,
+                        int Lq, int Lk, int causal, float scale) {
+  constexpr int DS = D + 8;             // bf16 row stride in shared memory
+  constexpr int CH = D / 8;             // 16-byte chunks per row
+  constexpr int RPP = kMmaThreads / CH; // rows per pass of the block's copies
+  constexpr int NO = D / 8;             // dq fragments (8 columns each)
+  constexpr int NS = BK / 8;            // score fragments (8 keys each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* dhi = reinterpret_cast<bf16*>(smem_raw);  // BQ x DS: Q, then do'_hi
+  bf16* dlo = dhi + BQ * DS;                      // BQ x DS
+  bf16* ks = dlo + BQ * DS;                       // 2 x BK x DS
+  bf16* vs = ks + 2 * BK * DS;                    // 2 x BK x DS
+  __shared__ int kp_s[2][BK];
+  __shared__ int span_s[3];  // max query position; first, last live tile
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y;
+  // the longest causal rows first: they finish last
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const size_t hq = (size_t)h * Lq;
+  const bf16* kh = k + (size_t)h * Lk * D;
+  const bf16* vh = v + (size_t)h * Lk * D;
+  const int cr = tid / CH, cc = (tid % CH) * 8;
+
+#pragma unroll
+  for (int i = 0; i < BQ / RPP; ++i) {
+    const int r = cr + i * RPP;
+    const bool ok = q0 + r < Lq;
+    cp_async16(dhi + r * DS + cc, q + (hq + (ok ? q0 + r : 0)) * D + cc, ok);
+  }
+  cp_async_commit();
+
+  RowVals rv;
+  int wmax = INT_MIN;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + warp * 16 + g + 8 * hf;
+    const bool ok = r < Lq;
+    rv.ok[hf] = ok;
+    rv.qp[hf] = ok ? qpos[r] : INT_MIN;
+    rv.m2[hf] = ok ? m2[hq + r] : 0.f;
+    rv.dl[hf] = ok ? dl2[hq + r] : 0.f;
+    rv.rt[hf] = ok ? route[hq + r] : 0.f;
+    if (ok) wmax = max(wmax, rv.qp[hf]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    wmax = max(wmax, __shfl_xor_sync(kFull, wmax, off));
+  const bool warp_rows = __any_sync(kFull, rv.ok[0]);
+
+  // the K tiles some row of the block may see, as in K2
+  const int ntiles = (Lk + BK - 1) / BK;
+  int first = 0, last = ntiles - 1;
+  if (causal) {
+    if (tid == 0) {
+      span_s[0] = INT_MIN;
+      span_s[1] = INT_MAX;
+      span_s[2] = -1;
+    }
+    __syncthreads();
+    if (lane == 0) atomicMax(&span_s[0], wmax);
+    __syncthreads();
+    const int qmax = span_s[0];
+    int f = INT_MAX, l = -1;
+    for (int i = tid; i < Lk; i += kMmaThreads)
+      if (kpos[i] <= qmax) {
+        f = min(f, i / BK);
+        l = i / BK;
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      f = min(f, __shfl_xor_sync(kFull, f, off));
+      l = max(l, __shfl_xor_sync(kFull, l, off));
+    }
+    if (lane == 0) {
+      atomicMin(&span_s[1], f);
+      atomicMax(&span_s[2], l);
+    }
+    __syncthreads();
+    first = span_s[1];
+    last = span_s[2];
+  }
+
+  auto load_tile = [&](int t, int buf) {
+    const int k0 = t * BK;
+    bf16* kd = ks + buf * BK * DS + cr * DS + cc;
+    bf16* vd = vs + buf * BK * DS + cr * DS + cc;
+#pragma unroll
+    for (int i = 0; i < BK / RPP; ++i) {
+      const int r = k0 + cr + i * RPP;
+      const bool ok = r < Lk;
+      const size_t src = (size_t)(ok ? r : 0) * D + cc;
+      cp_async16(kd + i * RPP * DS, kh + src, ok);
+      cp_async16(vd + i * RPP * DS, vh + src, ok);
+    }
+    if (tid < BK) {
+      const bool ok = k0 + tid < Lk;
+      cp_async4(&kp_s[buf][tid], kpos + (ok ? k0 + tid : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  if (first <= last)
+    load_tile(first, 0);
+  else
+    cp_async_commit();
+  cp_async_wait<1>();  // the Q tile
+  __syncthreads();
+  // the warp's Q fragments, then its do' rows split in place of its Q rows
+  bf16* whi = dhi + warp * 16 * DS;
+  bf16* wlo = dlo + warp * 16 * DS;
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(qf, whi, lane);
+  __syncwarp();
+  split_rows<D, 16, 32>(whi, wlo, do2 + (hq + q0 + warp * 16) * D,
+                        Lq - q0 - warp * 16, lane);
+  __syncwarp();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = first, buf = 0; t <= last; ++t, buf ^= 1) {
+    if (t < last)
+      load_tile(t + 1, buf ^ 1);  // freed by the last iteration's barrier
+    else
+      cp_async_commit();
+    cp_async_wait<1>();  // tile t
+    __syncthreads();
+
+    const int k0 = t * BK;
+    const int* kp = kp_s[buf];
+    bool sees = false;
+#pragma unroll
+    for (int c = lane; c < BK; c += 32)
+      sees |= k0 + c < Lk && (!causal || kp[c] <= wmax);
+    // warp-uniform: skip a tile none of the warp's rows sees
+    if (warp_rows && __any_sync(kFull, sees)) {
+      const bf16* kt = ks + buf * BK * DS;
+      float s[NS][4], dp[NS][4];
+      mma_scores<D, NS>(qf, kt, lane, s);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+      mma_rows_split<D, NS>(whi, wlo, vs + buf * BK * DS, lane, dp);
+      ds_frags<NS, false>(s, dp, dp, rv, kp, Lk - k0, causal, scale, t4);
+      // dq += ds~_lo . k + ds~_hi . k: the ds~ fragments of keys
+      // 16kc..16kc+15 are the A fragment of step kc; k by ldmatrix.trans
+      const bf16* krow = kt + (lane & 15) * DS + (lane >> 4) * 8;
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        uint32_t hi[4], lo[4];
+        split_bf16(s[2 * kc][0], s[2 * kc][1], hi[0], lo[0]);
+        split_bf16(s[2 * kc][2], s[2 * kc][3], hi[1], lo[1]);
+        split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
+        uint32_t b[D / 16][4];
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2)
+          ldsm_x4_t(b[dp2], krow + kc * 16 * DS + dp2 * 16);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          mma_bf16(acc[2 * dp2], lo, b[dp2][0], b[dp2][1]);
+          mma_bf16(acc[2 * dp2 + 1], lo, b[dp2][2], b[dp2][3]);
+        }
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          mma_bf16(acc[2 * dp2], hi, b[dp2][0], b[dp2][1]);
+          mma_bf16(acc[2 * dp2 + 1], hi, b[dp2][2], b[dp2][3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with buf before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!rv.ok[hf]) continue;
+    const size_t r = hq + q0 + warp * 16 + g + 8 * hf;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<float2*>(dq + r * D + j * 8 + t4 * 2) =
+          make_float2(acc[j][2 * hf] * scale, acc[j][2 * hf + 1] * scale);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K, V, 2 Q, do'_hi, do'_lo (bf16, 64 x (D + 8) each); p_hi, p_lo,
+  // ds~_hi, ds~_lo (bf16, BQ x PS each); the f32 do' tile (BQ x D)
+  return sizeof(bf16) * ((size_t)6 * 64 * (D + 8) + (size_t)4 * BQ * PS) +
+         sizeof(float) * (size_t)BQ * D;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, D <= 64 ? 2 : 1)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ m2,
+                         const float* __restrict__ dl2,
+                         const float* __restrict__ do2,
+                         const float* __restrict__ route,
+                         const int* __restrict__ qpos,
+                         const int* __restrict__ kpos, float* __restrict__ dk,
+                         float* __restrict__ dv, int Lq, int Lk, int causal,
+                         float scale) {
+  constexpr int DS = D + 8;   // bf16 row stride of the D-wide tiles
+  constexpr int CH = D / 8;   // 16-byte bf16 chunks per row
+  constexpr int C4 = D / 4;   // 16-byte f32 chunks per row
+  constexpr int NA = D / 16;  // accumulator fragments: D/2 columns a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // BK x DS
+  bf16* vs = ks + BK * DS;                        // BK x DS
+  bf16* qs = vs + BK * DS;                        // 2 x BQ x DS
+  bf16* dhi = qs + 2 * BQ * DS;                   // BQ x DS
+  bf16* dlo = dhi + BQ * DS;                      // BQ x DS
+  bf16* phi = dlo + BQ * DS;                      // BQ x PS
+  bf16* plo = phi + BQ * PS;                      // BQ x PS
+  bf16* shi = plo + BQ * PS;                      // BQ x PS
+  bf16* slo = shi + BQ * PS;                      // BQ x PS
+  float* dof = reinterpret_cast<float*>(slo + BQ * PS);  // BQ x D
+  __shared__ float rows_f[2][3][BQ];  // m', dl', route of a Q tile's rows
+  __shared__ int rows_p[2][BQ];       // their positions
+  __shared__ int kp_s[BK];
+  __shared__ int span_s[3];  // min key position; first, last live Q tile
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y, k0 = blockIdx.x * BK;
+  const size_t hq = (size_t)h * Lq, hk = (size_t)h * Lk;
+
+  for (int i = tid; i < BK * CH; i += kDkvThreads) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = k0 + r < Lk;
+    const size_t src = (hk + (ok ? k0 + r : 0)) * D + c;
+    cp_async16(ks + r * DS + c, k + src, ok);
+    cp_async16(vs + r * DS + c, v + src, ok);
+  }
+  cp_async_commit();
+  if (tid < BK) kp_s[tid] = k0 + tid < Lk ? kpos[k0 + tid] : INT_MAX;
+  if (tid == 0) {
+    span_s[0] = INT_MAX;
+    span_s[1] = INT_MAX;
+    span_s[2] = -1;
+  }
+  __syncthreads();
+  if (tid < BK && k0 + tid < Lk) atomicMin(&span_s[0], kp_s[tid]);
+  __syncthreads();
+  const int kmin = span_s[0];
+  // the Q tiles whose rows may see a key of this block: all of them, or
+  // (causal) the span from the first to the last tile holding a position
+  // >= the block's smallest key position (a dead tile inside is skipped)
+  const int ntiles = (Lq + BQ - 1) / BQ;
+  int first = 0, last = ntiles - 1;
+  if (causal) {
+    int f = INT_MAX, l = -1;
+    for (int i = tid; i < Lq; i += kDkvThreads)
+      if (qpos[i] >= kmin) {
+        f = min(f, i / BQ);
+        l = i / BQ;
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      f = min(f, __shfl_xor_sync(kFull, f, off));
+      l = max(l, __shfl_xor_sync(kFull, l, off));
+    }
+    if (lane == 0) {
+      atomicMin(&span_s[1], f);
+      atomicMax(&span_s[2], l);
+    }
+    __syncthreads();
+    first = span_s[1];
+    last = span_s[2];
+  }
+
+  // Q tile t's bf16 rows, f32 do' rows and row values into buffer buf
+  auto load_q = [&](int t, int buf) {
+    const int q0 = t * BQ;
+    bf16* qd = qs + buf * BQ * DS;
+    for (int i = tid; i < BQ * CH; i += kDkvThreads) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = q0 + r < Lq;
+      cp_async16(qd + r * DS + c, q + (hq + (ok ? q0 + r : 0)) * D + c, ok);
+    }
+    for (int i = tid; i < BQ * C4; i += kDkvThreads) {
+      const int r = i / C4, c = (i % C4) * 4;
+      const bool ok = q0 + r < Lq;
+      cp_async16(dof + r * D + c, do2 + (hq + (ok ? q0 + r : 0)) * D + c, ok);
+    }
+    {  // 256 threads: one value each of the 4 x 64. Thread r < BQ copies
+      // row r's position: it reads it before the tile's first barrier,
+      // which only its own cp_async_wait makes safe
+      const int a = tid / BQ, r = tid % BQ;
+      const bool ok = q0 + r < Lq;
+      const size_t src = ok ? q0 + r : 0;
+      if (a == 0)
+        cp_async4(&rows_p[buf][r], qpos + src, ok);
+      else
+        cp_async4(&rows_f[buf][a - 1][r],
+                  (a == 1 ? m2 : a == 2 ? dl2 : route) + hq + src, ok);
+    }
+    cp_async_commit();
+  };
+
+  if (first <= last)
+    load_q(first, 0);
+  else
+    cp_async_commit();
+
+  // score phase: query rows sr.. (16), keys sc.. (32); accumulate phase:
+  // keys ar.. (16), head-dim columns ac.. (D/2)
+  const int sr = (warp & 3) * 16, sc = (warp >> 2) * 32;
+  const int ar = (warp & 3) * 16, ac = (warp >> 2) * (D / 2);
+  float acck[NA][4], accv[NA][4];
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
+
+  for (int t = first, buf = 0; t <= last; ++t, buf ^= 1) {
+    cp_async_wait<0>();  // tile t (and, the first time, K and V)
+    const int q0 = t * BQ;
+    const int live = __syncthreads_or(
+        !causal || (tid < BQ && q0 + tid < Lq && rows_p[buf][tid] >= kmin));
+    if (live)  // do' split once per tile (rows past Lq are zero-filled)
+      split_rows<D, BQ, kDkvThreads>(dhi, dlo, dof, BQ, tid);
+    __syncthreads();  // dof is free, do'_hi/lo are ready
+    if (t < last)
+      load_q(t + 1, buf ^ 1);  // buf ^ 1 freed by the last iteration
+    else
+      cp_async_commit();
+    if (live) {
+      const bf16* qt = qs + buf * BQ * DS;
+      RowVals rv;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = sr + g + 8 * hf;
+        rv.ok[hf] = q0 + r < Lq;
+        rv.qp[hf] = rows_p[buf][r];
+        rv.m2[hf] = rows_f[buf][0][r];
+        rv.dl[hf] = rows_f[buf][1][r];
+        rv.rt[hf] = rows_f[buf][2][r];
+      }
+      {
+        uint32_t qf[D / 16][4];
+        load_q_frags<D>(qf, qt + sr * DS, lane);
+        float s[4][4], dp[4][4], p[4][4];
+        mma_scores<D, 4>(qf, ks + sc * DS, lane, s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+        mma_rows_split<D, 4>(dhi + sr * DS, dlo + sr * DS, vs + sc * DS, lane,
+                             dp);
+        ds_frags<4, true>(s, dp, p, rv, kp_s + sc, Lk - k0 - sc, causal,
+                          scale, t4);
+        // stage p and ds~ as bf16 hi/lo [query row][key] tiles
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int o = (sr + g + 8 * hf) * PS + sc + j * 8 + t4 * 2;
+            uint32_t hi, lo;
+            split_bf16(p[j][2 * hf], p[j][2 * hf + 1], hi, lo);
+            *reinterpret_cast<uint32_t*>(phi + o) = hi;
+            *reinterpret_cast<uint32_t*>(plo + o) = lo;
+            split_bf16(s[j][2 * hf], s[j][2 * hf + 1], hi, lo);
+            *reinterpret_cast<uint32_t*>(shi + o) = hi;
+            *reinterpret_cast<uint32_t*>(slo + o) = lo;
+          }
+      }
+      __syncthreads();
+      // dv += p^T . do' and dk += ds~^T . q over the tile's 64 query rows:
+      // p^T and ds~^T (keys x query rows) by ldmatrix.trans of the staged
+      // tiles, do' and q (query rows x d) by ldmatrix.trans as B
+      const int ao = ((lane & 7) + ((lane >> 4) << 3)) * PS + ar + (lane & 8);
+      const int bo = (lane & 15) * DS + (D == 16 ? 0 : ac) + (lane >> 4) * 8;
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        uint32_t aph[4], apl[4], ash[4], asl[4];
+        ldsm_x4_t(aph, phi + ao + kc * 16 * PS);
+        ldsm_x4_t(apl, plo + ao + kc * 16 * PS);
+        ldsm_x4_t(ash, shi + ao + kc * 16 * PS);
+        ldsm_x4_t(asl, slo + ao + kc * 16 * PS);
+        // 16 head-dim columns a step (D = 16: the warp's 8 of them)
+#pragma unroll
+        for (int jp = 0; jp < (D == 16 ? 1 : NA / 2); ++jp) {
+          uint32_t bh[4], bl[4], bq[4];
+          const int off = bo + kc * 16 * DS + jp * 16;
+          ldsm_x4_t(bh, dhi + off);
+          ldsm_x4_t(bl, dlo + off);
+          ldsm_x4_t(bq, qt + off);
+          if constexpr (D == 16) {
+            const bool up = warp >= 4;
+            const uint32_t h0 = up ? bh[2] : bh[0], h1 = up ? bh[3] : bh[1];
+            const uint32_t l0 = up ? bl[2] : bl[0], l1 = up ? bl[3] : bl[1];
+            const uint32_t q0b = up ? bq[2] : bq[0], q1b = up ? bq[3] : bq[1];
+            mma_bf16(accv[0], aph, h0, h1);
+            mma_bf16(acck[0], ash, q0b, q1b);
+            mma_bf16(accv[0], aph, l0, l1);
+            mma_bf16(acck[0], asl, q0b, q1b);
+            mma_bf16(accv[0], apl, h0, h1);
+          } else {
+            mma_bf16(accv[2 * jp], aph, bh[0], bh[1]);
+            mma_bf16(accv[2 * jp + 1], aph, bh[2], bh[3]);
+            mma_bf16(acck[2 * jp], ash, bq[0], bq[1]);
+            mma_bf16(acck[2 * jp + 1], ash, bq[2], bq[3]);
+            mma_bf16(accv[2 * jp], aph, bl[0], bl[1]);
+            mma_bf16(accv[2 * jp + 1], aph, bl[2], bl[3]);
+            mma_bf16(acck[2 * jp], asl, bq[0], bq[1]);
+            mma_bf16(acck[2 * jp + 1], asl, bq[2], bq[3]);
+            mma_bf16(accv[2 * jp], apl, bh[0], bh[1]);
+            mma_bf16(accv[2 * jp + 1], apl, bh[2], bh[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the staged tiles and buf are free for the next tile
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kr = k0 + ar + g + 8 * hf;
+    if (kr >= Lk) continue;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const size_t o = (hk + kr) * D + ac + j * 8 + t4 * 2;
+      *reinterpret_cast<float2*>(dk + o) =
+          make_float2(acck[j][2 * hf] * scale, acck[j][2 * hf + 1] * scale);
+      *reinterpret_cast<float2*>(dv + o) =
+          make_float2(accv[j][2 * hf], accv[j][2 * hf + 1]);
+    }
+  }
+}
+
 // The three backward launches for one (dtype, head_dim). `which` is 3 (K3),
 // 4 (K4) or 5 (K5); unused pointers may be null.
 template <typename T, int D>
@@ -1153,26 +1713,43 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   dim3 qgrid((Lq + BQ - 1) / BQ, H), kgrid((Lk + BK - 1) / BK, H);
-  // f32 row tiles: bf16 stages its score operands in place of one
-  constexpr int R = kTensor<T> ? 1 : 0;
   int e;
   if (which == 3) {
+    // bf16 stages its score operands in place of the two f32 row tiles
+    constexpr int R = kTensor<T> ? 1 : 0;
     constexpr size_t smem = bwd_smem_bytes<T, D>(2 - 2 * R, R);
     if ((e = set_smem(flash_rowstats_kernel<T, D>, smem))) return e;
     flash_rowstats_kernel<T, D><<<qgrid, kThreads, smem, stream>>>(
         tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
   } else if (which == 4) {
-    constexpr size_t smem = bwd_smem_bytes<T, D>(4 - R, 1);
-    if ((e = set_smem(flash_bwd_dq_kernel<T, D>, smem))) return e;
-    flash_bwd_dq_kernel<T, D><<<qgrid, kThreads, smem, stream>>>(
-        tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal, scale);
+    if constexpr (kTensor<T>) {
+      constexpr size_t smem = dq_mma_smem_bytes<D>();
+      if ((e = set_smem(flash_bwd_dq_mma_kernel<D>, smem))) return e;
+      flash_bwd_dq_mma_kernel<D><<<qgrid, kMmaThreads, smem, stream>>>(
+          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal,
+          scale);
+    } else {
+      constexpr size_t smem = bwd_smem_bytes<T, D>(4, 1);
+      if ((e = set_smem(flash_bwd_dq_f32_kernel<D>, smem))) return e;
+      flash_bwd_dq_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
+          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal,
+          scale);
+    }
   } else if (which == 5) {
     if (Lk <= 0) return 0;
-    constexpr size_t smem = bwd_smem_bytes<T, D>(4 - R, 2);
-    if ((e = set_smem(flash_bwd_dkv_kernel<T, D>, smem))) return e;
-    flash_bwd_dkv_kernel<T, D><<<kgrid, kThreads, smem, stream>>>(
-        tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
-        scale);
+    if constexpr (kTensor<T>) {
+      constexpr size_t smem = dkv_mma_smem_bytes<D>();
+      if ((e = set_smem(flash_bwd_dkv_mma_kernel<D>, smem))) return e;
+      flash_bwd_dkv_mma_kernel<D><<<kgrid, kDkvThreads, smem, stream>>>(
+          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
+          scale);
+    } else {
+      constexpr size_t smem = bwd_smem_bytes<T, D>(4, 2);
+      if ((e = set_smem(flash_bwd_dkv_f32_kernel<D>, smem))) return e;
+      flash_bwd_dkv_f32_kernel<D><<<kgrid, kThreads, smem, stream>>>(
+          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
+          scale);
+    }
   } else {
     return -1;
   }

@@ -127,11 +127,17 @@ def _kernel():
     return _fn
 
 
+def _staged(name: str, q) -> bool:
+    """Whether the kernels copy operand ``name`` in 16-byte chunks: on
+    the bf16 (tensor-core) route, q, k, v and do'."""
+    return q.dtype == torch.bfloat16 and name in ("q", "k", "v", "do2")
+
+
 def _cuda_checks(name: str, tensors: dict, d: int) -> None:
     """What every kernel of this module takes on the card: q, k, v in
     f32 or bf16, head_dim 16/32/64/128, contiguous operands, int32
-    positions; bf16 q, k, v start on 16 bytes (the tensor-core route
-    copies 16-byte chunks)."""
+    positions; on the bf16 route q, k, v and do' start on 16 bytes (the
+    tensor-core kernels copy 16-byte chunks)."""
     q = tensors["q"]
     if q.dtype not in _DT_CODE:
         raise TypeError(f"{name} takes float32 and bfloat16, not {q.dtype}")
@@ -141,13 +147,28 @@ def _cuda_checks(name: str, tensors: dict, d: int) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors ({tname} is "
                              f"not)")
-        if tname in ("q", "k", "v") and t.dtype == torch.bfloat16 and \
-                t.data_ptr() % 16:
-            raise ValueError(f"{name} needs bfloat16 operands aligned to "
-                             f"16 bytes ({tname} is not)")
+        if _staged(tname, q) and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs its 16-byte-staged operands "
+                             f"aligned to 16 bytes ({tname} is not)")
     if tensors["q_pos"].dtype != torch.int32 or \
             tensors["k_pos"].dtype != torch.int32:
         raise TypeError("q_pos and k_pos must be int32")
+
+
+def _launch_operands(name: str, tensors: dict, d: int) -> dict:
+    """The operands as the kernel takes them: each one that is not
+    contiguous, or is staged in 16-byte chunks and does not start on 16
+    bytes, replaced by a fresh contiguous copy (the reference takes any
+    array). ``.contiguous()`` alone would return a contiguous but
+    misaligned view unchanged. ``_cuda_checks`` then guards the result."""
+    q = tensors["q"]
+    out = {}
+    for tname, t in tensors.items():
+        if not t.is_contiguous() or (_staged(tname, q) and t.data_ptr() % 16):
+            t = t.clone(memory_format=torch.contiguous_format)
+        out[tname] = t
+    _cuda_checks(name, out, d)
+    return out
 
 
 def _on_device(name: str, t) -> bool:
@@ -171,17 +192,16 @@ def _forward(q, k, v, m, l, o, q_pos, k_pos, causal: bool, scale: float):
     if k.shape[0] != h:
         raise ValueError(f"K2 takes q and k, v of one head count (GQA "
                          f"folded); got {h} and {k.shape[0]}")
-    _cuda_checks("K2", dict(q=q, k=k, v=v, m=m, l=l, o=o, q_pos=q_pos,
-                            k_pos=k_pos), d)
-    m2, l2, o2 = torch.empty_like(m), torch.empty_like(l), \
-        torch.empty_like(o)
+    ops = _launch_operands("K2", dict(q=q, k=k, v=v, m=m, l=l, o=o,
+                                      q_pos=q_pos, k_pos=k_pos), d)
+    # like the contiguous operands: the kernel writes dense rows
+    m2, l2, o2 = (torch.empty_like(ops[n]) for n in "mlo")
     if lq == 0 or h == 0:
         return m2, l2, o2
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel()(_DT_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), m.data_ptr(), l.data_ptr(),
-                       o.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+        rc = _kernel()(_DT_CODE[q.dtype],
+                       *[t.data_ptr() for t in ops.values()],
                        m2.data_ptr(), l2.data_ptr(), o2.data_ptr(),
                        h, lq, lk, d, int(bool(causal)), float(scale),
                        stream)
@@ -297,10 +317,12 @@ def _bwd_kernel(symbol: str):
     return f
 
 
-def _launch_bwd(wrapper, symbol: str, label: str, q, k, ptrs, outs,
+def _launch_bwd(wrapper, symbol: str, label: str, ops: dict, outs,
                 causal: bool, scale: float) -> None:
     """Launch one backward kernel on q's stream and count it; raises on
-    a refused launch. Empty shapes launch nothing (outputs are zeros)."""
+    a refused launch. Empty shapes launch nothing (the caller's outputs
+    are zeros then)."""
+    q, k = ops["q"], ops["k"]
     h, lq, d = q.shape
     lk = k.shape[1]
     if h == 0 or lq == 0 or lk == 0:
@@ -308,7 +330,7 @@ def _launch_bwd(wrapper, symbol: str, label: str, q, k, ptrs, outs,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_kernel(symbol)(
-            _DT_CODE[q.dtype], *[t.data_ptr() for t in ptrs],
+            _DT_CODE[q.dtype], *[t.data_ptr() for t in ops.values()],
             *[t.data_ptr() for t in outs], h, lq, lk, d, int(bool(causal)),
             float(scale), stream)
     if rc != 0:
@@ -316,6 +338,17 @@ def _launch_bwd(wrapper, symbol: str, label: str, q, k, ptrs, outs,
                            f"Lq={lq}, Lk={lk}, D={d}, {q.dtype})")
     with _count_lock:
         wrapper.launches += 1
+
+
+def _grad_out(shape, ops: dict):
+    """An f32 output of K4/K5: uninitialised when the kernel launches
+    (it writes every element), zeros for the empty shapes that launch
+    nothing."""
+    h, lq, _ = ops["q"].shape
+    dev = ops["q"].device
+    if h == 0 or lq == 0 or ops["k"].shape[1] == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
 def rowstats(q, k, m2, q_pos, k_pos, *, causal: bool = False,
@@ -327,11 +360,11 @@ def rowstats(q, k, m2, q_pos, k_pos, *, causal: bool = False,
         return rowstats_plain(q, k, m2, q_pos, k_pos, causal=causal,
                               scale=scale)
     _check_bwd(q, k, None, q_pos, k_pos, m2=m2)
-    _cuda_checks("K3", dict(q=q, k=k, m2=m2, q_pos=q_pos, k_pos=k_pos),
-                 q.shape[2])
-    cnt = torch.zeros_like(m2)
-    _launch_bwd(rowstats, "rlo_flash_rowstats", "K3 rowstats", q, k,
-                (q, k, m2, q_pos, k_pos), (cnt,), causal, scale)
+    ops = _launch_operands("K3", dict(q=q, k=k, m2=m2, q_pos=q_pos,
+                                      k_pos=k_pos), q.shape[2])
+    cnt = torch.zeros_like(ops["m2"])
+    _launch_bwd(rowstats, "rlo_flash_rowstats", "K3 rowstats", ops, (cnt,),
+                causal, scale)
     return cnt
 
 
@@ -344,12 +377,12 @@ def bwd_dq(q, k, v, m2, dl2, do2, route, q_pos, k_pos, *,
                             causal=causal, scale=scale)
     _check_bwd(q, k, v, q_pos, k_pos, m2=m2, dl2=dl2, do2=do2,
                route=route)
-    ops = dict(q=q, k=k, v=v, m2=m2, dl2=dl2, do2=do2, route=route,
-               q_pos=q_pos, k_pos=k_pos)
-    _cuda_checks("K4", ops, q.shape[2])
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd(bwd_dq, "rlo_flash_bwd_dq", "K4 bwd_dq", q, k,
-                tuple(ops.values()), (dq,), causal, scale)
+    ops = _launch_operands("K4", dict(q=q, k=k, v=v, m2=m2, dl2=dl2,
+                                      do2=do2, route=route, q_pos=q_pos,
+                                      k_pos=k_pos), q.shape[2])
+    dq = _grad_out(q.shape, ops)
+    _launch_bwd(bwd_dq, "rlo_flash_bwd_dq", "K4 bwd_dq", ops, (dq,), causal,
+                scale)
     return dq
 
 
@@ -362,13 +395,12 @@ def bwd_dkv(q, k, v, m2, dl2, do2, route, q_pos, k_pos, *,
                              causal=causal, scale=scale)
     _check_bwd(q, k, v, q_pos, k_pos, m2=m2, dl2=dl2, do2=do2,
                route=route)
-    ops = dict(q=q, k=k, v=v, m2=m2, dl2=dl2, do2=do2, route=route,
-               q_pos=q_pos, k_pos=k_pos)
-    _cuda_checks("K5", ops, q.shape[2])
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.zeros_like(dk)
-    _launch_bwd(bwd_dkv, "rlo_flash_bwd_dkv", "K5 bwd_dkv", q, k,
-                tuple(ops.values()), (dk, dv), causal, scale)
+    ops = _launch_operands("K5", dict(q=q, k=k, v=v, m2=m2, dl2=dl2,
+                                      do2=do2, route=route, q_pos=q_pos,
+                                      k_pos=k_pos), q.shape[2])
+    dk, dv = _grad_out(k.shape, ops), _grad_out(k.shape, ops)
+    _launch_bwd(bwd_dkv, "rlo_flash_bwd_dkv", "K5 bwd_dkv", ops, (dk, dv),
+                causal, scale)
     return dk, dv
 
 

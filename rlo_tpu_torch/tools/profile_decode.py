@@ -16,8 +16,9 @@ Prints the host wall time, the device time summed over kernels (one
 stream, so kernels do not overlap), the device's idle share of the wall
 time, the device time by group (K6/K9 decode attention, K7/K10 cache
 writes, K11 chunk writes, K2 flash, matrix products, the rest), the top
-kernels and the top PyTorch ops by the device time they launched; then
-one JSON line with the same numbers. Needs a CUDA card; fails without one, and fails if the
+kernels, the top PyTorch ops by the device time they launched and the
+rest's device time by the op that launched it; then one JSON line with
+the same numbers. Needs a CUDA card; fails without one, and fails if the
 profiler records no device time. The profiler slows the host, so the
 idle share is also given against the unprofiled median step.
 """
@@ -89,6 +90,12 @@ def trace(fn, groups=GROUPS) -> dict:
         ms, n = by_group.get(g, (0.0, 0))
         by_group[g] = (ms + v / 1e3, n + calls[k])
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # the "other" group by the PyTorch op that launched each kernel
+    other = {}
+    for evt in prof.events():
+        for kern in getattr(evt, "kernels", ()):
+            if _group(kern.name, groups) == "other":
+                other[evt.key] = other.get(evt.key, 0.0) + kern.duration
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "idle_share": max(0.0, 1 - device_us / wall_us),
             "kernel_launches": sum(calls.values()),
@@ -96,7 +103,9 @@ def trace(fn, groups=GROUPS) -> dict:
             "groups_launches": {g: n for g, (_, n) in by_group.items()},
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
             "top_ops_ms": {k: v / 1e3 for k, v in sorted(
-                ops.items(), key=lambda kv: -kv[1])[:8]}}
+                ops.items(), key=lambda kv: -kv[1])[:8]},
+            "other_by_op_ms": {k: v / 1e3 for k, v in sorted(
+                other.items(), key=lambda kv: -kv[1])[:12]}}
 
 
 def _report(label: str, r: dict) -> None:
@@ -110,6 +119,9 @@ def _report(label: str, r: dict) -> None:
         print(f"           {v:8.3f} ms  {k}")
     print("           by the PyTorch op that launched it:")
     for k, v in r["top_ops_ms"].items():
+        print(f"           {v:8.3f} ms  {k}")
+    print("           the other group by the op that launched it:")
+    for k, v in r["other_by_op_ms"].items():
         print(f"           {v:8.3f} ms  {k}")
 
 

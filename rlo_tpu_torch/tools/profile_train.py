@@ -12,8 +12,9 @@ host wall time, the device time summed over kernels (one stream, so
 kernels do not overlap), the device's idle share of the traced step and
 of the unprofiled median step, the device time and launches by group (K2
 flash forward, K4 flash dq, K5 flash dk/dv, K3 tie counts, matrix
-products, the rest: elementwise, reductions, copies), the top kernels and
-the top PyTorch ops; then one JSON line with the same numbers. Needs a
+products, the rest: elementwise, reductions, copies), the top kernels,
+the top PyTorch ops and the rest's device time by the op that launched
+it; then one JSON line with the same numbers. Needs a
 CUDA card; fails without one, and fails if the profiler records no
 device time.
 """
@@ -32,8 +33,8 @@ from rlo_tpu_torch.tools.profile_decode import _report, trace
 #: function names; cuBLAS/CUTLASS products by theirs)
 GROUPS = (("K2 flash forward", ("flash_fwd_",)),
           ("K3 tie counts", ("flash_rowstats_kernel",)),
-          ("K4 flash dq", ("flash_bwd_dq_kernel",)),
-          ("K5 flash dk/dv", ("flash_bwd_dkv_kernel",)),
+          ("K4 flash dq", ("flash_bwd_dq_",)),
+          ("K5 flash dk/dv", ("flash_bwd_dkv_",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",
                                "cublas")))
 #: the flagship batch (benchmarks/train_bench.py:65-67), timed steps, seed

@@ -208,46 +208,3 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.load("decode")
     with pytest.raises(build.KernelBuildError):
         kd._lib_fn("rlo_write_kv_row", [])
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("T", [1, 4])
-def test_decode_kernel_matches_plain_on_card(cuda, kind, T):
-    L = 300
-    args = [None if a is None else from_numpy([a], cuda)[0]
-            for a in _case(T, L, kind, seed=T)]
-    for pos in (torch.tensor(200, dtype=torch.int32, device=cuda),
-                torch.tensor([0, 150, L - T], dtype=torch.int32,
-                             device=cuda)):
-        got = kd.flash_block_decode(args[0], args[1], args[2], pos, 0.25,
-                                    args[3], args[4])
-        torch.cuda.synchronize()
-        want = kd.flash_block_decode_plain(args[0], args[1], args[2], pos,
-                                           0.25, args[3], args[4])
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.gpu
-def test_writes_match_plain_on_card(cuda):
-    for dtype in ("f32", "int8"):
-        cache = from_numpy([_cache(256, dtype, seed=7)], cuda)[0]
-        row = from_numpy([_cache(1, dtype, seed=8)[..., 0]], cuda)[0]
-        rows = from_numpy([_cache(6, dtype, seed=9)], cuda)[0]
-        for pos in (torch.tensor([3, 255, 9999], dtype=torch.int32,
-                                 device=cuda),
-                    torch.tensor(77, dtype=torch.int32, device=cuda)):
-            a, b = cache.clone(), cache.clone()
-            kd.write_kv_row(a, row, pos)
-            kd.write_kv_row_plain(b, row, pos)
-            kd.write_kv_block(a, rows, pos)
-            kd.write_kv_block_plain(b, rows, pos)
-            torch.cuda.synchronize()
-            assert torch.equal(a, b)

@@ -157,7 +157,8 @@ def test_split_p_precision_matches_pallas_interpret(d, causal, carried,
 def test_cuda_checks_want_aligned_bf16():
     """The tensor-core route copies 16-byte chunks: a bf16 operand that
     does not start on 16 bytes is refused before any launch (the check
-    reads only pointers, so it runs on CPU tensors)."""
+    reads only pointers, so it runs on CPU tensors; the wrappers copy
+    such an operand first, see the next test)."""
     q, k, v, m, l, o, qp, kp = from_numpy(list(_inputs(2, 2, 4, 4, 16, 1)),
                                           "cpu")
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -174,6 +175,44 @@ def test_cuda_checks_want_aligned_bf16():
     k2._cuda_checks("K2", ops, 16)  # f32 takes the CUDA-core route
 
 
+def test_launch_operands_copy_views_and_misaligned_staged():
+    """The wrappers' copy decision reads only strides and pointers, so it
+    runs on CPU tensors: an operand that is not contiguous, or that the
+    bf16 route copies in 16-byte chunks (q, k, v, do') and that does not
+    start on 16 bytes, becomes a fresh contiguous copy with the same
+    values; every other operand reaches the kernel as it is."""
+    q, k, v, m, l, o, qp, kp = from_numpy(list(_inputs(2, 2, 8, 8, 16, 1)),
+                                          "cpu")
+
+    def shifted(t):  # the same values one element into a storage
+        s = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+        return s.copy_(t)
+
+    def transposed(t):
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        ops = dict(q=transposed(qd), k=shifted(kd), v=vd, m2=m,
+                   dl2=shifted(l), do2=shifted(o), route=m, q_pos=qp,
+                   k_pos=kp)
+        assert ops["k"].is_contiguous() and ops["k"].data_ptr() % 16
+        out = k2._launch_operands("K4", ops, 16)
+        staged = dtype == torch.bfloat16
+        copied = {"q"} | ({"k", "do2"} if staged else set())
+        for name, t in out.items():
+            assert (t is not ops[name]) == (name in copied), (dtype, name)
+            assert t.is_contiguous() and torch.equal(t, ops[name])
+            if name in copied:
+                assert t.data_ptr() % 16 == 0
+    # a misaligned bf16 q is copied, where _cuda_checks alone refuses it
+    ops = dict(q=shifted(q.to(torch.bfloat16)), k=k.to(torch.bfloat16),
+               v=v.to(torch.bfloat16), m=m, l=l, o=o, q_pos=qp, k_pos=kp)
+    with pytest.raises(ValueError, match="aligned"):
+        k2._cuda_checks("K2", ops, 16)
+    assert k2._launch_operands("K2", ops, 16)["q"].data_ptr() % 16 == 0
+
+
 def test_profilers_group_both_k2_routes():
     """The profilers file K2's two instantiated kernels (the bf16
     tensor-core and the f32 CUDA-core route) under K2 by name."""
@@ -183,6 +222,17 @@ def test_profilers_group_both_k2_routes():
         assert profile_decode._group(name) == "K2 flash"
         assert profile_decode._group(name, profile_train.GROUPS) == \
             "K2 flash forward"
+
+
+def test_profile_train_groups_both_backward_routes():
+    """profile_train files K4's and K5's instantiated kernels (the bf16
+    tensor-core and the f32 CUDA-core route) under K4 and K5 by name."""
+    from rlo_tpu_torch.tools import profile_decode, profile_train
+    for route in ("mma", "f32"):
+        for kern, group in (("dq", "K4 flash dq"), ("dkv", "K5 flash dk/dv")):
+            name = (f"void (anonymous namespace)::flash_bwd_{kern}_{route}"
+                    f"_kernel<64>(...)")
+            assert profile_decode._group(name, profile_train.GROUPS) == group
 
 
 def test_forward_only():
@@ -228,45 +278,3 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.load("flash")
     with pytest.raises(build.KernelBuildError):
         k2._kernel()
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,hk,lq,lk,d", [(8, 8, 100, 130, 64),
-                                          (8, 2, 64, 64, 128),
-                                          (4, 1, 33, 7, 16),
-                                          (4, 4, 33, 7, 32),
-                                          (8, 4, 129, 77, 16),
-                                          (8, 4, 129, 77, 32),
-                                          (16, 2, 129, 77, 64),
-                                          (16, 2, 33, 7, 128)])
-@pytest.mark.parametrize("state", ["carried", "initial", "ring"])
-def test_kernel_matches_plain_on_card(cuda, h, hk, lq, lk, d, dtype, state):
-    """K2 against its plain version (bf16: the tensor-core route; f32: the
-    CUDA-core route): ragged Lq/Lk, GQA groups 1-8, a carried or the
-    initial state, and ("ring") key positions permuted and shifted so
-    some rows see no key (fully masked rows)."""
-    args = from_numpy(list(_inputs(h, hk, lq, lk, d, seed=lq,
-                                   carried=state == "carried")), cuda)
-    args[:3] = [t.to(dtype) for t in args[:3]]
-    if state == "ring":
-        perm = np.random.default_rng(lk).permutation(lk)
-        args[7] = (args[7][:, perm] + lq // 2).contiguous()
-    for causal in (True, False):
-        before = k2.flash_block_update_hld.launches
-        got = k2.flash_block_update_hld(*args, causal=causal, scale=0.125)
-        torch.cuda.synchronize()
-        assert k2.flash_block_update_hld.launches == before + 1
-        want = k2.flash_block_update_hld_plain(*args, causal=causal,
-                                               scale=0.125)
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
-        if causal and state == "ring":
-            assert bool((got[1] == 0).any())  # some rows saw no key

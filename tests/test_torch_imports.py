@@ -1,6 +1,7 @@
-"""The port stands alone: no module of rlo_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package; importing the
-port touches no GPU."""
+"""The port stands alone: no module of rlo_tpu_torch, not chip_smoke.py
+and not the card-only tests (tests/test_torch_gpu_*.py, which the machine
+with the card runs without the JAX package) imports JAX or anything of
+the JAX package; importing the port touches no GPU."""
 
 import re
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "rlo_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "tests").glob("test_torch_gpu_*.py"))
 
 # `rlo_tpu\b` does not match `rlo_tpu_torch` (no word boundary before _)
 FORBIDDEN = re.compile(
@@ -37,6 +39,16 @@ def test_no_jax_and_no_reference_imports(path):
     assert path.is_file(), path
     hits = [m.group(0) for m in FORBIDDEN.finditer(path.read_text())]
     assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_card_tests_are_scanned():
+    """Every card-only test file is jax-free and in SOURCES."""
+    gpu = [p.name for p in SOURCES if p.name.startswith("test_torch_gpu_")]
+    assert sorted(gpu) == ["test_torch_gpu_decode.py",
+                           "test_torch_gpu_flash.py",
+                           "test_torch_gpu_flash_grad.py",
+                           "test_torch_gpu_paged.py",
+                           "test_torch_gpu_reduce.py"]
 
 
 def test_importing_every_module_loads_no_reference_module():

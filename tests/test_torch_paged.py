@@ -690,45 +690,3 @@ def test_fabric_kill_paged_model_backend_exactly_once(mha):
     for r in sorted(live):
         assert fabrics[r].result(rid) == want, f"rank {r} diverged"
         assert fabrics[r].completions.count(rid) == 1
-
-
-# ---------------------------------------------------------------------------
-# on the card: the CUDA kernels against their plain versions
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("T", [1, 4])
-def test_paged_kernel_matches_plain_on_card(cuda, kind, T):
-    args = [None if a is None else from_numpy([a], cuda)[0]
-            for a in _paged_case(kind, 32, T, 2, seed=T, d=64, mp=9)]
-    got = kd.paged_flash_decode(*args[:5], 0.125, args[5], args[6])
-    torch.cuda.synchronize()
-    want = kd.paged_flash_decode_plain(*args[:5], 0.125, args[5], args[6])
-    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
-
-
-@pytest.mark.gpu
-def test_page_writes_match_plain_on_card(cuda):
-    rng = np.random.default_rng(0)
-    for kind in ("f32", "bf16", "int8"):
-        pool = from_numpy([_values((6, 2, 64, 128), kind, rng)], cuda)[0]
-        row = from_numpy([_values((4, 2, 64), kind, rng)], cuda)[0]
-        rows = from_numpy([_values((2, 64, 32), kind, rng)], cuda)[0]
-        page = torch.tensor([1, 5, 9, 2], dtype=torch.int32, device=cuda)
-        off = torch.tensor([0, 127, 128, -1], dtype=torch.int32, device=cuda)
-        a, b = pool.clone(), pool.clone()
-        kd.write_kv_page_row(a, row, page, off)
-        kd.write_kv_page_row_plain(b, row, page, off)
-        for p, o0, nv in ((3, 100, 28), (9, 0, 7), (2, -4, 32)):
-            kd.write_kv_page_block(a, rows, p, o0, nv)
-            kd.write_kv_page_block_plain(b, rows, p, o0, nv)
-        torch.cuda.synchronize()
-        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
