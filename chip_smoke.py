@@ -41,9 +41,17 @@ Phases, each printing its own lines:
    and pages
    of 256, and on pages holding a dense cache's columns, where it must
    equal K6 bit for bit; K10 and K11 (page writes) bit-identical,
-   sentinels included. Times each kernel, its plain version, its bound
-   and one PyTorch call that computes the same function (K9: K6 on the
-   equivalent dense cache instead; no single call pages).
+   sentinels included. K8 and K11 also from the projection's views
+   (16-byte loads along hd, at hd 16-128; and one element off: scalar
+   loads) and in the pair form (k with v, the int8 scale pair):
+   bit-identical, one launch a pair, 50 repeat launches the same bits,
+   and the callers' k/v write runs one kernel and no copy (the
+   profiler). Times each kernel, its plain version, its bound and one
+   PyTorch call that computes the same function (K9: K6 on the
+   equivalent dense cache instead; no single call pages); the writes
+   also by device time (the profiler) and by host time, K8 and K11 from
+   the path's own views, with their k/v pair against two sliced
+   assignments (``time_k8``, ``time_k11``).
 5. Serving at full width (the flagship config, vocab 32768, d 1024, 16
    heads, 8 layers, d_ff 4096, bf16, random weights from the seed):
    ``generate_timed`` at batch 32 / plen 1024 / 64 new tokens, the same
@@ -94,6 +102,13 @@ Phases, each printing its own lines:
    after phase 10: each must have run.
 11. One JSON line of kernel figures, each with the path whose launches
    it counts, then the last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --time-writes
+
+runs only the K8 and K11 timings of phase 4 and prints them as one JSON
+line; they call nothing the port lacked before K8 and K11 took views and
+pairs, so a copy of this file at the root of an older tree times that
+tree's writes the same way.
 
 Every failure raises, so the exit code is non-zero and no result line
 is printed.
@@ -726,11 +741,272 @@ def phase_k6(dev) -> dict:
     return out["bf16"]
 
 
-def phase_writes(dev) -> dict:
-    """K7 and K8 bit-identical to their plain versions, out-of-range
-    positions included (they must leave the cache unchanged)."""
+def _vector_loads(rows) -> bool:
+    """Whether ``rows`` (.., hd, T) meet the block-write kernel's test for
+    16-byte loads along hd: hd contiguous, a multiple of 16 bytes, and
+    every token's start 16-byte aligned (else it loads scalars)."""
+    e = rows.element_size()
+    return (rows.stride(-2) == 1 and rows.shape[-2] * e % 16 == 0
+            and rows.stride(-1) * e % 16 == 0 and rows.data_ptr() % 16 == 0)
+
+
+def _proj_views(lead, T, nkv, hd, dtype, gen, dev, misaligned=False):
+    """(k, v) rows (lead.., kvh, hd, T) as the model hands them to K8/K11:
+    permuted views of the k and v slices of one (lead.., T, 3 * kvh * hd)
+    projection output (hd contiguous, tokens 16-byte aligned, so the
+    kernel loads 16 bytes along hd); ``misaligned`` moves both slices one
+    element on in a (lead.., T, 3 * kvh * hd + 1) tensor (scalar loads)."""
+    import torch
+    w, pad = nkv * hd, int(misaligned)
+    shape = tuple(lead) + (T, 3 * w + pad)
+    if dtype == torch.int8:
+        proj = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    else:
+        proj = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    n = len(lead)
+    perm = tuple(range(n)) + (n + 1, n + 2, n)
+    kv = tuple(proj[..., a + pad:a + pad + w]
+               .reshape(tuple(lead) + (T, nkv, hd)).permute(perm)
+               for a in (w, 2 * w))
+    vec = hd * proj.element_size() % 16 == 0 and not misaligned
+    check(all(_vector_loads(x) == vec for x in kv),
+          f"the {'misaligned ' if misaligned else ''}views do not take the "
+          f"route they are meant to")
+    return kv
+
+
+def _same_repeats(fn, dsts, srcs, args, what, n=50) -> None:
+    """``n`` launches of a pair write give the first launch's bits."""
+    import torch
+    first = None
+    for _ in range(n):
+        a = [x.clone() for x in dsts]
+        fn(a[0], srcs[0], *args, a[1], srcs[1])
+        torch.cuda.synchronize()
+        first = first or a
+        check(same_bits(a[0], first[0]) and same_bits(a[1], first[1]),
+              f"{what}: a repeat launch gave other bits")
+
+
+def _same_pair(fn_k, fn_p, dsts, srcs, args, what) -> None:
+    """A write's pair form: one launch, both destinations bit-identical
+    to the plain version's."""
+    import torch
+    a, b = [x.clone() for x in dsts], [x.clone() for x in dsts]
+    before = fn_k.launches
+    fn_k(a[0], srcs[0], *args, a[1], srcs[1])
+    check(fn_k.launches == before + 1,
+          f"{what} took {fn_k.launches - before} launches")
+    fn_p(b[0], srcs[0], *args, b[1], srcs[1])
+    torch.cuda.synchronize()
+    check(same_bits(a[0], b[0]) and same_bits(a[1], b[1]),
+          f"{what} is not bit-identical to its plain version")
+
+
+def launched_kernels(fn) -> dict:
+    """The CUDA kernels (and copies) one ``fn()`` call runs on the card,
+    by name, with their counts (the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def host_us(fn, n: int = 1000, rounds: int = 3) -> float:
+    """Host time of one ``fn()`` call, in microseconds: ``perf_counter``
+    around ``n`` calls in a row with no synchronise inside (at the writes'
+    sizes the card outruns the host, so this is the wrapper's Python and
+    launch time), the median of ``rounds`` such runs."""
+    import torch
+    for _ in range(20):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _write_times(kernel, lib, path=None, path_lib=None) -> dict:
+    """A write's times by CUDA events around one call, by device time
+    (the profiler) and by host time, beside its yardstick's; with
+    ``path`` also the caller's k/v pair write against two sliced
+    assignments."""
+    out = dict(ms=time_ms(kernel), library_ms=time_ms(lib),
+               device_ms=device_ms(kernel, 50),
+               library_device_ms=device_ms(lib, 50),
+               host_us=host_us(kernel), library_host_us=host_us(lib),
+               library_ran=sorted(launched_kernels(lib)))
+    if path is not None:
+        out.update(path_ms=time_ms(path), path_library_ms=time_ms(path_lib),
+                   path_device_ms=device_ms(path, 50),
+                   path_library_device_ms=device_ms(path_lib, 50),
+                   path_host_us=host_us(path),
+                   path_library_host_us=host_us(path_lib))
+    return out
+
+
+def _one_launch(path, what) -> None:
+    """The caller's k/v pair write runs one block-write kernel and
+    nothing else (no copy of its source)."""
+    ran = launched_kernels(path)
+    check(len(ran) == 1 and sum(ran.values()) == 1
+          and "write_block_kernel" in next(iter(ran)),
+          f"{what}'s k/v pair write ran {ran}, not one block-write launch")
+
+
+def _print_write_times(name, shape, st, bound_what) -> None:
+    print(f"[{name.lower()}] bf16 {shape}: kernel {st['ms']:.4f} ms by "
+          f"events, {st['device_ms']:.5f} ms device, {st['host_us']:.2f} us "
+          f"host; indexed assignment {st['library_ms']:.4f} / "
+          f"{st['library_device_ms']:.5f} ms / {st['library_host_us']:.2f} "
+          f"us; plain {st['plain_ms']:.4f} ms; bound {st['bound_ms']:.6f} ms "
+          f"({bound_what} / 3.35 TB/s); the assignment ran "
+          f"{[k[:60] for k in st['library_ran']]}")
+    if "path_ms" in st:
+        print(f"[{name.lower()}] the k/v pair through the caller (one "
+              f"launch): {st['path_ms']:.4f} ms by events, "
+              f"{st['path_device_ms']:.5f} ms device, {st['path_host_us']:.2f}"
+              f" us host; two sliced assignments from the same views "
+              f"{st['path_library_ms']:.4f} / "
+              f"{st['path_library_device_ms']:.5f} ms / "
+              f"{st['path_library_host_us']:.2f} us")
+    for k in ("contiguous_device_ms", "contiguous_library_device_ms",
+              "misaligned_device_ms", "empty_device_ms",
+              "one_column_library_device_ms"):
+        if k in st:
+            print(f"[{name.lower()}] {k} {st[k]:.5f}")
+
+
+def time_k8(dev, gen) -> dict:
+    """K8 at the dense server's block-decode shape, bf16: a (1, 16, 64,
+    64) block into columns 64.. of a (1, 16, 64, 256) cache. The single
+    form from ``block_decode``'s k view of the projection (the path's
+    layout) and the k/v pair through ``generate._write_block``, each
+    beside indexed assignment from the same views; the single form from
+    contiguous rows beside theirs (device time); to place the single
+    form's device time, a launch at pos0 = L (stores nothing) beside an
+    assignment of one column. Calls only what the parent tree has too
+    (``--time-writes``)."""
     import torch
     from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import generate as G
+    lc = {x: torch.randn(1, 16, 64, 256, generator=gen,
+                         device=dev).to(torch.bfloat16) for x in "kv"}
+    p0, end = (torch.tensor(x, dtype=torch.int32, device=dev)
+               for x in (64, 256))
+    # block_decode's k and v: (1, kvh, hd, T) views of one projection
+    # output, handed to _write_block as (1, kvh, T, hd)
+    cols = _proj_views((1,), 64, 16, 64, torch.bfloat16, gen, dev)
+    kv = [x.transpose(2, 3) for x in cols]
+    rows = cols[0].contiguous()
+    cache = lc["k"]
+
+    def lib_pair():
+        lc["k"][:, :, :, 64:128] = cols[0]
+        lc["v"][:, :, :, 64:128] = cols[1]
+
+    def lib_view():
+        cache[:, :, :, 64:128] = cols[0]
+
+    def lib_rows():
+        cache[:, :, :, 64:128] = rows
+
+    st = _write_times(lambda: kd.write_kv_block(cache, cols[0], p0),
+                      lib_view, lambda: G._write_block(lc, kv[0], kv[1], p0),
+                      lib_pair)
+    def lib_one():
+        cache[:, :, :, 64:65] = cols[0][..., :1]
+
+    st.update(
+        contiguous_device_ms=device_ms(
+            lambda: kd.write_kv_block(cache, rows, p0), 50),
+        contiguous_library_device_ms=device_ms(lib_rows, 50),
+        empty_device_ms=device_ms(lambda: kd.write_kv_block(cache, cols[0],
+                                                            end), 50),
+        one_column_library_device_ms=device_ms(lib_one, 50),
+        plain_ms=time_ms(lambda: kd.write_kv_block_plain(cache, cols[0], p0)),
+        bound_ms=(2 * rows.numel() * 2 + 4) / PEAK_HBM_BYTES_S * 1e3,
+        bound_by="bytes")
+    return st
+
+
+def time_k11(dev, gen) -> dict:
+    """K11 at the paged server's prefill-chunk shape, bf16: a (16, 64,
+    128) chunk into page 17 of a pool of 289 pages of (16, 64, 128). The
+    single form from ``paged_prefill_chunk``'s k view of the projection
+    (the path's layout) and the k/v pair through ``paged_write_chunk``,
+    each beside indexed assignment from the same views; then, to place
+    the single form's device time, from contiguous rows beside their
+    assignment (one whole-page copy), from a misaligned view (scalar
+    loads), and with n_valid 0 (a launch that stores nothing) beside an
+    assignment of one column. Calls only what the parent tree has too
+    (``--time-writes``)."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import paged as PG
+    P, ps = 289, 128
+    entry = {x: torch.randn(P, 16, 64, ps, generator=gen,
+                            device=dev).to(torch.bfloat16) for x in "kv"}
+    pg, o0, nv, none = (torch.tensor([x], dtype=torch.int32, device=dev)
+                        for x in (17, 0, ps, 0))
+    kv = _proj_views((), ps, 16, 64, torch.bfloat16, gen, dev)
+    odd = _proj_views((), ps, 16, 64, torch.bfloat16, gen, dev, True)
+    rows = kv[0].contiguous()
+    pool = entry["k"]
+
+    def lib_pair():
+        entry["k"][17, :, :, 0:ps] = kv[0]
+        entry["v"][17, :, :, 0:ps] = kv[1]
+
+    def lib_view():
+        pool[17, :, :, 0:ps] = kv[0]
+
+    def lib_rows():
+        pool[17, :, :, 0:ps] = rows
+
+    st = _write_times(
+        lambda: kd.write_kv_page_block(pool, kv[0], pg, o0, nv), lib_view,
+        lambda: PG.paged_write_chunk(entry, kv[0], kv[1], None, None, pg, o0,
+                                     nv), lib_pair)
+    def lib_one():
+        pool[17, :, :, 0:1] = kv[0][..., :1]
+
+    st.update(
+        one_column_library_device_ms=device_ms(lib_one, 50),
+        contiguous_device_ms=device_ms(
+            lambda: kd.write_kv_page_block(pool, rows, pg, o0, nv), 50),
+        contiguous_library_device_ms=device_ms(lib_rows, 50),
+        misaligned_device_ms=device_ms(
+            lambda: kd.write_kv_page_block(pool, odd[0], pg, o0, nv), 50),
+        empty_device_ms=device_ms(
+            lambda: kd.write_kv_page_block(pool, kv[0], pg, o0, none), 50),
+        plain_ms=time_ms(lambda: kd.write_kv_page_block_plain(
+            pool, kv[0], pg, o0, nv)),
+        bound_ms=(2 * rows.numel() * 2 + 12) / PEAK_HBM_BYTES_S * 1e3,
+        bound_by="bytes")
+    return st
+
+
+def phase_writes(dev) -> dict:
+    """K7 and K8 bit-identical to their plain versions, out-of-range
+    positions included (they must leave the cache unchanged); K8 also
+    from the projection's views and in the pair form; then their times
+    at the serving path's shapes, by events and by device time, beside
+    indexed assignment's."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import generate as G
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     n = 0
@@ -773,10 +1049,55 @@ def phase_writes(dev) -> dict:
                 if not pos.dim() and int(pos) >= L:
                     check(same_bits(out, cache), f"K7 at pos {int(pos)} "
                                                  f"changed the cache")
+    # K8 from the path's views (16-byte loads along hd, and one element
+    # off: scalar loads), single and pair form; int8 with the scale
+    # sidecars' pair through (b, kvh, 1, L); hd 16-128 from the views
+    b, L, T = 32, 1088, 64
+    ragged = torch.randint(-T, L, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ragged[:3] = torch.tensor([L - 5, L + 3, -9], device=dev)
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        for hd in (16, 32, 64, 128):
+            if dtype == torch.int8:
+                caches = [torch.randint(-127, 128, (b, 16, hd, L),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int8) for _ in range(2)]
+            else:
+                caches = [torch.randn(b, 16, hd, L, generator=gen,
+                                      device=dev).to(dtype) for _ in range(2)]
+            scales = [torch.rand(b, 16, 1, L, generator=gen, device=dev)
+                      for _ in range(2)]
+            srows = _proj_views((b,), T, 16, 1, torch.float32, gen, dev)
+            for odd in ((False, True) if hd == 64 else (False,)):
+                kv = _proj_views((b,), T, 16, hd, dtype, gen, dev, odd)
+                for pos in ((ragged, torch.tensor(37, dtype=torch.int32,
+                                                  device=dev))
+                            if hd == 64 else (ragged,)):
+                    what = (f"K8 {dtype} hd {hd} views{' +1' if odd else ''}"
+                            f" pos0 {'ragged' if pos.dim() else int(pos)}")
+                    same(lambda c: kd.write_kv_block(c, kv[0], pos),
+                         lambda c: kd.write_kv_block_plain(c, kv[0], pos),
+                         caches[0], what)
+                    _same_pair(kd.write_kv_block, kd.write_kv_block_plain,
+                               caches, kv, (pos,), what + " pair")
+                    n += 1
+                    if dtype == torch.int8 and hd == 64:
+                        _same_pair(kd.write_kv_block,
+                                   kd.write_kv_block_plain, scales, srows,
+                                   (pos,), what + " scale pair")
+                        n += 1
+    kv = _proj_views((b,), T, 16, 64, torch.bfloat16, gen, dev)
+    caches = [torch.randn(b, 16, 64, L, generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2)]
+    _same_repeats(kd.write_kv_block, caches, kv, (ragged,),
+                  "K8 bf16 views pair")
     print(f"[k7/k8] {n} cases (bf16/int8/f32 caches and f32 scale "
           f"sidecars, batch 32 x L 1088, ragged and scalar pos incl. out of "
-          f"range, T 64 blocks straddling the end) bit-identical to the "
-          f"plain versions")
+          f"range, T 64 blocks straddling the end; K8 from the projection's "
+          f"views at hd 16-128 (16-byte loads) and one element off (scalar "
+          f"loads), single and k/v pair (one launch), and the int8 scale "
+          f"pair) bit-identical to the plain versions; the bf16 views pair "
+          f"50 times over, the same bits")
 
     out = {}
     cache = torch.randn(32, 16, 64, 1088, generator=gen,
@@ -791,32 +1112,24 @@ def phase_writes(dev) -> dict:
         cache[bidx, :, :, pos] = row
 
     out["K7"] = dict(
-        ms=time_ms(lambda: kd.write_kv_row(cache, row, pos)),
+        _write_times(lambda: kd.write_kv_row(cache, row, pos), lib_row),
         plain_ms=time_ms(lambda: kd.write_kv_row_plain(cache, row, pos)),
-        library_ms=time_ms(lib_row),
-        bound_ms=row.numel() * 2 / PEAK_HBM_BYTES_S * 1e3, bound_by="bytes")
-    rcache = torch.randn(1, 16, 64, 256, generator=gen,
-                         device=dev).to(torch.bfloat16)
-    rows = torch.randn(1, 16, 64, 64, generator=gen, device=dev) \
-        .to(torch.bfloat16)
+        bound_ms=(2 * row.numel() * 2 + 32 * 4) / PEAK_HBM_BYTES_S * 1e3,
+        bound_by="bytes")
+    out["K8"] = time_k8(dev, gen)
+    lc = {x: torch.zeros(1, 16, 64, 256, device=dev, dtype=torch.bfloat16)
+          for x in "kv"}
+    kv = _proj_views((1,), 64, 16, 64, torch.bfloat16, gen, dev)
     p0 = torch.tensor(64, dtype=torch.int32, device=dev)
-
-    def lib_block():
-        rcache[:, :, :, 64:128] = rows
-
-    out["K8"] = dict(
-        ms=time_ms(lambda: kd.write_kv_block(rcache, rows, p0)),
-        plain_ms=time_ms(lambda: kd.write_kv_block_plain(rcache, rows, p0)),
-        library_ms=time_ms(lib_block),
-        bound_ms=rows.numel() * 2 / PEAK_HBM_BYTES_S * 1e3, bound_by="bytes")
-    for name, shape, st in (("K7", "row (32, 16, 64) into (32, 16, 64, 1088)",
-                             out["K7"]),
-                            ("K8", "block (1, 16, 64, 64) into "
-                                   "(1, 16, 64, 256)", out["K8"])):
-        print(f"[{name.lower()}] bf16 {shape}: kernel {st['ms']:.4f} ms, "
-              f"plain {st['plain_ms']:.4f} ms, indexed assignment "
-              f"{st['library_ms']:.4f} ms, bound {st['bound_ms']:.6f} ms "
-              f"(bytes written / 3.35 TB/s)")
+    _one_launch(lambda: G._write_block(lc, kv[0].transpose(2, 3),
+                                       kv[1].transpose(2, 3), p0), "K8")
+    for name, shape, st, what in (
+            ("K7", "row (32, 16, 64) into (32, 16, 64, 1088)", out["K7"],
+             "rows read + bytes written"),
+            ("K8", "block (1, 16, 64, 64) from the projection's view into "
+                   "(1, 16, 64, 256)", out["K8"],
+             "rows read + bytes written")):
+        _print_write_times(name, shape, st, what)
         st["max_abs_err"] = 0.0
     return out
 
@@ -961,10 +1274,12 @@ def phase_page_writes(dev) -> dict:
     """K10 and K11 bit-identical to their plain versions, the drop
     sentinels included (off = ps, a negative off, pads past n_valid, a
     page past the pool), on bf16/int8/f32 pools and the f32 scale pools'
-    (P, kvh, 1, ps) view; then their times at the serving path's
-    shapes."""
+    (P, kvh, 1, ps) view; K11 also from the projection's views and in
+    the pair form; then their times at the serving path's shapes, by
+    events and by device time, beside indexed assignment's."""
     import torch
     from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import paged as PG
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     P, b, ps = 289, 32, 128
@@ -1009,10 +1324,56 @@ def phase_page_writes(dev) -> dict:
                          t, rows[..., :T], pg, o0, nv),
                      pool, f"K11 {dtype} {shape} page {pg} off0 {o0} "
                            f"n_valid {nv} T {T}")
+    # K11 from the path's views (16-byte loads along hd, and one element
+    # off: scalar loads), single and pair form; int8 with the scale pools'
+    # pair through (P, kvh, 1, ps); hd 16-128 from the views
+    chunks = ((3, 0, ps, ps), (4, 5, 100, ps), (5, -7, 64, 64),
+              (6, ps - 24, 24, 40), (P + 3, 8, 0, 32))
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        for hd in (16, 32, 64, 128):
+            if dtype == torch.int8:
+                pools = [torch.randint(-127, 128, (P, 16, hd, ps),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int8) for _ in range(2)]
+            else:
+                pools = [torch.randn(P, 16, hd, ps, generator=gen,
+                                     device=dev).to(dtype) for _ in range(2)]
+            scales = [torch.rand(P, 16, 1, ps, generator=gen, device=dev)
+                      for _ in range(2)]
+            for odd in ((False, True) if hd == 64 else (False,)):
+                for pg, o0, nv, T in (chunks if hd == 64 else chunks[:2]):
+                    kv = _proj_views((), T, 16, hd, dtype, gen, dev, odd)
+                    what = (f"K11 {dtype} hd {hd} views"
+                            f"{' +1' if odd else ''} page {pg} off0 {o0} "
+                            f"n_valid {nv} T {T}")
+                    same(lambda t: kd.write_kv_page_block(t, kv[0], pg, o0,
+                                                          nv),
+                         lambda t: kd.write_kv_page_block_plain(
+                             t, kv[0], pg, o0, nv), pools[0], what)
+                    _same_pair(kd.write_kv_page_block,
+                               kd.write_kv_page_block_plain, pools, kv,
+                               (pg, o0, nv), what + " pair")
+                    n += 1
+                    if dtype == torch.int8 and hd == 64:
+                        srows = _proj_views((), T, 16, 1, torch.float32, gen,
+                                            dev)
+                        _same_pair(kd.write_kv_page_block,
+                                   kd.write_kv_page_block_plain, scales,
+                                   srows, (pg, o0, nv), what + " scale pair")
+                        n += 1
+    kv = _proj_views((), 100, 16, 64, torch.bfloat16, gen, dev)
+    pools = [torch.randn(P, 16, 64, ps, generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2)]
+    _same_repeats(kd.write_kv_page_block, pools, kv, (6, 11, 100),
+                  "K11 bf16 views pair")
     print(f"[k10/k11] {n} cases (bf16/int8/f32 pools of 289 pages x 16 kv "
           f"heads x 64 x 128 and f32 scale pools; off = ps, -1, a page past "
           f"the pool; chunks with pads, at the page edge, from a negative "
-          f"start) bit-identical to the plain versions")
+          f"start, off the 16-byte lanes, n_valid 0; K11 from the "
+          f"projection's views at hd 16-128 (16-byte loads) and one element "
+          f"off (scalar loads), single and k/v pair (one launch), and the "
+          f"int8 scale pair) bit-identical to the plain versions; the bf16 "
+          f"views pair 50 times over, the same bits")
 
     out = {}
     pool = torch.randn(P, 16, 64, ps, generator=gen,
@@ -1029,35 +1390,25 @@ def phase_page_writes(dev) -> dict:
         pool[pidx, :, :, oidx] = row
 
     out["K10"] = dict(
-        ms=time_ms(lambda: kd.write_kv_page_row(pool, row, page, off)),
+        _write_times(lambda: kd.write_kv_page_row(pool, row, page, off),
+                     lib_row),
         plain_ms=time_ms(lambda: kd.write_kv_page_row_plain(pool, row, page,
                                                             off)),
-        library_ms=time_ms(lib_row),
         bound_ms=(2 * row.numel() * 2 + 2 * b * 4) / PEAK_HBM_BYTES_S * 1e3,
         bound_by="bytes")
-    rows = torch.randn(16, 64, ps, generator=gen, device=dev) \
-        .to(torch.bfloat16)
+    out["K11"] = time_k11(dev, gen)
+    entry = {"k": pool, "v": pools[0]}
+    kv = _proj_views((), ps, 16, 64, torch.bfloat16, gen, dev)
     pg, o0, nv = (torch.tensor([x], dtype=torch.int32, device=dev)
                   for x in (17, 0, ps))
-
-    def lib_block():
-        pool[17, :, :, 0:ps] = rows
-
-    out["K11"] = dict(
-        ms=time_ms(lambda: kd.write_kv_page_block(pool, rows, pg, o0, nv)),
-        plain_ms=time_ms(lambda: kd.write_kv_page_block_plain(pool, rows, pg,
-                                                              o0, nv)),
-        library_ms=time_ms(lib_block),
-        bound_ms=(2 * rows.numel() * 2 + 12) / PEAK_HBM_BYTES_S * 1e3,
-        bound_by="bytes")
+    _one_launch(lambda: PG.paged_write_chunk(entry, kv[0], kv[1], None, None,
+                                             pg, o0, nv), "K11")
     for name, shape, st in (("K10", "rows (32, 16, 64) into 289 pages of "
                                     "(16, 64, 128)", out["K10"]),
-                            ("K11", "chunk (16, 64, 128) into one page",
+                            ("K11", "chunk (16, 64, 128) from the "
+                                    "projection's view into one page",
                              out["K11"])):
-        print(f"[{name.lower()}] bf16 {shape}: kernel {st['ms']:.4f} ms, "
-              f"plain {st['plain_ms']:.4f} ms, indexed assignment "
-              f"{st['library_ms']:.4f} ms, bound {st['bound_ms']:.6f} ms "
-              f"(rows read + bytes written / 3.35 TB/s)")
+        _print_write_times(name, shape, st, "rows read + bytes written")
         st["max_abs_err"] = 0.0
     return out
 
@@ -2186,14 +2537,28 @@ def check_tensor_cores() -> None:
         for (k, b), v in sorted(seen.items())))
 
 
-def kernel_entry(name, source, replaces, launches, st, path) -> dict:
+#: what one launch of a block write does, for the kernels line
+PAIR_LAUNCH = ("one launch writes a k/v pair (or the int8 scale pair), "
+               "where the parent tree took two launches and two copies")
+
+
+def kernel_entry(name, source, replaces, launches, st, path,
+                 **extra) -> dict:
     """One kernel of the ``kernels`` line; ``path`` names the run whose
-    launches it counts."""
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "path": path,
-            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-            "bound_by": st["bound_by"], "library_ms": st["library_ms"]}
+    launches it counts. A write's device times (the profiler) and its
+    k/v pair's times ride along where the phase measured them."""
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "path": path,
+           "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+           "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+           "bound_by": st["bound_by"], "library_ms": st["library_ms"]}
+    out.update({k: v for k, v in st.items()
+                if k.startswith(("device_", "library_device", "host_",
+                                 "library_host", "path_", "contiguous_",
+                                 "misaligned_", "empty_",
+                                 "one_column_"))})
+    out.update(extra)
+    return out
 
 
 def main() -> int:
@@ -2218,6 +2583,14 @@ def main() -> int:
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     check(torch.cuda.device_count() == 1, "more than one card visible")
+    if sys.argv[1:] == ["--time-writes"]:
+        from rlo_tpu_torch.kernels import build
+        build.load("decode")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        print(json.dumps({"K8": time_k8(dev, gen),
+                          "K11": time_k11(dev, gen)}))
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t0 = time.perf_counter()
     build_all()
     print(f"[build] csrc/{{reduce,flash,decode}}.cu built with nvcc (in "
@@ -2318,7 +2691,8 @@ def main() -> int:
                      served["write_kv_row"], w_stats["K7"], serve_p),
         kernel_entry("K8 write_kv_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:168",
-                     served["write_kv_block"], w_stats["K8"], serve_p),
+                     served["write_kv_block"], w_stats["K8"], serve_p,
+                     launch_unit=PAIR_LAUNCH),
         kernel_entry("K9 paged_flash_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:466",
                      paged_launches["paged_flash_decode"], k9_stats["bf16"],
@@ -2330,7 +2704,7 @@ def main() -> int:
         kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:402",
                      paged_launches["write_kv_page_block"], pw_stats["K11"],
-                     paged_p),
+                     paged_p, launch_unit=PAIR_LAUNCH),
         kernel_entry("K3 rowstats", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:249", vjp["k3_launches"],
                      k345_stats["K3"], chain_p),

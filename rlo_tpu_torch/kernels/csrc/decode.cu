@@ -44,26 +44,55 @@
 // only at page edges (ps >= 32 keeps each warp's reads within one page).
 //
 // K7 replaces rlo_tpu/pallas/decode.py:_write_row_kernel (write_kv_row):
-// cache[b, :, :, pos_b] = row[b]. K8 replaces _write_block_kernel
-// (write_kv_block): cache[b, :, :, pos0_b + t] = rows[b, :, :, t], t < T.
-// Both write in place only the columns written; a position outside [0, L)
-// matches no column and its write is dropped, as on the TPU. pos is read on
-// the device: stride 0 (one shared position) or 1 (one per row). Bound: the
-// bytes written (plus the rows read); one thread per element, element size
-// 1, 2 or 4 bytes (the int8 scale sidecars ride as hd = 1, element size 4).
-//
-// K10 replaces _write_page_row_kernel (write_kv_page_row): row b lands at
+// cache[b, :, :, pos_b] = row[b]; a position outside [0, L) matches no
+// column and its write is dropped, as on the TPU. pos is read on the device:
+// stride 0 (one shared position) or 1 (one per row). K10 replaces
+// _write_page_row_kernel (write_kv_page_row): row b lands at
 // pool[page_b, :, :, off_b], page clamped into [0, P-1]; an off outside
 // [0, ps) (the server's off = ps sentinel for inactive slots) drops the
-// write. K11 replaces _write_page_block_kernel (write_kv_page_block): token
-// t < n_valid of a (kvh, hd, T) chunk lands at pool[page, :, :, off0 + t]
-// while 0 <= off0 + t < ps; pads never touch the pool. page, off, off0 and
-// n_valid are read on the device. Same design and bound as K7/K8: one thread
-// per element written, in place, only the written lanes touched.
+// write. Bound: the bytes written (plus the rows read); one thread per
+// element, element size 1, 2 or 4 bytes (the int8 scale sidecars ride as
+// hd = 1, element size 4).
+//
+// K8 replaces _write_block_kernel (write_kv_block): cache[b, :, :, pos0_b + t]
+// = rows[b, :, :, t], t < T <= 128, columns outside [0, L) dropped. K11
+// replaces _write_page_block_kernel (write_kv_page_block): token t < n_valid
+// of a (kvh, hd, T) chunk lands at pool[page, :, :, off0 + t] while
+// 0 <= off0 + t < ps, page clamped into [0, P-1]; pads never touch the pool.
+// One kernel serves both (write_block_kernel): a destination of nrow rows of
+// (H, D, Lc) seq-minor elements, row = clamp(page) for K11 or the batch row
+// for K8, first column pos0_b / off0 read on the device (no host sync), and
+// up to two (destination, source) pairs per launch (k with v, or the int8
+// scale sidecars ks with vs). The source is read in place through its
+// strides: the callers pass the projection's (.., T, kvh, hd) output as a
+// permuted view, hd the contiguous axis, tokens kvh * hd (or 3 * d) apart.
+// A block (128 threads) owns one (pair, batch row, kv head, 64-token x
+// 32-row tile). The source loads do not wait on the device-side scalars, and
+// a thread issues all of its loads before its first store:
+//   load:  hd contiguous (the path): 16-byte vector loads along hd, two
+//          lanes a token (one full 32-byte sector), stored transposed into
+//          a shared tile [d][t] whose rows are padded by 4 elements, so
+//          that a warp's scalar stores fall in distinct banks for 1-, 2-
+//          and 4-byte elements. Any other strides (the scale sidecars'
+//          hd = 1, a misaligned view, rows already seq-minor): scalar
+//          loads, in the same kernel.
+//   store: each cache row (kv head, d) along its contiguous lane axis, a
+//          lane per 16-byte destination chunk (a warp's stores coalesce),
+//          16-byte vector stores where the chunk lies wholly inside the
+//          written columns and scalar stores at the unaligned head and
+//          tail (pos0 / off0 take any value, so alignment is a run-time
+//          question).
+// No cp.async or TMA: a tile is loaded once and stored once, with nothing
+// to overlap the load with, and a launch moves at most a few hundred KB.
+// Bound: bytes (the rows read once, the columns written once); at the
+// serving path's sizes (0.5 MB a k/v pair) a launch costs more than the
+// bytes, so the design's gain is launches and copies: no layout copy of
+// the source, and one launch for the pair where there were four.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -342,7 +371,7 @@ int dispatch_cache(int cache_code, int HD, const DecodeArgs& a) {
   return -1;
 }
 
-// K7 / K8 element copies, by element size
+// K7 row copies, by element size
 template <typename E>
 __global__ void write_row_kernel(E* cache, const E* row, const int* pos, int b,
                                  int inner, int L, int pos_stride) {
@@ -355,22 +384,7 @@ __global__ void write_row_kernel(E* cache, const E* row, const int* pos, int b,
   }
 }
 
-template <typename E>
-__global__ void write_block_kernel(E* cache, const E* rows, const int* pos,
-                                   int b, int inner, int T, int L,
-                                   int pos_stride) {
-  int64_t n = (int64_t)b * inner * T;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    int t = (int)(i % T);
-    int64_t col = i / T;                 // (b, kvh, hd) index
-    int bi = (int)(col / inner);
-    long long p = (long long)pos[bi * pos_stride] + t;
-    if (p >= 0 && p < L) cache[col * L + p] = rows[i];
-  }
-}
-
-// K10 / K11 element copies into a (P, inner, ps) pool, by element size
+// K10 row copies into a (P, inner, ps) pool, by element size
 template <typename E>
 __global__ void write_page_row_kernel(E* pool, const E* row, const int* page,
                                       const int* off, int b, int inner, int P,
@@ -388,22 +402,136 @@ __global__ void write_page_row_kernel(E* pool, const E* row, const int* page,
   }
 }
 
+// K8 / K11: one launch writes up to two (dst, src) pairs of T columns.
+constexpr int WT = 64;            // tokens of a tile
+constexpr int WD = 32;            // cache rows (d) of a tile
+constexpr int WRS = WT + 4;       // padded shared row, in elements
+constexpr int kWThreads = 128;
+
+struct BlockWrite {
+  void* dst[2];                   // (nrow, H, D, Lc) contiguous
+  const void* src[2];             // element (bi, h, d, t) at
+  long long sb[2], sh[2], sd[2], st[2];  // bi*sb + h*sh + d*sd + t*st
+  const int* row;                 // K11: one page, clamped; null: row = bi
+  const int* col0;                // first column of batch row bi at
+  int col0_stride;                //   col0[bi * col0_stride]
+  const int* n_valid;             // tokens to write (one value); null: T
+  int H, D, T, Lc, nrow, n_t_tiles;
+};
+
 template <typename E>
-__global__ void write_page_block_kernel(E* pool, const E* rows,
-                                        const int* page, const int* off0,
-                                        const int* n_valid, int inner, int T,
-                                        int P, int ps) {
-  int64_t n = (int64_t)inner * T;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int o0 = off0[0], nv = n_valid[0];
-  int pg = page[0];
-  pg = pg < 0 ? 0 : (pg >= P ? P - 1 : pg);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    int t = (int)(i % T);
-    long long o = (long long)o0 + t;
-    if (t >= nv || o < 0 || o >= ps) continue;
-    int64_t e = i / T;
-    pool[((int64_t)pg * inner + e) * ps + o] = rows[i];
+__global__ void __launch_bounds__(kWThreads)
+write_block_kernel(BlockWrite a) {
+  constexpr int VEC = 16 / (int)sizeof(E);
+  constexpr int NVEC = WT * WD / VEC;                   // vectors in a tile
+  constexpr int NV = (NVEC + kWThreads - 1) / kWThreads;  // ... a thread
+  constexpr int NS = WT * WD / kWThreads;               // scalars a thread
+  __shared__ __align__(16) E tile[WD * WRS];
+  const int pair = blockIdx.z;
+  const int bi = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int t0 = (blockIdx.x % a.n_t_tiles) * WT;
+  const int d0 = (blockIdx.x / a.n_t_tiles) * WD;
+  const int nd = a.D - d0 < WD ? a.D - d0 : WD;
+  const int nt = a.T - t0 < WT ? a.T - t0 : WT;
+  // the device-side scalars load while the rows do: nothing waits on
+  // them before the stores
+  const long long c0 = a.col0[bi * a.col0_stride];
+  const long long nv = a.n_valid ? a.n_valid[0] : a.T;
+  int row = a.row ? a.row[0] : bi;
+
+  // the tile's rows [t0, t0 + nt) x [d0, d0 + nd), loaded into registers;
+  // __ldg: read-only loads need not wait on the tile's stores (a generic
+  // pointer could alias shared memory), so a thread issues all of its
+  // loads at once
+  const E* src = static_cast<const E*>(a.src[pair]) + bi * a.sb[pair] +
+                 h * a.sh[pair] + d0 * a.sd[pair];
+  const long long sd = a.sd[pair], st = a.st[pair];
+  const bool aligned = reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  // hd contiguous (the projection's layout): 16-byte loads along d, two
+  // lanes a token (one 32-byte sector), to be transposed
+  const bool along_d = aligned && sd == 1 && a.D % VEC == 0 &&
+                       (st * (long long)sizeof(E)) % 16 == 0;
+  uint4 x[NV];
+  E xs[NS];
+  if (along_d) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * kWThreads;
+      const int v = (i / (2 * WT)) * 2 + (i & 1), t = (i % (2 * WT)) / 2;
+      if (i < NVEC && v * VEC < nd && t < nt)
+        x[k] = __ldg(reinterpret_cast<const uint4*>(src + (t0 + t) * st) + v);
+    }
+  } else {
+    // any other strides (the scale sidecars' hd = 1, a misaligned view,
+    // rows already seq-minor)
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int i = threadIdx.x + k * kWThreads;
+      const int t = i % WT, d = i / WT;
+      if (d < nd && t < nt) xs[k] = __ldg(src + d * sd + (t0 + t) * st);
+    }
+  }
+
+  // tokens [lo, hi) of the tile land inside [0, Lc) and below n_valid
+  long long lo = t0 > -c0 ? t0 : -c0;
+  long long hi = t0 + nt;
+  if (hi > nv) hi = nv;
+  if (hi > a.Lc - c0) hi = a.Lc - c0;
+  if (lo >= hi) return;           // the whole block: no barrier skipped
+  row = row < 0 ? 0 : (row >= a.nrow ? a.nrow - 1 : row);
+  E* dst = static_cast<E*>(a.dst[pair]) +
+           (((long long)row * a.H + h) * a.D + d0) * a.Lc;
+  const bool vec_st = reinterpret_cast<uintptr_t>(dst) % 16 == 0 &&
+                      ((long long)a.Lc * sizeof(E)) % 16 == 0;
+
+  // stage the tile as tile[d][t]: rows padded by 4 elements, so that a
+  // warp's scalar stores of the transposed vectors fall in distinct banks
+  // for 1-, 2- and 4-byte elements
+  if (along_d) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * kWThreads;
+      const int v = (i / (2 * WT)) * 2 + (i & 1), t = (i % (2 * WT)) / 2;
+      if (i < NVEC && v * VEC < nd && t < nt) {
+        const E* e = reinterpret_cast<const E*>(&x[k]);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) tile[(v * VEC + j) * WRS + t] = e[j];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int i = threadIdx.x + k * kWThreads;
+      const int t = i % WT, d = i / WT;
+      if (d < nd && t < nt) tile[d * WRS + t] = xs[k];
+    }
+  }
+  __syncthreads();
+
+  // columns [clo, chi) of each of the tile's nd cache rows, in 16-byte
+  // destination chunks (a lane each): vector stores where a chunk lies
+  // wholly inside, scalar stores at the unaligned head and tail
+  const long long clo = c0 + lo, chi = c0 + hi, k0 = clo / VEC;
+  const int nk = (int)((chi - 1) / VEC - k0 + 1);
+  const long long shift = c0 + t0;  // column c sits at tile[d][c - shift]
+  for (int i = threadIdx.x; i < nk * nd; i += kWThreads) {
+    const int d = i / nk;
+    const long long cs = (k0 + i % nk) * VEC;
+    E* out = dst + (long long)d * a.Lc;
+    const E* in = tile + d * WRS;
+    if (vec_st && cs >= clo && cs + VEC <= chi) {
+      uint4 y;
+      E* e = reinterpret_cast<E*>(&y);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) e[j] = in[cs + j - shift];
+      *reinterpret_cast<uint4*>(out + cs) = y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const long long c = cs + j;
+        if (c >= clo && c < chi) out[c] = in[c - shift];
+      }
+    }
   }
 }
 
@@ -422,15 +550,6 @@ int launch_write_row(void* cache, const void* row, const int* pos, int b,
 }
 
 template <typename E>
-int launch_write_block(void* cache, const void* rows, const int* pos, int b,
-                       int inner, int T, int L, int ps, cudaStream_t s) {
-  write_block_kernel<E><<<grid_for((int64_t)b * inner * T), 256, 0, s>>>(
-      static_cast<E*>(cache), static_cast<const E*>(rows), pos, b, inner, T, L,
-      ps);
-  return (int)cudaGetLastError();
-}
-
-template <typename E>
 int launch_page_row(void* pool, const void* row, const int* page,
                     const int* off, int b, int inner, int P, int ps,
                     cudaStream_t s) {
@@ -441,12 +560,10 @@ int launch_page_row(void* pool, const void* row, const int* page,
 }
 
 template <typename E>
-int launch_page_block(void* pool, const void* rows, const int* page,
-                      const int* off0, const int* nv, int inner, int T, int P,
-                      int ps, cudaStream_t s) {
-  write_page_block_kernel<E><<<grid_for((int64_t)inner * T), 256, 0, s>>>(
-      static_cast<E*>(pool), static_cast<const E*>(rows), page, off0, nv,
-      inner, T, P, ps);
+int launch_block_write(const BlockWrite& a, int nb, int pairs,
+                       cudaStream_t s) {
+  dim3 grid(a.n_t_tiles * ((a.D + WD - 1) / WD), nb * a.H, pairs);
+  write_block_kernel<E><<<grid, kWThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -512,23 +629,6 @@ extern "C" int rlo_write_kv_row(void* cache, const void* row, const void* pos,
   return -1;
 }
 
-// K8. cache (b, inner, L), rows (b, inner, T).
-extern "C" int rlo_write_kv_block(void* cache, const void* rows,
-                                  const void* pos, int b, int inner, int T,
-                                  int L, int elem_size, int pos_per_row,
-                                  void* stream) {
-  if (b <= 0 || inner <= 0 || T <= 0 || L <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto ip = static_cast<const int*>(pos);
-  int ps = pos_per_row ? 1 : 0;
-  switch (elem_size) {
-    case 1: return launch_write_block<uint8_t>(cache, rows, ip, b, inner, T, L, ps, s);
-    case 2: return launch_write_block<uint16_t>(cache, rows, ip, b, inner, T, L, ps, s);
-    case 4: return launch_write_block<uint32_t>(cache, rows, ip, b, inner, T, L, ps, s);
-  }
-  return -1;
-}
-
 // K10. pool (P, inner, ps), row (b, inner), page and off (b,) int32.
 extern "C" int rlo_write_kv_page_row(void* pool, const void* row,
                                      const void* page, const void* off, int b,
@@ -547,23 +647,60 @@ extern "C" int rlo_write_kv_page_row(void* pool, const void* row,
   return -1;
 }
 
-// K11. pool (P, inner, ps), rows (inner, T) with T <= ps; page, off0 and
-// n_valid one int32 each.
-extern "C" int rlo_write_kv_page_block(void* pool, const void* rows,
-                                       const void* page, const void* off0,
-                                       const void* n_valid, int inner, int T,
-                                       int P, int ps, int elem_size,
-                                       void* stream) {
-  if (inner <= 0 || T <= 0) return 0;
-  if (P <= 0 || ps <= 0 || T > ps) return -1;
+// K8 and K11: up to two (dst, src) pairs (dst1 null: one pair), one launch,
+// described by one parameter block (a ctypes call's cost grows with its
+// argument count: the block is packed on the host in one step). dst (nrow,
+// H, D, Lc) contiguous; src element (bi, h, d, t) at bi*sb + h*sh + d*sd +
+// t*st elements from its pointer, bi < nb, t < T. row: K11's page (one value,
+// clamped into [0, nrow-1]) or null (K8: the batch row bi, nb == nrow).
+// Column col0[bi * col0_stride] + t is written for t < n_valid[0] (null:
+// every t) and 0 <= column < Lc. Returns -2 when the two pairs alias: a
+// destination overlapping the other destination or the other pair's source.
+struct BlockWriteParams {
+  uint64_t dst0, src0, dst1, src1;
+  int64_t sb0, sh0, sd0, st0, sb1, sh1, sd1, st1;
+  uint64_t row, col0, n_valid;
+  int32_t col0_stride, nb, H, D, T, Lc, nrow, elem_size;
+};
+static_assert(sizeof(BlockWriteParams) == 152, "packed as <4Q8q3Q8i");
+
+extern "C" int rlo_write_kv_block_cols(const void* params, void* stream) {
+  BlockWriteParams p;
+  memcpy(&p, params, sizeof p);
+  if (p.nb <= 0 || p.H <= 0 || p.D <= 0 || p.T <= 0 || p.Lc <= 0) return 0;
+  if (p.nrow <= 0 || (!p.row && p.nb != p.nrow) || !p.dst0 || !p.src0 ||
+      (!p.dst1) != (!p.src1) || (long long)p.nb * p.H > 65535)
+    return -1;
+  if (p.dst1) {
+    const uint64_t dn = (uint64_t)p.nrow * p.H * p.D * p.Lc * p.elem_size;
+    auto src_end = [&](uint64_t s, int64_t sb, int64_t sh, int64_t sd,
+                       int64_t st) {
+      return s + (uint64_t)(1 + (p.nb - 1) * sb + (p.H - 1) * sh +
+                            (p.D - 1) * sd + (p.T - 1) * st) * p.elem_size;
+    };
+    auto overlap = [](uint64_t a0, uint64_t a1, uint64_t b0, uint64_t b1) {
+      return a0 < b1 && b0 < a1;
+    };
+    if (overlap(p.dst0, p.dst0 + dn, p.dst1, p.dst1 + dn) ||
+        overlap(p.dst0, p.dst0 + dn, p.src1,
+                src_end(p.src1, p.sb1, p.sh1, p.sd1, p.st1)) ||
+        overlap(p.dst1, p.dst1 + dn, p.src0,
+                src_end(p.src0, p.sb0, p.sh0, p.sd0, p.st0)))
+      return -2;
+  }
+  auto ptr = [](uint64_t x) { return reinterpret_cast<void*>(x); };
+  BlockWrite a{{ptr(p.dst0), ptr(p.dst1)}, {ptr(p.src0), ptr(p.src1)},
+               {p.sb0, p.sb1}, {p.sh0, p.sh1}, {p.sd0, p.sd1},
+               {p.st0, p.st1}, static_cast<const int*>(ptr(p.row)),
+               static_cast<const int*>(ptr(p.col0)), p.col0_stride ? 1 : 0,
+               static_cast<const int*>(ptr(p.n_valid)), p.H, p.D, p.T, p.Lc,
+               p.nrow, (p.T + WT - 1) / WT};
+  const int pairs = p.dst1 ? 2 : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto pg = static_cast<const int*>(page);
-  auto o0 = static_cast<const int*>(off0);
-  auto nv = static_cast<const int*>(n_valid);
-  switch (elem_size) {
-    case 1: return launch_page_block<uint8_t>(pool, rows, pg, o0, nv, inner, T, P, ps, s);
-    case 2: return launch_page_block<uint16_t>(pool, rows, pg, o0, nv, inner, T, P, ps, s);
-    case 4: return launch_page_block<uint32_t>(pool, rows, pg, o0, nv, inner, T, P, ps, s);
+  switch (p.elem_size) {
+    case 1: return launch_block_write<uint8_t>(a, p.nb, pairs, s);
+    case 2: return launch_block_write<uint16_t>(a, p.nb, pairs, s);
+    case 4: return launch_block_write<uint32_t>(a, p.nb, pairs, s);
   }
   return -1;
 }

@@ -10,13 +10,20 @@ The port of ``rlo_tpu/pallas/decode.py``'s kernels:
   - ``write_kv_row`` (Pallas ``_write_row_kernel``): one (kv_heads,
     head_dim) column per batch row at ``pos_b``;
   - ``write_kv_block`` (Pallas ``_write_block_kernel``): T <= 128
-    consecutive columns from ``pos0_b``;
+    consecutive columns from ``pos0_b``, up to two (cache, rows) pairs in
+    one launch;
   - ``paged_flash_decode`` (Pallas ``_paged_decode_kernel``): K6 through
     a page table over pools (P, kv_heads, head_dim, page_size);
   - ``write_kv_page_row`` (Pallas ``_write_page_row_kernel``): one row per
     batch row into lane ``off_b`` of page ``page_b``;
   - ``write_kv_page_block`` (Pallas ``_write_page_block_kernel``): one
-    prefill chunk of T <= page_size tokens into one page.
+    prefill chunk of T <= page_size tokens into one page, up to two (pool,
+    rows) pairs in one launch.
+
+K8 and K11 read their rows in place through the rows' strides (the
+callers pass the projection's (.., T, kv_heads, head_dim) output as a
+permuted view; only a dtype other than the cache's is converted first),
+and a k/v pair (or the int8 scale pair) costs one launch.
 
 Each launches its CUDA kernel in ``csrc/decode.cu`` for CUDA tensors and
 takes its ``*_plain`` twin only for CPU tensors. Layouts are the JAX
@@ -46,6 +53,8 @@ pages that hold a dense cache's columns give K6's result bit for bit.
 from __future__ import annotations
 
 import ctypes
+import operator
+import struct
 import threading
 
 import torch
@@ -79,12 +88,22 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(dev) -> int:
+    """The raw handle of the current stream of CUDA device ``dev`` (a
+    device or its index): what Triton's launcher reads, and cheaper than
+    ``torch.cuda.current_stream(dev).cuda_stream``, which builds a Stream
+    object on every call."""
+    return torch._C._cuda_getCurrentRawStream(
+        dev if isinstance(dev, int) else dev.index)
 
 
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
-    """``pos`` as an int32 tensor on ``device``: 0-d (shared) or (b,)."""
+    """``pos`` as an int32 tensor on ``device``: 0-d (shared) or (b,); one
+    that already is passes through as it is."""
+    if (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32
+            and pos.get_device() == device.index
+            and (pos.dim() == 0 or tuple(pos.shape) == (b,))):
+        return pos
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(pos, dtype=torch.int32)
     if pos.dim() not in (0, 1) or (pos.dim() == 1 and pos.numel() != b):
@@ -98,11 +117,13 @@ def _positions(pos: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def _on(kind: str, t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    one (the kernel launches); raises for any other device."""
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
         raise ValueError(f"{kind} runs on cpu or cuda, not {t.device}")
-    return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +310,7 @@ def _check_write(cache, rows, want_rows, kind,
     if cache.dim() != 4 or tuple(rows.shape) != want_rows:
         raise ValueError(f"{kind}: {layout} and rows {want_rows} expected; "
                          f"got {tuple(cache.shape)}, {tuple(rows.shape)}")
-    if rows.device != cache.device:
+    if rows.get_device() != cache.get_device():
         raise ValueError(f"{kind}: rows and cache on different devices")
 
 
@@ -336,25 +357,113 @@ def write_kv_row(cache, row, pos):
 write_kv_row.launches = 0
 
 
-def write_kv_block_plain(cache, rows, pos0):
-    """Plain version of K8: ``cache[b, :, :, pos0_b + t] = rows[b, ...,
-    t]`` in place, dropping columns outside [0, L)."""
-    b, nkv, d, L = cache.shape
-    T = rows.shape[3] if rows.dim() == 4 else -1
-    _check_write(cache, rows, (b, nkv, d, T), "write_kv_block")
-    posv = _positions(_pos_vector(pos0, b, cache.device), b).long()
-    cols = posv[:, None] + torch.arange(T, device=cache.device)[None, :]
-    bi, ti = torch.nonzero((cols >= 0) & (cols < L), as_tuple=True)
-    if bi.numel():
-        cache[bi, :, :, cols[bi, ti]] = rows[bi, :, :, ti].to(cache.dtype)
-    return cache
+# ---------------------------------------------------------------------------
+# K8 / K11: the block writes' one launch, read in place, up to two pairs
+# ---------------------------------------------------------------------------
+
+def _pairs(dst, src, dst2, src2):
+    return ((dst, src),) if dst2 is None else ((dst, src), (dst2, src2))
 
 
-def write_kv_block(cache, rows, pos0):
-    """K8: write ``rows`` (b, kvh, hd, T), T <= 128, into columns
-    ``pos0_b .. pos0_b + T - 1`` of ``cache`` in place and return the
-    cache. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+def _span(t):
+    """The [first, last) bytes ``t``'s elements lie in (t not empty)."""
+    st = t.stride()
+    last = sum(map(operator.mul, t.shape, st)) - sum(st)
+    p0 = t.data_ptr()
+    return p0, p0 + (last + 1) * t.element_size()
+
+
+def _check_pair(kind, dst, src, dst2, src2) -> None:
+    """The second (destination, rows) pair: both or neither, with the
+    first pair's shapes, dtype and device."""
+    if dst2 is None and src2 is None:
+        return
+    if dst2 is None or src2 is None:
+        raise ValueError(f"{kind}: pass both tensors of the second pair, "
+                         f"or neither")
+    dev = dst.get_device()
+    if (dst2.shape != dst.shape or src2.shape != src.shape
+            or dst2.dtype != dst.dtype or dst2.get_device() != dev
+            or src2.get_device() != dev):
+        raise ValueError(f"{kind}: the second pair must match the first's "
+                         f"shapes, dtype and device; got "
+                         f"{tuple(dst2.shape)} {dst2.dtype}, "
+                         f"{tuple(src2.shape)}")
+
+
+def _alias_error(kind) -> ValueError:
+    return ValueError(f"{kind}: the two pairs alias (a destination overlaps "
+                      f"the other pair's destination or rows)")
+
+
+def _check_alias(kind, dst, src, dst2, src2) -> None:
+    """No write of one pair lands on the other pair's destination or rows
+    (the plain versions' check; the kernel's entry makes the same one)."""
+    if dst2 is None or dst.numel() == 0 or src.numel() == 0:
+        return
+    (a0, a1), (b0, b1) = _span(dst), _span(dst2)
+    for (x0, x1), (y0, y1) in (((a0, a1), (b0, b1)),
+                               ((a0, a1), _span(src2)),
+                               ((b0, b1), _span(src))):
+        if x0 < y1 and y0 < x1:
+            raise _alias_error(kind)
+
+
+#: the parameter block of ``rlo_write_kv_block_cols`` (csrc/decode.cu):
+#: dst0, src0, dst1, src1; the two sources' (batch, head, d, token)
+#: strides; row, col0, n_valid; col0_stride, nb, H, D, T, Lc, nrow,
+#: element size
+_BLOCK_PARAMS = struct.Struct("<4Q8q3Q8i")
+_BLOCK_ARGTYPES = [ctypes.c_char_p, ctypes.c_void_p]
+
+
+def _row_strides(rows):
+    """(batch, head, d, token) element strides of K8's (b, kvh, hd, T) or
+    K11's (kvh, hd, T) rows."""
+    st = rows.stride()
+    return st if len(st) == 4 else (0,) + st
+
+
+def _launch_block(kind, counted, dst, src, dst2, src2, row, col0,
+                  col0_stride, n_valid, nb) -> None:
+    """One K8/K11 launch over one or two (dst, rows) pairs; the rows are
+    read in place through their strides."""
+    if src.numel() == 0:
+        return
+    if not dst.is_contiguous() or not (dst2 is None
+                                       or dst2.is_contiguous()):
+        raise ValueError(f"{kind} needs contiguous destinations")
+    if src.dtype != dst.dtype:
+        src = src.to(dst.dtype)
+    p1, s1 = (0, 0), (0, 0, 0, 0)
+    if dst2 is not None:
+        if src2.dtype != dst.dtype:
+            src2 = src2.to(dst.dtype)
+        p1, s1 = (dst2.data_ptr(), src2.data_ptr()), _row_strides(src2)
+    nrow, H, D, Lc = dst.shape
+    T = src.shape[-1]
+    params = _BLOCK_PARAMS.pack(
+        dst.data_ptr(), src.data_ptr(), *p1, *_row_strides(src), *s1,
+        0 if row is None else row.data_ptr(), col0.data_ptr(),
+        0 if n_valid is None else n_valid.data_ptr(), col0_stride, nb, H,
+        D, T, Lc, nrow, dst.element_size())
+    fn = _lib_fn("rlo_write_kv_block_cols", _BLOCK_ARGTYPES)
+    index = dst.get_device()
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(params, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(params, _stream(index))
+    if rc == -2:
+        raise _alias_error(kind)
+    if rc != 0:
+        raise RuntimeError(f"{kind} block-write launch failed: CUDA error "
+                           f"{rc} ({nb} x {H} x {D} x T {T}, {dst.dtype})")
+    _count(counted)
+
+
+def _check_block(cache, rows, cache2, rows2) -> int:
+    """K8's shapes (and the pair's); returns T."""
     b, nkv, d, L = cache.shape
     if rows.dim() != 4:
         raise ValueError(f"rows must be (b, kvh, hd, T); got "
@@ -364,25 +473,39 @@ def write_kv_block(cache, rows, pos0):
     if T > MAX_BLOCK_T:
         raise ValueError(f"write_kv_block supports T <= {MAX_BLOCK_T}, "
                          f"got {T}")
+    _check_pair("write_kv_block", cache, rows, cache2, rows2)
+    return T
+
+
+def write_kv_block_plain(cache, rows, pos0, cache2=None, rows2=None):
+    """Plain version of K8: ``cache[b, :, :, pos0_b + t] = rows[b, ...,
+    t]`` in place, dropping columns outside [0, L); the same for
+    (``cache2``, ``rows2``) when given."""
+    T = _check_block(cache, rows, cache2, rows2)
+    _check_alias("write_kv_block", cache, rows, cache2, rows2)
+    b, L = cache.shape[0], cache.shape[3]
+    posv = _positions(_pos_vector(pos0, b, cache.device), b).long()
+    cols = posv[:, None] + torch.arange(T, device=cache.device)[None, :]
+    bi, ti = torch.nonzero((cols >= 0) & (cols < L), as_tuple=True)
+    if bi.numel():
+        for c, r in _pairs(cache, rows, cache2, rows2):
+            c[bi, :, :, cols[bi, ti]] = r[bi, :, :, ti].to(c.dtype)
+    return cache
+
+
+def write_kv_block(cache, rows, pos0, cache2=None, rows2=None):
+    """K8: write ``rows`` (b, kvh, hd, T), T <= 128, any strides, into
+    columns ``pos0_b .. pos0_b + T - 1`` of ``cache`` in place and return
+    the cache; ``cache2``/``rows2`` (the same shapes and dtype, aliasing
+    neither of the first pair) are written by the same launch. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    _check_block(cache, rows, cache2, rows2)
     if _on("write_kv_block", cache):
-        return write_kv_block_plain(cache, rows, pos0)
-    if not cache.is_contiguous():
-        raise ValueError("K8 needs a contiguous cache")
-    rows = rows.to(cache.dtype).contiguous()
+        return write_kv_block_plain(cache, rows, pos0, cache2, rows2)
+    b = cache.shape[0]
     pos = _pos_vector(pos0, b, cache.device)
-    if rows.numel() == 0:
-        return cache
-    fn = _lib_fn("rlo_write_kv_block",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(cache.device):
-        rc = fn(cache.data_ptr(), rows.data_ptr(), pos.data_ptr(), b,
-                nkv * d, T, L, cache.element_size(), 1 if pos.dim() else 0,
-                _stream(cache.device))
-    if rc != 0:
-        raise RuntimeError(f"K8 block-write launch failed: CUDA error "
-                           f"{rc}")
-    _count(write_kv_block)
+    _launch_block("K8", write_kv_block, cache, rows, cache2, rows2, None,
+                  pos, 1 if pos.dim() else 0, None, b)
     return cache
 
 
@@ -513,7 +636,11 @@ _POOL = "pool (P, kvh, hd, ps)"
 
 def _scalar_i32(x, device) -> torch.Tensor:
     """A Python int or a one-element int tensor as a (1,) int32 tensor on
-    ``device`` (device tensors stay there: nothing is read back)."""
+    ``device`` (device tensors stay there: nothing is read back); a (1,)
+    int32 tensor already there passes through as it is."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+            and x.get_device() == device.index and x.shape == (1,)):
+        return x
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(x, dtype=torch.int32)
     if x.numel() != 1:
@@ -573,14 +700,28 @@ def write_kv_page_row(pool, row, page, off):
 write_kv_page_row.launches = 0
 
 
-def write_kv_page_block_plain(pool, rows, page, off0, n_valid):
+def _check_page_block(pool, rows, pool2, rows2) -> int:
+    """K11's shapes (and the pair's); returns T."""
+    P, nkv, d, ps = pool.shape
+    if rows.dim() != 3:
+        raise ValueError(f"rows must be (kvh, hd, T); got "
+                         f"{tuple(rows.shape)}")
+    T = rows.shape[2]
+    _check_write(pool, rows, (nkv, d, T), "write_kv_page_block", _POOL)
+    if T > ps:
+        raise ValueError(f"chunk T={T} exceeds page size {ps}")
+    _check_pair("write_kv_page_block", pool, rows, pool2, rows2)
+    return T
+
+
+def write_kv_page_block_plain(pool, rows, page, off0, n_valid, pool2=None,
+                              rows2=None):
     """Plain version of K11: ``pool[page, :, :, off0 + t] = rows[..., t]``
     in place for t < n_valid and 0 <= off0 + t < ps, page clamped into
-    [0, P - 1]."""
-    P, nkv, d, ps = pool.shape
-    T = rows.shape[2] if rows.dim() == 3 else -1
-    _check_write(pool, rows, (nkv, d, T), "write_kv_page_block",
-                 _POOL)
+    [0, P - 1]; the same for (``pool2``, ``rows2``) when given."""
+    T = _check_page_block(pool, rows, pool2, rows2)
+    _check_alias("write_kv_page_block", pool, rows, pool2, rows2)
+    P, ps = pool.shape[0], pool.shape[3]
     dev = pool.device
     pg = _scalar_i32(page, dev).long().clamp(0, P - 1)
     t = torch.arange(T, device=dev)
@@ -588,48 +729,30 @@ def write_kv_page_block_plain(pool, rows, page, off0, n_valid):
     keep = torch.nonzero((t < _scalar_i32(n_valid, dev).long())
                          & (cols >= 0) & (cols < ps)).flatten()
     if keep.numel():
-        pool[pg, :, :, cols[keep]] = rows[:, :, keep].to(pool.dtype) \
-            .permute(2, 0, 1)
+        for p, r in _pairs(pool, rows, pool2, rows2):
+            p[pg, :, :, cols[keep]] = r[:, :, keep].to(p.dtype) \
+                .permute(2, 0, 1)
     return pool
 
 
-def write_kv_page_block(pool, rows, page, off0, n_valid):
+def write_kv_page_block(pool, rows, page, off0, n_valid, pool2=None,
+                        rows2=None):
     """K11: write the first ``n_valid`` tokens of the chunk ``rows``
-    (kvh, hd, T), T <= ps, into lanes ``off0 ..`` of page ``page`` of
-    ``pool`` (P, kvh, hd, ps) in place and return the pool; pads never
-    touch it. ``page``, ``off0`` and ``n_valid`` are ints or one-element
-    int32 tensors, read on the device. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    P, nkv, d, ps = pool.shape
-    if rows.dim() != 3:
-        raise ValueError(f"rows must be (kvh, hd, T); got "
-                         f"{tuple(rows.shape)}")
-    T = rows.shape[2]
-    _check_write(pool, rows, (nkv, d, T), "write_kv_page_block",
-                 _POOL)
-    if T > ps:
-        raise ValueError(f"chunk T={T} exceeds page size {ps}")
+    (kvh, hd, T), T <= ps, any strides, into lanes ``off0 ..`` of page
+    ``page`` of ``pool`` (P, kvh, hd, ps) in place and return the pool;
+    pads never touch it. ``pool2``/``rows2`` (the same shapes and dtype,
+    aliasing neither of the first pair) are written by the same launch.
+    ``page``, ``off0`` and ``n_valid`` are ints or one-element int32
+    tensors, read on the device. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    _check_page_block(pool, rows, pool2, rows2)
     if _on("write_kv_page_block", pool):
-        return write_kv_page_block_plain(pool, rows, page, off0, n_valid)
-    if not pool.is_contiguous():
-        raise ValueError("K11 needs a contiguous pool")
+        return write_kv_page_block_plain(pool, rows, page, off0, n_valid,
+                                         pool2, rows2)
     dev = pool.device
-    rows = rows.to(pool.dtype).contiguous()
-    page, off0, n_valid = (_scalar_i32(x, dev) for x in (page, off0,
-                                                         n_valid))
-    if rows.numel() == 0:
-        return pool
-    fn = _lib_fn("rlo_write_kv_page_block",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(pool.data_ptr(), rows.data_ptr(), page.data_ptr(),
-                off0.data_ptr(), n_valid.data_ptr(), nkv * d, T, P, ps,
-                pool.element_size(), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"K11 page-block write launch failed: CUDA "
-                           f"error {rc}")
-    _count(write_kv_page_block)
+    _launch_block("K11", write_kv_page_block, pool, rows, pool2, rows2,
+                  _scalar_i32(page, dev), _scalar_i32(off0, dev), 0,
+                  _scalar_i32(n_valid, dev), 1)
     return pool
 
 

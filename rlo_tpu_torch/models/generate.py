@@ -143,7 +143,8 @@ def decode_step(params: dict, token, pos, cache, cfg: TransformerConfig):
 
 def _write_block(lc, kt, vt, pos0):
     """A T-column cache write (in place, K8 in chunks of at most 128
-    columns); kt, vt (b, kvh, T, hd). Returns the scale sidecars."""
+    columns, k with v in one launch); kt, vt (b, kvh, T, hd), any
+    strides (read in place). Returns the scale sidecars."""
     ks_new = vs_new = None
     if "ks" in lc:  # quantise over head_dim before the seq-minor flip
         kt, ks_new = _quantize_kv(kt)
@@ -151,14 +152,16 @@ def _write_block(lc, kt, vt, pos0):
     kt, vt = kt.transpose(2, 3), vt.transpose(2, 3)   # (b, kvh, hd, T)
     T = kt.shape[3]
     for c0 in range(0, T, MAX_BLOCK_T):
-        c1 = min(T, c0 + MAX_BLOCK_T)
-        write_kv_block(lc["k"], kt[..., c0:c1], pos0 + c0)
-        write_kv_block(lc["v"], vt[..., c0:c1], pos0 + c0)
-        if ks_new is not None:
-            write_kv_block(lc["ks"][:, :, None, :],
-                           ks_new[:, :, None, c0:c1], pos0 + c0)
-            write_kv_block(lc["vs"][:, :, None, :],
-                           vs_new[:, :, None, c0:c1], pos0 + c0)
+        part = (kt, vt, ks_new, vs_new)
+        if T > MAX_BLOCK_T:                     # this chunk's columns
+            part = tuple(None if x is None else x[..., c0:c0 + MAX_BLOCK_T]
+                         for x in part)
+        k, v, ks, vs = part
+        p0 = pos0 if c0 == 0 else pos0 + c0
+        write_kv_block(lc["k"], k, p0, lc["v"], v)
+        if ks is not None:
+            write_kv_block(lc["ks"][:, :, None, :], ks[:, :, None, :], p0,
+                           lc["vs"][:, :, None, :], vs[:, :, None, :])
     return lc.get("ks"), lc.get("vs")
 
 

@@ -132,18 +132,19 @@ def paged_write_rows(entry, k_row, v_row, ks_new, vs_new, page, off):
 
 def paged_write_chunk(entry, kt, vt, ks_new, vs_new, page, off0, n_valid):
     """Write one slot's prefill chunk into one page, in place (K11):
-    ``kt``/``vt`` (kvh, hd, T) seq-minor, token t landing at [page, :, :,
-    off0 + t] for t < n_valid (pads dropped); ``ks_new``/``vs_new``
-    (kvh, T) for int8 pools. The chunk never crosses a page boundary
-    (off0 + n_valid <= page_size, scheduled by the server). Returns
-    ``entry``."""
-    write_kv_page_block(entry["k"], kt, page, off0, n_valid)
-    write_kv_page_block(entry["v"], vt, page, off0, n_valid)
+    ``kt``/``vt`` (kvh, hd, T) seq-minor, any strides (the projection's
+    output permuted, read in place), token t landing at [page, :, :, off0
+    + t] for t < n_valid (pads dropped); ``ks_new``/``vs_new`` (kvh, T)
+    for int8 pools. k with v, and the scales, each take one launch. The
+    chunk never crosses a page boundary (off0 + n_valid <= page_size,
+    scheduled by the server). Returns ``entry``."""
+    write_kv_page_block(entry["k"], kt, page, off0, n_valid, entry["v"], vt)
     if ks_new is not None:
+        # the scale pools (P, kvh, ps) ride the same kernel through their
+        # (P, kvh, 1, ps) view
         write_kv_page_block(entry["ks"][:, :, None, :], ks_new[:, None, :],
-                            page, off0, n_valid)
-        write_kv_page_block(entry["vs"][:, :, None, :], vs_new[:, None, :],
-                            page, off0, n_valid)
+                            page, off0, n_valid, entry["vs"][:, :, None, :],
+                            vs_new[:, None, :])
     return entry
 
 

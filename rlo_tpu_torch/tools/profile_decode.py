@@ -15,7 +15,7 @@ traced prefill is one 128-token ``paged_prefill_chunk`` (K9, K11).
 Prints the host wall time, the device time summed over kernels (one
 stream, so kernels do not overlap), the device's idle share of the wall
 time, the device time by group (K6/K9 decode attention, K7/K10 cache
-writes, K11 chunk writes, K2 flash, matrix products, the rest), the top
+writes, K8/K11 block writes, K2 flash, matrix products, the rest), the top
 kernels, the top PyTorch ops by the device time they launched and the
 rest's device time by the op that launched it; then one JSON line with
 the same numbers. Needs a CUDA card; fails without one, and fails if the
@@ -37,7 +37,7 @@ import time
 GROUPS = (("K9 paged decode attention", ("paged_decode_kernel",)),
           ("K6 decode attention", ("decode_kernel",)),
           ("K10 page row write", ("write_page_row_kernel",)),
-          ("K11 page chunk write", ("write_page_block_kernel",)),
+          ("K8/K11 block write", ("write_block_kernel",)),
           ("K7 cache write", ("write_row_kernel",)),
           ("K2 flash", ("flash_fwd_",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",

@@ -157,9 +157,26 @@ def test_write_row_out_of_range_is_dropped():
     np.testing.assert_array_equal(tc.numpy(), cache)
 
 
+def _as_view(rows, pad=0):
+    """(b, kvh, hd, T) rows as the callers hand them to K8: a permuted
+    view of the k slice of a (b, T, 3 * kvh * hd) projection output (hd
+    contiguous, tokens 3 * kvh * hd apart); ``pad`` 1 moves the slice one
+    element on in a (b, T, 3 * kvh * hd + 1) tensor (the kernel's scalar
+    route)."""
+    b, nkv, d, T = rows.shape
+    w = nkv * d
+    proj = torch.zeros((b, T, 3 * w + pad), dtype=rows.dtype)
+    proj[..., w + pad:2 * w + pad] = rows.permute(0, 3, 1, 2).reshape(b, T, w)
+    view = proj[..., w + pad:2 * w + pad].reshape(b, T, nkv, d) \
+        .permute(0, 2, 3, 1)
+    assert view.stride(2) == 1 and not view.is_contiguous()
+    return view
+
+
 @pytest.mark.parametrize("dtype", ["f32", "int8"])
 @pytest.mark.parametrize("pos0", [0, 126, 256, "ragged"])
-def test_write_block_matches_pallas(dtype, pos0):
+@pytest.mark.parametrize("layout", ["contiguous", "view", "misaligned"])
+def test_write_block_matches_pallas(dtype, pos0, layout):
     L, T = 384, 5
     cache = _cache(L, dtype, seed=41)
     rows = _cache(T, dtype, seed=42)
@@ -169,8 +186,55 @@ def test_write_block_matches_pallas(dtype, pos0):
         jnp.asarray(cache), jnp.asarray(rows), jnp.asarray(pos0),
         interpret=True))
     tc, tr = from_numpy([cache, rows], "cpu")
+    if layout != "contiguous":
+        tr = _as_view(tr, int(layout == "misaligned"))
     assert kd.write_kv_block(tc, tr, torch.as_tensor(pos0)) is tc
     np.testing.assert_array_equal(to_numpy([tc])[0], want)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_write_block_pair_equals_two_single_writes(dtype):
+    """The pair form (k with v; for int8 also the scale sidecars' pair
+    through their (b, kvh, 1, L) views) writes what two single calls
+    write; pairs that alias raise."""
+    L, T = 256, 9
+    pos = torch.tensor([250, 0, 100], dtype=torch.int32)
+    if dtype == "int8":
+        k, v, kr, vr = from_numpy([_cache(n, "int8", seed=60 + i)
+                                   for i, n in enumerate((L, L, T, T))],
+                                  "cpu")
+        rng = np.random.default_rng(64)
+        ks, vs = from_numpy([rng.random((B, NKV, n)).astype(np.float32)
+                             for n in (L, L)], "cpu")
+        ksr, vsr = (torch.from_numpy(rng.random((B, T, NKV))
+                                     .astype(np.float32)).transpose(1, 2)
+                    for _ in range(2))
+    else:
+        k, v, kr, vr = (t.to(torch.bfloat16) for t in from_numpy(
+            [_cache(n, "f32", seed=60 + i)
+             for i, n in enumerate((L, L, T, T))], "cpu"))
+    kr, vr = _as_view(kr), _as_view(vr)
+    got = [k.clone(), v.clone()]
+    want = [k.clone(), v.clone()]
+    kd.write_kv_block(got[0], kr, pos, got[1], vr)
+    kd.write_kv_block(want[0], kr, pos)
+    kd.write_kv_block(want[1], vr, pos)
+    if dtype == "int8":
+        got += [ks.clone(), vs.clone()]
+        want += [ks.clone(), vs.clone()]
+        kd.write_kv_block(got[2][:, :, None, :], ksr[:, :, None, :], pos,
+                          got[3][:, :, None, :], vsr[:, :, None, :])
+        kd.write_kv_block(want[2][:, :, None, :], ksr[:, :, None, :], pos)
+        kd.write_kv_block(want[3][:, :, None, :], vsr[:, :, None, :], pos)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[0], k)
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_block(got[0], kr, pos, got[1], got[0][..., :T])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_block(got[0], kr, pos, got[0], vr)
+    with pytest.raises(ValueError, match="both tensors"):
+        kd.write_kv_block(got[0], kr, pos, got[1])
 
 
 def test_write_block_drops_columns_past_the_end():

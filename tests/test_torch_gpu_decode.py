@@ -91,3 +91,111 @@ def test_writes_match_plain_on_card(cuda):
             kd.write_kv_block_plain(b, rows, pos)
             torch.cuda.synchronize()
             assert torch.equal(a, b)
+
+
+#: rows layouts: the callers' permuted view of the k slice of a (.., T,
+#: 3 * kvh * hd) projection output (hd contiguous, tokens 16-byte
+#: aligned: the kernel's 16-byte loads along hd), that slice one element
+#: off in a (.., T, 3 * kvh * hd + 1) tensor (scalar loads), and a
+#: contiguous (.., kvh, hd, T) copy (scalar loads)
+LAYOUTS = ["view", "misaligned", "contiguous"]
+
+
+def _vector_loads(rows):
+    """Whether ``rows`` (.., hd, T) meet the kernel's test for 16-byte
+    loads along hd: hd contiguous, a multiple of 16 bytes, and every
+    token's start 16-byte aligned."""
+    e = rows.element_size()
+    return (rows.stride(-2) == 1 and rows.shape[-2] * e % 16 == 0
+            and rows.stride(-1) * e % 16 == 0 and rows.data_ptr() % 16 == 0)
+
+
+def _block_rows(b, nkv, hd, T, kind, rng, dev, layout):
+    """(b, kvh, hd, T) rows in ``layout``, from a projection-like tensor
+    (see ``LAYOUTS``)."""
+    w = nkv * hd
+    pad = 1 if layout == "misaligned" else 0
+    if kind == "int8":
+        proj = rng.integers(-127, 128, (b, T, 3 * w + pad)).astype(np.int8)
+    else:
+        proj = rng.standard_normal((b, T, 3 * w + pad)).astype(np.float32)
+    t = from_numpy([proj], dev)[0]
+    if kind == "bf16":
+        t = t.to(torch.bfloat16)
+    first = w + pad
+    view = t[..., first:first + w].reshape(b, T, nkv, hd).permute(0, 2, 3, 1)
+    rows = view.contiguous() if layout == "contiguous" else view
+    assert _vector_loads(rows) == (layout == "view" and hd > 1)
+    return rows
+
+
+def _block_cache(b, nkv, hd, L, kind, rng, dev):
+    """A (b, kvh, hd, L) cache; hd = 1 as the (b, kvh, 1, L) view of a
+    (b, kvh, L) scale sidecar, the route the int8 scales take."""
+    if kind == "int8":
+        c = rng.integers(-127, 128, (b, nkv, hd, L)).astype(np.int8)
+    else:
+        c = rng.standard_normal((b, nkv, hd, L)).astype(np.float32)
+    t = from_numpy([c], dev)[0]
+    if kind == "bf16":
+        t = t.to(torch.bfloat16)
+    return t[:, :, 0].clone()[:, :, None, :] if hd == 1 else t
+
+
+def _same(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [1, 16, 32, 64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_block_write_kernel_matches_plain_on_card(cuda, kind, hd, layout):
+    """K8, single and pair form, bit for bit against its plain version:
+    element sizes 4/2/1, hd 16-128 and the scale sidecars' hd = 1 view,
+    rows as the callers' views or not, T up to 128, positions on and off
+    16-byte columns, from a negative start, straddling and past L, shared
+    and per row. A pair costs one launch."""
+    rng = np.random.default_rng(hd)
+    b, nkv, L = 3, 2, 256
+    cache = _block_cache(b, nkv, hd, L, kind, rng, cuda)
+    cache2 = _block_cache(b, nkv, hd, L, kind, rng, cuda)
+    for T in (1, 7, 64, 128):
+        rows = _block_rows(b, nkv, hd, T, kind, rng, cuda, layout)
+        rows2 = _block_rows(b, nkv, hd, T, kind, rng, cuda, layout)
+        for p in (0, 37, L - 3, L + 5, [5, L - T, 9999], [-4, 64, 200]):
+            pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+            a, c = cache.clone(), cache.clone()
+            kd.write_kv_block(a, rows, pos)
+            kd.write_kv_block_plain(c, rows, pos)
+            torch.cuda.synchronize()
+            assert _same(a, c), (T, p, "single")
+            a2, c2 = cache2.clone(), cache2.clone()
+            before = kd.write_kv_block.launches
+            kd.write_kv_block(a, rows, pos, a2, rows2)
+            assert kd.write_kv_block.launches == before + 1
+            kd.write_kv_block_plain(c, rows, pos, c2, rows2)
+            torch.cuda.synchronize()
+            assert _same(a, c) and _same(a2, c2), (T, p, "pair")
+
+
+@pytest.mark.gpu
+def test_block_write_repeats_the_same_bits_on_card(cuda):
+    """50 launches of the bf16 pair from the projection's views give the
+    first launch's bits; aliasing pairs raise."""
+    rng = np.random.default_rng(3)
+    cache = _block_cache(2, 16, 64, 256, "bf16", rng, cuda)
+    cache2 = _block_cache(2, 16, 64, 256, "bf16", rng, cuda)
+    rows = _block_rows(2, 16, 64, 100, "bf16", rng, cuda, "view")
+    rows2 = _block_rows(2, 16, 64, 100, "bf16", rng, cuda, "view")
+    pos = torch.tensor([3, 150], dtype=torch.int32, device=cuda)
+    first = None
+    for _ in range(50):
+        a, a2 = cache.clone(), cache2.clone()
+        kd.write_kv_block(a, rows, pos, a2, rows2)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (a, a2)
+        assert _same(a, first[0]) and _same(a2, first[1])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_block(cache, rows, pos, cache2, cache[..., :100])

@@ -92,3 +92,104 @@ def test_page_writes_match_plain_on_card(cuda):
             kd.write_kv_page_block_plain(b, rows, p, o0, nv)
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+#: rows layouts: the callers' permuted view of the k slice of a (T, 3 *
+#: kvh * hd) projection output (hd contiguous, tokens 16-byte aligned:
+#: the kernel's 16-byte loads along hd), that slice one element off in a
+#: (T, 3 * kvh * hd + 1) tensor (scalar loads), and a contiguous (kvh,
+#: hd, T) copy (scalar loads)
+LAYOUTS = ["view", "misaligned", "contiguous"]
+
+
+def _vector_loads(rows):
+    """Whether ``rows`` (.., hd, T) meet the kernel's test for 16-byte
+    loads along hd: hd contiguous, a multiple of 16 bytes, and every
+    token's start 16-byte aligned."""
+    e = rows.element_size()
+    return (rows.stride(-2) == 1 and rows.shape[-2] * e % 16 == 0
+            and rows.stride(-1) * e % 16 == 0 and rows.data_ptr() % 16 == 0)
+
+
+def _chunk_rows(nkv, hd, T, kind, rng, dev, layout):
+    """(kvh, hd, T) rows in ``layout``, from a projection-like tensor (see
+    ``LAYOUTS``)."""
+    w = nkv * hd
+    pad = 1 if layout == "misaligned" else 0
+    t = _on(_values((T, 3 * w + pad), kind, rng), dev, kind)
+    first = w + pad
+    view = t[:, first:first + w].reshape(T, nkv, hd).permute(1, 2, 0)
+    rows = view.contiguous() if layout == "contiguous" else view
+    assert _vector_loads(rows) == (layout == "view" and hd > 1)
+    return rows
+
+
+def _chunk_pool(P, nkv, hd, ps, kind, rng, dev):
+    """A (P, kvh, hd, ps) pool; hd = 1 as the (P, kvh, 1, ps) view of a
+    (P, kvh, ps) scale pool, the route the int8 scales take."""
+    if hd == 1:
+        return _on(_values((P, nkv, ps), kind, rng), dev, kind)[:, :, None, :]
+    return _on(_values((P, nkv, hd, ps), kind, rng), dev, kind)
+
+
+def _same(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [1, 16, 32, 64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_page_block_write_kernel_matches_plain_on_card(cuda, kind, hd,
+                                                       layout):
+    """K11, single and pair form, bit for bit against its plain version:
+    element sizes 4/2/1, hd 16-128 and the scale pools' hd = 1 view, rows
+    as the callers' views or not; a whole page (T = ps), off0 off the
+    16-byte lanes, a negative start, n_valid 0, a chunk ending at the page
+    edge (off0 + n_valid = ps), pads past n_valid, a page past the pool
+    (clamped). A pair costs one launch."""
+    rng = np.random.default_rng(hd)
+    P, nkv, ps = 5, 2, 128
+    pool = _chunk_pool(P, nkv, hd, ps, kind, rng, cuda)
+    pool2 = _chunk_pool(P, nkv, hd, ps, kind, rng, cuda)
+    for T, page, off0, nv in ((ps, 2, 0, ps), (64, 3, 5, 64),
+                              (32, 1, -7, 32), (16, 4, 0, 0),
+                              (40, P + 4, ps - 24, 24), (128, 0, 3, 100),
+                              (24, 2, 8, 24)):
+        rows = _chunk_rows(nkv, hd, T, kind, rng, cuda, layout)
+        rows2 = _chunk_rows(nkv, hd, T, kind, rng, cuda, layout)
+        a, c = pool.clone(), pool.clone()
+        kd.write_kv_page_block(a, rows, page, off0, nv)
+        kd.write_kv_page_block_plain(c, rows, page, off0, nv)
+        torch.cuda.synchronize()
+        assert _same(a, c), (T, page, off0, nv, "single")
+        a2, c2 = pool2.clone(), pool2.clone()
+        before = kd.write_kv_page_block.launches
+        kd.write_kv_page_block(a, rows, page, off0, nv, a2, rows2)
+        assert kd.write_kv_page_block.launches == before + 1
+        kd.write_kv_page_block_plain(c, rows, page, off0, nv, c2, rows2)
+        torch.cuda.synchronize()
+        assert _same(a, c) and _same(a2, c2), (T, page, off0, nv, "pair")
+
+
+@pytest.mark.gpu
+def test_page_block_write_repeats_the_same_bits_on_card(cuda):
+    """50 launches of the bf16 pair from the projection's views give the
+    first launch's bits; aliasing pairs raise."""
+    rng = np.random.default_rng(4)
+    pool = _chunk_pool(9, 16, 64, 128, "bf16", rng, cuda)
+    pool2 = _chunk_pool(9, 16, 64, 128, "bf16", rng, cuda)
+    rows = _chunk_rows(16, 64, 100, "bf16", rng, cuda, "view")
+    rows2 = _chunk_rows(16, 64, 100, "bf16", rng, cuda, "view")
+    args = [torch.tensor([x], dtype=torch.int32, device=cuda)
+            for x in (6, 11, 100)]
+    first = None
+    for _ in range(50):
+        a, a2 = pool.clone(), pool2.clone()
+        kd.write_kv_page_block(a, rows, *args, a2, rows2)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (a, a2)
+        assert _same(a, first[0]) and _same(a2, first[1])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_page_block(pool, rows, *args, pool, rows2)

@@ -123,13 +123,30 @@ def test_page_row_write_two_rows_on_one_page():
     np.testing.assert_array_equal(want[2, 0, :, 5], row[1, 0])
 
 
+def _as_view(rows, pad=0):
+    """(kvh, hd, T) rows as ``paged_prefill_chunk`` hands them to K11: a
+    permuted view of the k slice of a (T, 3 * kvh * hd) projection output
+    (hd contiguous, tokens 3 * kvh * hd apart); ``pad`` 1 moves the slice
+    one element on in a (T, 3 * kvh * hd + 1) tensor (the kernel's scalar
+    route)."""
+    nkv, d, T = rows.shape
+    w = nkv * d
+    proj = torch.zeros((T, 3 * w + pad), dtype=rows.dtype)
+    proj[:, w + pad:2 * w + pad] = rows.permute(2, 0, 1).reshape(T, w)
+    view = proj[:, w + pad:2 * w + pad].reshape(T, nkv, d).permute(1, 2, 0)
+    assert view.stride(1) == 1 and not view.is_contiguous()
+    return view
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("case", ["pads", "page_edge", "short", "past_pool",
                                   "negative_off"])
-def test_page_block_write_matches_pallas(kind, case):
+@pytest.mark.parametrize("layout", ["contiguous", "view", "misaligned"])
+def test_page_block_write_matches_pallas(kind, case, layout):
     """A chunk with pads past n_valid, one that ends at the page edge, a
     short one, a page index past the pool, and a negative start (only
-    the lanes inside the page are written)."""
+    the lanes inside the page are written); rows contiguous, as the
+    caller's view, or that view one element off."""
     rng = np.random.default_rng(7)
     P, nkv, d, ps = 6, 2, 16, 32
     T, page, off0, nv = {"pads": (16, 4, 9, 11),
@@ -142,16 +159,60 @@ def test_page_block_write_matches_pallas(kind, case):
     want = np.asarray(jdec.write_kv_page_block(
         jnp.asarray(pool), jnp.asarray(rows), page, off0, nv,
         interpret=True))
+    tr = _tensor(rows)
+    if layout != "contiguous":
+        tr = _as_view(tr, int(layout == "misaligned"))
     tp = _tensor(pool)
-    assert kd.write_kv_page_block(tp, _tensor(rows), page, off0, nv) is tp
+    assert kd.write_kv_page_block(tp, tr, page, off0, nv) is tp
     got = np.asarray(cache_to_numpy([{"k": tp}])[0]["k"])
     np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
     # device-tensor scalars give the same write
     tp2 = _tensor(pool)
-    kd.write_kv_page_block(tp2, _tensor(rows),
+    kd.write_kv_page_block(tp2, tr,
                            *(torch.tensor([x], dtype=torch.int32)
                              for x in (page, off0, nv)))
     assert torch.equal(tp2, tp)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_page_block_write_pair_equals_two_single_writes(kind):
+    """The pair form (k with v; for int8 also the scale pools' pair
+    through their (P, kvh, 1, ps) views) writes what two single calls
+    write; pairs that alias raise."""
+    rng = np.random.default_rng(11)
+    P, nkv, d, ps, T = 6, 2, 16, 32, 20
+    k, v = (_tensor(_values((P, nkv, d, ps), kind, rng)) for _ in range(2))
+    kr, vr = (_as_view(_tensor(_values((nkv, d, T), kind, rng)))
+              for _ in range(2))
+    args = (3, 9, 17)                      # page, off0, n_valid (pads)
+    got, want = [k.clone(), v.clone()], [k.clone(), v.clone()]
+    kd.write_kv_page_block(got[0], kr, *args, got[1], vr)
+    kd.write_kv_page_block(want[0], kr, *args)
+    kd.write_kv_page_block(want[1], vr, *args)
+    if kind == "int8":
+        ks, vs = (_tensor(_values((P, nkv, ps), "f32", rng))
+                  for _ in range(2))
+        # (kvh, T) sidecar rows as the caller takes them: (1, T, kvh)[0].t()
+        ksr, vsr = (_tensor(_values((1, T, nkv), "f32", rng))[0].t()
+                    for _ in range(2))
+        got += [ks.clone(), vs.clone()]
+        want += [ks.clone(), vs.clone()]
+        kd.write_kv_page_block(got[2][:, :, None, :], ksr[:, None, :],
+                               *args, got[3][:, :, None, :],
+                               vsr[:, None, :])
+        kd.write_kv_page_block(want[2][:, :, None, :], ksr[:, None, :],
+                               *args)
+        kd.write_kv_page_block(want[3][:, :, None, :], vsr[:, None, :],
+                               *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[0], k)
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_page_block(got[0], kr, *args, got[1], got[0][1, ..., :T])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_page_block(got[0], kr, *args, got[0], vr)
+    with pytest.raises(ValueError, match="match the first"):
+        kd.write_kv_page_block(got[0], kr, *args, got[1], vr[..., :4])
 
 
 def test_page_block_write_rejects_a_chunk_wider_than_a_page():
