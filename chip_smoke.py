@@ -17,10 +17,13 @@ Phases, each printing its own lines:
    K4/K5 than in K3 at the same head dim (their products moved too).
 2. K1 (the fused combine) against its plain PyTorch version on the card:
    f32/bf16 x sum/min/max, int32 x sum/min/max/and/or, with NaN inputs,
-   int32 values above 2^24, ragged and unaligned sizes, the in-place
-   accumulate, and the shapes of the main path. Results must be
+   int32 values above 2^24, ragged and unaligned sizes, sizes at the
+   edges of the unrolled loop's block step and past its grid's cap, the
+   in-place accumulate, and the shapes of the main path. Results must be
    bit-identical to the plain version's (NaN payloads included). Times the
-   kernel, the plain version and ``torch.add(out=)`` at 256 MB fp32.
+   kernel and ``torch.add(out=)`` at 256 MB and 32 MB (a ring chunk) fp32
+   by events, by device time (the profiler) and by host time, and the
+   plain version by events.
 3. The facade at full size: ``rlo_tpu_torch.init(backend="cuda",
    world_size=8)`` with a 256 MB fp32 buffer per rank, all 8 ranks on
    the one card: every allreduce algorithm, bf16, int32 min/max, bcast,
@@ -41,17 +44,18 @@ Phases, each printing its own lines:
    and pages
    of 256, and on pages holding a dense cache's columns, where it must
    equal K6 bit for bit; K10 and K11 (page writes) bit-identical,
-   sentinels included. K8 and K11 also from the projection's views
+   sentinels included. K8, K10 and K11 also from the projection's views
    (16-byte loads along hd, at hd 16-128; and one element off: scalar
-   loads) and in the pair form (k with v, the int8 scale pair):
-   bit-identical, one launch a pair, 50 repeat launches the same bits,
-   and the callers' k/v write runs one kernel and no copy (the
-   profiler). Times each kernel, its plain version, its bound and one
-   PyTorch call that computes the same function (K9: K6 on the
-   equivalent dense cache instead; no single call pages); the writes
-   also by device time (the profiler) and by host time, K8 and K11 from
-   the path's own views, with their k/v pair against two sliced
-   assignments (``time_k8``, ``time_k11``).
+   loads; K10 also at hd 1 and two rows on one page) and in the pair form
+   (k with v, the int8 scale pair): bit-identical, one launch a pair (the
+   wrapper's count), 50 repeat launches the same bits, and the callers'
+   k/v write runs that kernel and no copy (the profiler). Times each
+   kernel, its plain version, its bound and one PyTorch call that
+   computes the same function (K9: K6 on the equivalent dense cache
+   instead; no single call pages); the writes also by device time (the
+   profiler) and by host time, K8, K10 and K11 from the path's own views,
+   with their k/v pair against two sliced or indexed assignments
+   (``time_k8``, ``time_k10``, ``time_k11``).
 5. Serving at full width (the flagship config, vocab 32768, d 1024, 16
    heads, 8 layers, d_ff 4096, bf16, random weights from the seed):
    ``generate_timed`` at batch 32 / plen 1024 / 64 new tokens, the same
@@ -105,13 +109,17 @@ Phases, each printing its own lines:
 
     python3 chip_smoke.py --time-writes
 
-runs only the K8 and K11 timings of phase 4 and prints them as one JSON
-line; they call nothing the port lacked before K8 and K11 took views and
-pairs, so a copy of this file at the root of an older tree times that
-tree's writes the same way.
+runs only the K8, K10 and K11 timings of phase 4 and K1's of phase 2
+and prints them as one JSON line; they call nothing the port lacked
+before the writes took views and pairs, so a copy of this file at the
+root of an older tree times that tree's kernels the same way.
 
-Every failure raises, so the exit code is non-zero and no result line
-is printed.
+Every profiled window (``profiled``: device times, the kernels a call
+runs) idles a few ms inside both of its edges; one that records no
+CUDA kernel at all is taken again with a longer idle, 3 takes in all
+before it fails, and each phase prints how many it took again. Every
+failure raises, so the exit code is non-zero and no result line is
+printed.
 """
 
 from __future__ import annotations
@@ -131,6 +139,11 @@ PEAK_HBM_BYTES_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core rate
 K1_SOURCE = "rlo_tpu_torch/kernels/csrc/reduce.cu"
 K1_REPLACES = "rlo_tpu/pallas/reduce.py:49"
+#: 16-byte vectors one block of K1 covers in a step of its loop, and its
+#: grid's cap in blocks an SM (csrc/reduce.cu: kThreads x kUnroll,
+#: grid_for)
+K1_BLOCK_VECS = 256 * 4
+K1_BLOCKS_PER_SM = 256
 FLASH_SOURCE = "rlo_tpu_torch/kernels/csrc/flash.cu"
 DECODE_SOURCE = "rlo_tpu_torch/kernels/csrc/decode.cu"
 KERNEL_SOURCES = ("reduce", "flash", "decode")
@@ -177,24 +190,66 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, per: int = 1) -> float:
     return statistics.median(times)
 
 
+#: torch.profiler drops kernel records now and then, a few windows in a
+#: row at a time (one-launch windows back to back: 2 to 6 in 1000
+#: recorded no kernel, and an idle pause before each window did not
+#: help; one in 250 fifty-launch windows recorded 49), so each window
+#: idles inside its edges, after the profiler starts and before it
+#: stops: WINDOW_IDLE_S on its first take, ten times longer on each
+#: retake. A window that records no CUDA kernel at all is taken again,
+#: WINDOW_TAKES takes in all before it fails.
+WINDOW_IDLE_S = 0.005
+WINDOW_TAKES = 3
+#: profiled windows since the last ``windows_line``, and how many of them
+#: recorded no kernel and were taken again
+windows = {"taken": 0, "empty": 0}
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "device_time_total", 0)
+                 or getattr(evt, "cuda_time_total", 0))
+
+
+def profiled(fn, reps: int = 1) -> dict:
+    """The CUDA kernels (and copies) of ``reps`` calls of ``fn`` by name,
+    as {name: (count, device us)} from ``torch.profiler``: one window that
+    starts after a synchronise, idles, runs the calls, synchronises and
+    idles again before it stops; taken again as ``WINDOW_IDLE_S`` says."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for take in range(WINDOW_TAKES):
+        idle = WINDOW_IDLE_S * 10 ** take
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(idle)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(idle)
+        windows["taken"] += 1
+        ran = {e.key: (e.count, _device_us(e)) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if ran:
+            return ran
+        windows["empty"] += 1
+    raise RuntimeError(f"chip_smoke: FAILED: the profiler recorded no CUDA "
+                       f"kernel in {WINDOW_TAKES} windows in a row")
+
+
+def windows_line(tag: str) -> None:
+    """Print and reset the profiled-window counts of a phase."""
+    print(f"[{tag}] profiler windows: {windows['taken']}, of which "
+          f"{windows['empty']} recorded no kernel and were taken again")
+    windows.update(taken=0, empty=0)
+
+
 def device_ms(fn, reps: int = 10) -> float:
     """Device time of one ``fn()`` call: its kernels' times summed by
     ``torch.profiler`` over ``reps`` calls, divided by ``reps``. Leaves
     out the host time between the kernels of a call (autograd's engine
     around SDPA's backward), which CUDA events around a run include."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us += float(getattr(evt, "device_time_total", 0)
-                        or getattr(evt, "cuda_time_total", 0))
+    us = sum(t for _, t in profiled(fn, reps).values())
     check(us > 0, "the profiler recorded no device time")
     return us / reps / 1e3
 
@@ -260,6 +315,18 @@ def phase_k1(dev, n_full: int) -> dict:
     # bidir-ring sub-chunks (n/64, n/32, n/16), the ring chunk (n/8), the
     # halving rounds (n/2, n/4, n/8) and recursive doubling's whole buffer
     sizes = [1, 105, 513] + [n_full // d for d in (64, 32, 16, 8, 4, 2, 1)]
+    cap = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * K1_BLOCKS_PER_SM
+
+    def edges(esize):
+        """Sizes around one block's step of the unrolled loop, with a
+        scalar tail or none, and one past the grid's cap (a second pass of
+        the grid-stride loop, 553 MB an operand)."""
+        per = 16 // esize
+        step = K1_BLOCK_VECS * per
+        return [per - 1, per + 1, step - 1, step, step + per + 3,
+                3 * step - per, cap * step + per]
+
     tally = {"cases": 0, "worst": 0.0}
 
     def compare(got, want, what):
@@ -270,7 +337,7 @@ def phase_k1(dev, n_full: int) -> dict:
         tally["worst"] = max(tally["worst"], abs_err(got, want))
 
     for dtype, op in cases:
-        for n in sizes:
+        for n in sizes + edges(torch.empty((), dtype=dtype).element_size()):
             a, b = k1_operands(n, dtype, gen, dev, nan=op != "sum")
             compare(k1.fused_combine(a, b, op),
                     k1.fused_combine_plain(a, b, op), f"{op} {dtype} n={n}")
@@ -283,34 +350,61 @@ def phase_k1(dev, n_full: int) -> dict:
         k1.fused_combine(acc, b[1:], op, out=acc)
         compare(acc, want, f"{op} {dtype} with out=a")
     for dtype in (torch.int8, torch.int16, torch.int64, torch.bool):
-        a = torch.randint(0, 2, (1000,), generator=gen, device=dev).to(dtype)
-        b = torch.randint(0, 2, (1000,), generator=gen, device=dev).to(dtype)
-        for op in ("and", "or"):
-            compare(k1.fused_combine(a, b, op),
-                    k1.fused_combine_plain(a, b, op), f"{op} on {dtype}")
+        for n in [1000] + edges(1)[4:6]:
+            a = torch.randint(0, 2, (n,), generator=gen, device=dev) \
+                .to(dtype)
+            b = torch.randint(0, 2, (n,), generator=gen, device=dev) \
+                .to(dtype)
+            for op in ("and", "or"):
+                compare(k1.fused_combine(a, b, op),
+                        k1.fused_combine_plain(a, b, op),
+                        f"{op} on {dtype} n={n}")
     print(f"[k1] {tally['cases']} cases bit-identical to "
-          f"fused_combine_plain on the card (NaN payloads included); "
-          f"max |err| {tally['worst']}")
+          f"fused_combine_plain on the card (NaN payloads included; ragged "
+          f"tails, the unrolled loop's block edges and a second pass of its "
+          f"grid, unaligned views, out = a); max |err| {tally['worst']}")
 
-    # times at the main path's shapes: the whole buffer and a ring chunk
+    out = time_k1(dev, gen, n_full)
+    out["max_abs_err"] = tally["worst"]
+    return out
+
+
+def time_k1(dev, gen, n_full: int) -> dict:
+    """K1's f32 sum at the main path's sizes, the whole 256 MB buffer and
+    a ring chunk (n/8, 32 MB), beside ``torch.add(out=)``: by CUDA events
+    around one call, by device time (the profiler) and by host time; the
+    plain version by events. Calls only what the parent tree has too
+    (``--time-writes``)."""
+    import torch
+    from rlo_tpu_torch.kernels import reduce as k1
     out = {}
     for label, n in (("256MB", n_full), ("ring_chunk", n_full // WS)):
         a, b = k1_operands(n, torch.float32, gen, dev, nan=False)
         c = torch.empty_like(a)
-        kern = time_ms(lambda: k1.fused_combine(a, b, "sum", out=c))
-        plain = time_ms(lambda: k1.fused_combine_plain(a, b, "sum", out=c))
-        lib = time_ms(lambda: torch.add(a, b, out=c))
+
+        def kern():
+            k1.fused_combine(a, b, "sum", out=c)
+
+        def lib():
+            torch.add(a, b, out=c)
+
         # one add per 12 bytes moved: bound by HBM bytes at every size
         nbytes = 3 * n * 4
-        bound = nbytes / PEAK_HBM_BYTES_S * 1e3
-        out[label] = dict(ms=kern, plain_ms=plain, library_ms=lib,
-                          bound_ms=bound, bound_by="bytes")
-        print(f"[k1] f32 sum n={n} ({nbytes // 3 / 2 ** 20:.0f} MiB each): "
-              f"kernel {kern:.4f} ms, plain {plain:.4f} ms, torch.add "
-              f"{lib:.4f} ms, bound {bound:.4f} ms (3 x n x 4 B at "
-              f"3.35 TB/s), kernel at {100 * bound / kern:.1f}% of bound, "
-              f"{nbytes / (kern * 1e-3) / 1e9:.1f} GB/s")
-    out["max_abs_err"] = tally["worst"]
+        st = out[label] = dict(
+            ms=time_ms(kern), library_ms=time_ms(lib),
+            plain_ms=time_ms(lambda: k1.fused_combine_plain(a, b, "sum",
+                                                            out=c)),
+            device_ms=device_ms(kern, 20),
+            library_device_ms=device_ms(lib, 20),
+            host_us=host_us(kern, 200), library_host_us=host_us(lib, 200),
+            bound_ms=nbytes / PEAK_HBM_BYTES_S * 1e3, bound_by="bytes")
+        print(f"[k1] f32 sum n={n} ({n * 4 / 2 ** 20:.0f} MiB each): kernel "
+              f"{st['ms']:.4f} ms by events, {st['device_ms']:.5f} ms device "
+              f"({100 * st['bound_ms'] / st['device_ms']:.1f}% of bound), "
+              f"{st['host_us']:.2f} us host; torch.add {st['library_ms']:.4f}"
+              f" / {st['library_device_ms']:.5f} ms / "
+              f"{st['library_host_us']:.2f} us; plain {st['plain_ms']:.4f} "
+              f"ms; bound {st['bound_ms']:.4f} ms (3 x n x 4 B at 3.35 TB/s)")
     return out
 
 
@@ -776,6 +870,14 @@ def _proj_views(lead, T, nkv, hd, dtype, gen, dev, misaligned=False):
     return kv
 
 
+def _row_views(b, nkv, hd, dtype, gen, dev, misaligned=False):
+    """(k, v) rows (b, kvh, hd) as the paged decode step hands them to
+    K10: ``k[:, 0]`` and ``v[:, 0]`` of one (b, 1, 3 * kvh * hd)
+    projection output (``_proj_views`` at T = 1)."""
+    return tuple(x[..., 0] for x in _proj_views((b,), 1, nkv, hd, dtype,
+                                                gen, dev, misaligned))
+
+
 def _same_repeats(fn, dsts, srcs, args, what, n=50) -> None:
     """``n`` launches of a pair write give the first launch's bits."""
     import torch
@@ -807,15 +909,8 @@ def _same_pair(fn_k, fn_p, dsts, srcs, args, what) -> None:
 def launched_kernels(fn) -> dict:
     """The CUDA kernels (and copies) one ``fn()`` call runs on the card,
     by name, with their counts (the profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {k: c for k, (c, _) in profiled(fn).items()}
 
 
 def host_us(fn, n: int = 1000, rounds: int = 3) -> float:
@@ -856,13 +951,18 @@ def _write_times(kernel, lib, path=None, path_lib=None) -> dict:
     return out
 
 
-def _one_launch(path, what) -> None:
-    """The caller's k/v pair write runs one block-write kernel and
-    nothing else (no copy of its source)."""
+def _one_launch(path, counted, kernel, what) -> None:
+    """The caller's pair write costs one launch of ``counted`` (its own
+    count, on the host: exact) and runs no other kernel and no copy of
+    its source on the card: the profiler sees ``kernel`` and nothing
+    else."""
+    before = counted.launches
+    path()
+    launched = counted.launches - before
+    check(launched == 1, f"{what}'s pair write took {launched} launches")
     ran = launched_kernels(path)
-    check(len(ran) == 1 and sum(ran.values()) == 1
-          and "write_block_kernel" in next(iter(ran)),
-          f"{what}'s k/v pair write ran {ran}, not one block-write launch")
+    check(all(kernel in k for k in ran),
+          f"{what}'s pair write ran {ran}, not {kernel} alone")
 
 
 def _print_write_times(name, shape, st, bound_what) -> None:
@@ -877,7 +977,7 @@ def _print_write_times(name, shape, st, bound_what) -> None:
         print(f"[{name.lower()}] the k/v pair through the caller (one "
               f"launch): {st['path_ms']:.4f} ms by events, "
               f"{st['path_device_ms']:.5f} ms device, {st['path_host_us']:.2f}"
-              f" us host; two sliced assignments from the same views "
+              f" us host; two assignments from the same views "
               f"{st['path_library_ms']:.4f} / "
               f"{st['path_library_device_ms']:.5f} ms / "
               f"{st['path_library_host_us']:.2f} us")
@@ -995,6 +1095,46 @@ def time_k11(dev, gen) -> dict:
             pool, kv[0], pg, o0, nv)),
         bound_ms=(2 * rows.numel() * 2 + 12) / PEAK_HBM_BYTES_S * 1e3,
         bound_by="bytes")
+    return st
+
+
+def time_k10(dev, gen) -> dict:
+    """K10 at the paged decode step's shape, bf16: rows (32, 16, 64) into
+    32 distinct pages of a pool of 289 pages of (16, 64, 128). The single
+    form from the decode step's ``k[:, 0]`` view of the projection and the
+    k/v pair through ``paged_write_rows``, each beside indexed assignment
+    from the same views. Calls only what the parent tree has too
+    (``--time-writes``)."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import paged as PG
+    P, b, ps = 289, 32, 128
+    entry = {x: torch.randn(P, 16, 64, ps, generator=gen,
+                            device=dev).to(torch.bfloat16) for x in "kv"}
+    kv = _row_views(b, 16, 64, torch.bfloat16, gen, dev)
+    page = (torch.randperm(P - 1, generator=gen, device=dev)[:b] + 1) \
+        .to(torch.int32)
+    off = torch.randint(0, ps, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pidx, oidx = page.long(), off.long()
+    pool = entry["k"]
+
+    def lib_view():
+        pool[pidx, :, :, oidx] = kv[0]
+
+    def lib_pair():
+        entry["k"][pidx, :, :, oidx] = kv[0]
+        entry["v"][pidx, :, :, oidx] = kv[1]
+
+    st = _write_times(
+        lambda: kd.write_kv_page_row(pool, kv[0], page, off), lib_view,
+        lambda: PG.paged_write_rows(entry, kv[0], kv[1], None, None, page,
+                                    off), lib_pair)
+    st.update(
+        plain_ms=time_ms(lambda: kd.write_kv_page_row_plain(pool, kv[0],
+                                                            page, off)),
+        bound_ms=(2 * kv[0].numel() * 2 + 2 * b * 4) / PEAK_HBM_BYTES_S
+        * 1e3, bound_by="bytes")
     return st
 
 
@@ -1122,7 +1262,8 @@ def phase_writes(dev) -> dict:
     kv = _proj_views((1,), 64, 16, 64, torch.bfloat16, gen, dev)
     p0 = torch.tensor(64, dtype=torch.int32, device=dev)
     _one_launch(lambda: G._write_block(lc, kv[0].transpose(2, 3),
-                                       kv[1].transpose(2, 3), p0), "K8")
+                                       kv[1].transpose(2, 3), p0),
+                kd.write_kv_block, "write_block_kernel", "K8")
     for name, shape, st, what in (
             ("K7", "row (32, 16, 64) into (32, 16, 64, 1088)", out["K7"],
              "rows read + bytes written"),
@@ -1366,45 +1507,73 @@ def phase_page_writes(dev) -> dict:
                          device=dev).to(torch.bfloat16) for _ in range(2)]
     _same_repeats(kd.write_kv_page_block, pools, kv, (6, 11, 100),
                   "K11 bf16 views pair")
+    # K10 from the decode step's views (16-byte loads along hd, and one
+    # element off: scalar loads) and from contiguous rows, single and pair
+    # form, at hd 1 (the scale pools' view), 16-128; per-row pages and
+    # lanes with the sentinels and two rows on one page; and one page
+    # shared by every row (0-d), each in its own lane
+    rows_page = page.clone()
+    rows_page[7] = rows_page[8]               # two rows on one page
+    rows_off = off.clone()
+    rows_off[7], rows_off[8] = 5, ps - 1
+    shared = (torch.tensor(P - 2, dtype=torch.int32, device=dev),
+              (torch.arange(b, device=dev) * 4 - 1).to(torch.int32))
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        for hd in (1, 16, 32, 64, 128):
+            if dtype == torch.int8:
+                pools = [torch.randint(-127, 128, (P, 16, hd, ps),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int8) for _ in range(2)]
+            else:
+                pools = [torch.randn(P, 16, hd, ps, generator=gen,
+                                     device=dev).to(dtype) for _ in range(2)]
+            for layout in ("view", "misaligned", "contiguous"):
+                kv = _row_views(b, 16, hd, dtype, gen, dev,
+                                layout == "misaligned")
+                if layout == "contiguous":
+                    kv = tuple(x.contiguous() for x in kv)
+                for pg, of in ((rows_page, rows_off), shared):
+                    what = (f"K10 {dtype} hd {hd} {layout} rows, "
+                            f"{'per-row pages' if pg.dim() else 'one page'}")
+                    same(lambda t: kd.write_kv_page_row(t, kv[0], pg, of),
+                         lambda t: kd.write_kv_page_row_plain(t, kv[0], pg,
+                                                              of),
+                         pools[0], what)
+                    _same_pair(kd.write_kv_page_row,
+                               kd.write_kv_page_row_plain, pools, kv,
+                               (pg, of), what + " pair")
+                    n += 1
+    kv = _row_views(b, 16, 64, torch.bfloat16, gen, dev)
+    pools = [torch.randn(P, 16, 64, ps, generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2)]
+    _same_repeats(kd.write_kv_page_row, pools, kv, (rows_page, rows_off),
+                  "K10 bf16 views pair")
     print(f"[k10/k11] {n} cases (bf16/int8/f32 pools of 289 pages x 16 kv "
           f"heads x 64 x 128 and f32 scale pools; off = ps, -1, a page past "
           f"the pool; chunks with pads, at the page edge, from a negative "
           f"start, off the 16-byte lanes, n_valid 0; K11 from the "
           f"projection's views at hd 16-128 (16-byte loads) and one element "
           f"off (scalar loads), single and k/v pair (one launch), and the "
-          f"int8 scale pair) bit-identical to the plain versions; the bf16 "
-          f"views pair 50 times over, the same bits")
+          f"int8 scale pair; K10 from the decode step's views at hd 1-128, "
+          f"one element off and contiguous, single and pair (one launch), "
+          f"two rows on one page, per-row pages and one shared) bit-identical "
+          f"to the plain versions; the bf16 views pairs 50 times over, the "
+          f"same bits")
 
-    out = {}
-    pool = torch.randn(P, 16, 64, ps, generator=gen,
-                       device=dev).to(torch.bfloat16)
-    row = torch.randn(b, 16, 64, generator=gen, device=dev) \
-        .to(torch.bfloat16)
-    page = (torch.randperm(P - 1, generator=gen, device=dev)[:b] + 1) \
-        .to(torch.int32)
-    off = torch.randint(0, ps, (b,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    pidx, oidx = page.long(), off.long()
-
-    def lib_row():
-        pool[pidx, :, :, oidx] = row
-
-    out["K10"] = dict(
-        _write_times(lambda: kd.write_kv_page_row(pool, row, page, off),
-                     lib_row),
-        plain_ms=time_ms(lambda: kd.write_kv_page_row_plain(pool, row, page,
-                                                            off)),
-        bound_ms=(2 * row.numel() * 2 + 2 * b * 4) / PEAK_HBM_BYTES_S * 1e3,
-        bound_by="bytes")
-    out["K11"] = time_k11(dev, gen)
-    entry = {"k": pool, "v": pools[0]}
+    out = {"K10": time_k10(dev, gen), "K11": time_k11(dev, gen)}
+    entry = {"k": pools[0], "v": pools[1]}
+    _one_launch(lambda: PG.paged_write_rows(entry, kv[0], kv[1], None, None,
+                                            rows_page, rows_off),
+                kd.write_kv_page_row, "write_page_row_kernel", "K10")
     kv = _proj_views((), ps, 16, 64, torch.bfloat16, gen, dev)
     pg, o0, nv = (torch.tensor([x], dtype=torch.int32, device=dev)
                   for x in (17, 0, ps))
     _one_launch(lambda: PG.paged_write_chunk(entry, kv[0], kv[1], None, None,
-                                             pg, o0, nv), "K11")
-    for name, shape, st in (("K10", "rows (32, 16, 64) into 289 pages of "
-                                    "(16, 64, 128)", out["K10"]),
+                                             pg, o0, nv),
+                kd.write_kv_page_block, "write_block_kernel", "K11")
+    for name, shape, st in (("K10", "rows (32, 16, 64) from the decode "
+                                    "step's view into 289 pages of (16, 64,"
+                                    " 128)", out["K10"]),
                             ("K11", "chunk (16, 64, 128) from the "
                                     "projection's view into one page",
                              out["K11"])):
@@ -2586,9 +2755,12 @@ def main() -> int:
     if sys.argv[1:] == ["--time-writes"]:
         from rlo_tpu_torch.kernels import build
         build.load("decode")
+        build.load("reduce")
         gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-        print(json.dumps({"K8": time_k8(dev, gen),
-                          "K11": time_k11(dev, gen)}))
+        times = {"K8": time_k8(dev, gen), "K10": time_k10(dev, gen),
+                 "K11": time_k11(dev, gen), "K1": time_k1(dev, gen, N_FULL)}
+        windows_line("time-writes")
+        print(json.dumps(times))
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     t0 = time.perf_counter()
@@ -2598,6 +2770,7 @@ def main() -> int:
     check_tensor_cores()
 
     k1_stats = phase_k1(dev, N_FULL)
+    windows_line("k1")
 
     torch.cuda.reset_peak_memory_stats()
     k1.fused_combine.launches = 0
@@ -2613,8 +2786,10 @@ def main() -> int:
     k2_stats = phase_k2(dev)
     k6_stats = phase_k6(dev)
     w_stats = phase_writes(dev)
+    windows_line("k7/k8")
     k9_stats = phase_k9(dev)
     pw_stats = phase_page_writes(dev)
+    windows_line("k10/k11")
     torch.cuda.empty_cache()
 
     counted = (k2.flash_block_update_hld, kd.flash_block_decode,
@@ -2641,6 +2816,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     k345_stats = phase_k345(dev)
+    windows_line("k3-k5")
     torch.cuda.empty_cache()
     # the VJP modes; K3's launches are those of its exact-mode chain
     vjp = phase_vjp(dev)
@@ -2664,8 +2840,7 @@ def main() -> int:
     del train["params"], train["grads"]
     torch.cuda.empty_cache()
 
-    print(json.dumps({"k1_ring_chunk": k1_stats["ring_chunk"],
-                      "facade_allreduce": facade, "serving": serving,
+    print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
                       "k9_int8": k9_stats["int8"], "vjp": vjp,
                       "training": train["stats"], "dp_combine": dp}))
@@ -2678,7 +2853,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
                      dict(k1_stats["256MB"],
-                          max_abs_err=k1_stats["max_abs_err"]), facade_p),
+                          max_abs_err=k1_stats["max_abs_err"]), facade_p,
+                     ring_chunk=k1_stats["ring_chunk"]),
         kernel_entry("K2 flash_block_update_hld", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:114",
                      served["flash_block_update_hld"], k2_stats["prefill"],
@@ -2700,7 +2876,7 @@ def main() -> int:
         kernel_entry("K10 write_kv_page_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:350",
                      paged_launches["write_kv_page_row"], pw_stats["K10"],
-                     paged_p),
+                     paged_p, launch_unit=PAIR_LAUNCH),
         kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:402",
                      paged_launches["write_kv_page_block"], pw_stats["K11"],

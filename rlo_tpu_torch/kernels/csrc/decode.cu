@@ -46,13 +46,29 @@
 // K7 replaces rlo_tpu/pallas/decode.py:_write_row_kernel (write_kv_row):
 // cache[b, :, :, pos_b] = row[b]; a position outside [0, L) matches no
 // column and its write is dropped, as on the TPU. pos is read on the device:
-// stride 0 (one shared position) or 1 (one per row). K10 replaces
-// _write_page_row_kernel (write_kv_page_row): row b lands at
+// stride 0 (one shared position) or 1 (one per row). Bound: the bytes
+// written (plus the rows read); one thread per element, element size 1, 2
+// or 4 bytes.
+//
+// K10 replaces _write_page_row_kernel (write_kv_page_row): row b lands at
 // pool[page_b, :, :, off_b], page clamped into [0, P-1]; an off outside
 // [0, ps) (the server's off = ps sentinel for inactive slots) drops the
-// write. Bound: the bytes written (plus the rows read); one thread per
-// element, element size 1, 2 or 4 bytes (the int8 scale sidecars ride as
-// hd = 1, element size 4).
+// write. Two rows on one page both land (the TPU kernel rereads a revisited
+// page as it was and keeps only the last row's write; the server never
+// lets two slots write one page). One launch writes up to two (pool, row)
+// pairs (k with v, or the int8 scale sidecars through their (P, kvh, 1, ps)
+// views, hd = 1), and reads each row in place through its strides: the
+// decode step passes k[:, 0] of the projection, hd contiguous and batch
+// rows 3 * d apart. A thread owns 16 bytes of one (pair, batch row, kv head)
+// row along hd: one 16-byte load where the view allows (hd contiguous, the
+// address aligned), else scalar loads, issued together with the loads of
+// page_b and off_b (nothing waits on those before the stores), then one
+// store per element, ps elements apart (the pool is seq-minor). A decode
+// step's write is 64 KB (bf16, 32 rows x 16 heads x 64): latency and the
+// scattered 2-byte stores, not bytes, bound it, so the design keeps to one
+// wave of one-warp blocks spread over the SMs, with no shared memory and no
+// barrier (write_block_kernel's transposing tile would leave 63 of its 64
+// token lanes idle at T = 1).
 //
 // K8 replaces _write_block_kernel (write_kv_block): cache[b, :, :, pos0_b + t]
 // = rows[b, :, :, t], t < T <= 128, columns outside [0, L) dropped. K11
@@ -384,22 +400,56 @@ __global__ void write_row_kernel(E* cache, const E* row, const int* pos, int b,
   }
 }
 
-// K10 row copies into a (P, inner, ps) pool, by element size
+// K10: one launch writes up to two (pool, row) pairs of one row per batch row.
+// A block is one warp, so that a decode step's scattered stores spread over
+// every SM (blocks of 128 threads kept them on 32 SMs and ran slower).
+constexpr int kRThreads = 32;
+
+struct PageRowWrite {
+  void* dst[2];                   // (P, H, D, ps) contiguous
+  const void* src[2];             // element (bi, h, d) at
+  long long sb[2], sh[2], sd[2];  //   bi*sb + h*sh + d*sd
+  const int* page;                // page[bi * page_stride], clamped
+  const int* off;                 // off[bi * off_stride], kept in [0, ps)
+  int page_stride, off_stride;
+  int nb, H, D, P, ps, n_chunks;  // n_chunks: 16-byte chunks of a row
+};
+
 template <typename E>
-__global__ void write_page_row_kernel(E* pool, const E* row, const int* page,
-                                      const int* off, int b, int inner, int P,
-                                      int ps) {
-  int64_t n = (int64_t)b * inner;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    int bi = (int)(i / inner);
-    int o = off[bi];
-    if (o < 0 || o >= ps) continue;
-    int pg = page[bi];
-    pg = pg < 0 ? 0 : (pg >= P ? P - 1 : pg);
-    int64_t e = i - (int64_t)bi * inner;
-    pool[((int64_t)pg * inner + e) * ps + o] = row[i];
+__global__ void __launch_bounds__(kRThreads)
+write_page_row_kernel(PageRowWrite a) {
+  constexpr int VEC = 16 / (int)sizeof(E);
+  // the pair by selects, not a run-time index into the parameters (which
+  // would copy them to local memory)
+  const bool second = blockIdx.y != 0;
+  const int i = blockIdx.x * kRThreads + threadIdx.x;
+  const int per_b = a.H * a.n_chunks;
+  if (i >= a.nb * per_b) return;
+  const int bi = i / per_b, h = (i % per_b) / a.n_chunks;
+  const int d0 = (i % a.n_chunks) * VEC;
+  const int nd = a.D - d0 < VEC ? a.D - d0 : VEC;
+  const int o = __ldg(a.off + (long long)bi * a.off_stride);
+  int pg = __ldg(a.page + (long long)bi * a.page_stride);
+  const long long sd = second ? a.sd[1] : a.sd[0];
+  const E* src = static_cast<const E*>(second ? a.src[1] : a.src[0]) +
+                 bi * (second ? a.sb[1] : a.sb[0]) +
+                 h * (second ? a.sh[1] : a.sh[0]) + d0 * sd;
+  uint4 x;
+  E* e = reinterpret_cast<E*>(&x);
+  if (nd == VEC && sd == 1 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    x = __ldg(reinterpret_cast<const uint4*>(src));
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      if (j < nd) e[j] = __ldg(src + j * sd);
   }
+  if (o < 0 || o >= a.ps) return;
+  pg = pg < 0 ? 0 : (pg >= a.P ? a.P - 1 : pg);
+  E* out = static_cast<E*>(second ? a.dst[1] : a.dst[0]) +
+           (((long long)pg * a.H + h) * a.D + d0) * a.ps + o;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (j < nd) out[(long long)j * a.ps] = e[j];
 }
 
 // K8 / K11: one launch writes up to two (dst, src) pairs of T columns.
@@ -550,13 +600,25 @@ int launch_write_row(void* cache, const void* row, const int* pos, int b,
 }
 
 template <typename E>
-int launch_page_row(void* pool, const void* row, const int* page,
-                    const int* off, int b, int inner, int P, int ps,
-                    cudaStream_t s) {
-  write_page_row_kernel<E><<<grid_for((int64_t)b * inner), 256, 0, s>>>(
-      static_cast<E*>(pool), static_cast<const E*>(row), page, off, b, inner,
-      P, ps);
+int launch_page_row(PageRowWrite& a, int pairs, cudaStream_t s) {
+  a.n_chunks = (a.D + 16 / (int)sizeof(E) - 1) / (16 / (int)sizeof(E));
+  const long long n = (long long)a.nb * a.H * a.n_chunks;
+  if (n > 0x7fffffffLL - kRThreads) return -1;
+  dim3 grid((unsigned)((n + kRThreads - 1) / kRThreads), pairs);
+  write_page_row_kernel<E><<<grid, kRThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Whether two (dst, src) pairs alias: a destination of dn bytes overlapping
+// the other destination or the other pair's source [s, s_end).
+bool pairs_alias(uint64_t dst0, uint64_t dst1, uint64_t dn, uint64_t src0,
+                 uint64_t src0_end, uint64_t src1, uint64_t src1_end) {
+  auto overlap = [](uint64_t a0, uint64_t a1, uint64_t b0, uint64_t b1) {
+    return a0 < b1 && b0 < a1;
+  };
+  return overlap(dst0, dst0 + dn, dst1, dst1 + dn) ||
+         overlap(dst0, dst0 + dn, src1, src1_end) ||
+         overlap(dst1, dst1 + dn, src0, src0_end);
 }
 
 template <typename E>
@@ -629,20 +691,50 @@ extern "C" int rlo_write_kv_row(void* cache, const void* row, const void* pos,
   return -1;
 }
 
-// K10. pool (P, inner, ps), row (b, inner), page and off (b,) int32.
-extern "C" int rlo_write_kv_page_row(void* pool, const void* row,
-                                     const void* page, const void* off, int b,
-                                     int inner, int P, int ps, int elem_size,
-                                     void* stream) {
-  if (b <= 0 || inner <= 0) return 0;
-  if (P <= 0 || ps <= 0) return -1;
+// K10: up to two (pool, row) pairs (dst1 null: one pair), one launch,
+// described by one parameter block. pool (P, H, D, ps) contiguous; row
+// element (bi, h, d) at bi*sb + h*sh + d*sd elements from its pointer,
+// bi < nb; row bi lands in lane off[bi * off_stride] of page
+// page[bi * page_stride] (clamped into [0, P-1]) when that lane lies in
+// [0, ps). Returns -2 when the two pairs alias.
+struct PageRowParams {
+  uint64_t dst0, src0, dst1, src1;
+  int64_t sb0, sh0, sd0, sb1, sh1, sd1;
+  uint64_t page, off;
+  int32_t page_stride, off_stride, nb, H, D, P, ps, elem_size;
+};
+static_assert(sizeof(PageRowParams) == 128, "packed as <4Q6q2Q8i");
+
+extern "C" int rlo_write_kv_page_rows(const void* params, void* stream) {
+  PageRowParams p;
+  memcpy(&p, params, sizeof p);
+  if (p.nb <= 0 || p.H <= 0 || p.D <= 0) return 0;
+  if (p.P <= 0 || p.ps <= 0 || !p.dst0 || !p.src0 || !p.page || !p.off ||
+      (!p.dst1) != (!p.src1))
+    return -1;
+  if (p.dst1) {
+    auto end = [&](uint64_t s, int64_t sb, int64_t sh, int64_t sd) {
+      return s + (uint64_t)(1 + (p.nb - 1) * sb + (p.H - 1) * sh +
+                            (p.D - 1) * sd) * p.elem_size;
+    };
+    if (pairs_alias(p.dst0, p.dst1,
+                    (uint64_t)p.P * p.H * p.D * p.ps * p.elem_size, p.src0,
+                    end(p.src0, p.sb0, p.sh0, p.sd0), p.src1,
+                    end(p.src1, p.sb1, p.sh1, p.sd1)))
+      return -2;
+  }
+  auto ptr = [](uint64_t x) { return reinterpret_cast<void*>(x); };
+  PageRowWrite a{{ptr(p.dst0), ptr(p.dst1)}, {ptr(p.src0), ptr(p.src1)},
+                 {p.sb0, p.sb1}, {p.sh0, p.sh1}, {p.sd0, p.sd1},
+                 static_cast<const int*>(ptr(p.page)),
+                 static_cast<const int*>(ptr(p.off)), p.page_stride,
+                 p.off_stride, p.nb, p.H, p.D, p.P, p.ps, 0};
+  const int pairs = p.dst1 ? 2 : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto pg = static_cast<const int*>(page);
-  auto of = static_cast<const int*>(off);
-  switch (elem_size) {
-    case 1: return launch_page_row<uint8_t>(pool, row, pg, of, b, inner, P, ps, s);
-    case 2: return launch_page_row<uint16_t>(pool, row, pg, of, b, inner, P, ps, s);
-    case 4: return launch_page_row<uint32_t>(pool, row, pg, of, b, inner, P, ps, s);
+  switch (p.elem_size) {
+    case 1: return launch_page_row<uint8_t>(a, pairs, s);
+    case 2: return launch_page_row<uint16_t>(a, pairs, s);
+    case 4: return launch_page_row<uint32_t>(a, pairs, s);
   }
   return -1;
 }
@@ -672,20 +764,15 @@ extern "C" int rlo_write_kv_block_cols(const void* params, void* stream) {
       (!p.dst1) != (!p.src1) || (long long)p.nb * p.H > 65535)
     return -1;
   if (p.dst1) {
-    const uint64_t dn = (uint64_t)p.nrow * p.H * p.D * p.Lc * p.elem_size;
-    auto src_end = [&](uint64_t s, int64_t sb, int64_t sh, int64_t sd,
-                       int64_t st) {
+    auto end = [&](uint64_t s, int64_t sb, int64_t sh, int64_t sd,
+                   int64_t st) {
       return s + (uint64_t)(1 + (p.nb - 1) * sb + (p.H - 1) * sh +
                             (p.D - 1) * sd + (p.T - 1) * st) * p.elem_size;
     };
-    auto overlap = [](uint64_t a0, uint64_t a1, uint64_t b0, uint64_t b1) {
-      return a0 < b1 && b0 < a1;
-    };
-    if (overlap(p.dst0, p.dst0 + dn, p.dst1, p.dst1 + dn) ||
-        overlap(p.dst0, p.dst0 + dn, p.src1,
-                src_end(p.src1, p.sb1, p.sh1, p.sd1, p.st1)) ||
-        overlap(p.dst1, p.dst1 + dn, p.src0,
-                src_end(p.src0, p.sb0, p.sh0, p.sd0, p.st0)))
+    if (pairs_alias(p.dst0, p.dst1,
+                    (uint64_t)p.nrow * p.H * p.D * p.Lc * p.elem_size, p.src0,
+                    end(p.src0, p.sb0, p.sh0, p.sd0, p.st0), p.src1,
+                    end(p.src1, p.sb1, p.sh1, p.sd1, p.st1)))
       return -2;
   }
   auto ptr = [](uint64_t x) { return reinterpret_cast<void*>(x); };

@@ -21,14 +21,21 @@
 // the card's compute rate; the least time is those bytes over the peak
 // HBM bandwidth (3.35 TB/s on an H100 SXM). The design aims at that bound
 // and nothing else: 16-byte vector loads and stores (LDG.128/STG.128) when
-// all three pointers are 16-byte aligned, a grid-stride loop over enough
-// blocks to fill every SM several times, no shared memory, and a scalar
-// tail. Unaligned views (a ring chunk at an odd offset) take the scalar
-// path.
+// all three pointers are 16-byte aligned, kUnroll vectors of a and of b
+// loaded by each thread before its first store (enough bytes in flight
+// per SM to cover HBM's latency; with one pair a thread the kernel ran at
+// about 80 % of the bound), a grid that covers the work with one loop
+// step a block up to a cap from the SM count (read once, at the first
+// launch), a grid-stride loop beyond it, no shared memory, and a
+// scalar tail. Unaligned views (a ring chunk at an odd offset) take the
+// scalar path. A route through shared memory with TMA bulk copies was not
+// taken: the data needs no reuse or transposition, and plain 16-byte loads
+// already keep the memory system busy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -113,21 +120,39 @@ __device__ __forceinline__ uint4 combine_vec(uint4 a, uint4 b) {
   return r;
 }
 
+constexpr int kThreads = 256;
+// 16-byte vectors of a (and of b) a thread loads before its stores
+constexpr int kUnroll = 4;
+
 template <int OP, int DT>
-__global__ void combine_vec_kernel(const uint4* a,
-                                   const uint4* __restrict__ b,
-                                   uint4* out, int64_t nvec,
-                                   const typename Elem<OP, DT>::T* a_tail,
-                                   const typename Elem<OP, DT>::T* b_tail,
-                                   typename Elem<OP, DT>::T* out_tail,
-                                   int64_t ntail) {
-  // a and out may alias, so neither is __restrict__
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int64_t v = i; v < nvec; v += stride)
-    out[v] = combine_vec<OP, DT>(a[v], b[v]);
-  for (int64_t t = i; t < ntail; t += stride)
-    out_tail[t] = Elem<OP, DT>::f(a_tail[t], b_tail[t]);
+__global__ void __launch_bounds__(kThreads)
+combine_vec_kernel(const uint4* a, const uint4* __restrict__ b, uint4* out,
+                   int64_t nvec, const typename Elem<OP, DT>::T* a_tail,
+                   const typename Elem<OP, DT>::T* b_tail,
+                   typename Elem<OP, DT>::T* out_tail, int64_t ntail) {
+  // a and out may alias, so neither is __restrict__ and a is not read
+  // through the read-only path; all of a thread's loads of a step precede
+  // its stores, and no element is touched by two threads
+  const int64_t step = (int64_t)gridDim.x * kThreads * kUnroll;
+  for (int64_t v0 = (int64_t)blockIdx.x * kThreads * kUnroll + threadIdx.x;
+       v0 < nvec; v0 += step) {
+    uint4 x[kUnroll], y[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + u * kThreads;
+      if (v < nvec) {
+        x[u] = a[v];
+        y[u] = __ldg(b + v);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + u * kThreads;
+      if (v < nvec) out[v] = combine_vec<OP, DT>(x[u], y[u]);
+    }
+  }
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (t < ntail) out_tail[t] = Elem<OP, DT>::f(a_tail[t], b_tail[t]);
 }
 
 template <int OP, int DT>
@@ -141,16 +166,27 @@ __global__ void combine_scalar_kernel(const typename Elem<OP, DT>::T* a,
     out[i] = Elem<OP, DT>::f(a[i], b[i]);
 }
 
-constexpr int kThreads = 256;
+int sm_count() {
+  // read once, at the first launch (C++ makes the first call's
+  // initialisation thread-safe); no attribute query on later launches
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
 
-int grid_for(int64_t work) {
-  // enough blocks to cover the work once, capped at a few waves of the
-  // card's SMs; the grid-stride loop covers the rest
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  int64_t cap = (int64_t)sms * 8;
+int grid_for(int64_t work, int per_thread) {
+  // enough blocks to cover the work once, so that a block takes one step
+  // of its loop and the block scheduler evens out the last wave (one step
+  // a block up to 1 GB an operand on 132 SMs); the grid-stride loop covers
+  // the rest. A cap of a wave or two left a partial last wave of
+  // long-running blocks, slower than one step a block.
+  const int64_t per_block = (int64_t)kThreads * per_thread;
+  int64_t blocks = (work + per_block - 1) / per_block;
+  const int64_t cap = (int64_t)sm_count() * 256;
   if (blocks > cap) blocks = cap;
   return blocks < 1 ? 1 : (int)blocks;
 }
@@ -170,13 +206,14 @@ int launch(const void* a, const void* b, void* out, int64_t n,
     int64_t nvec = n / per;
     int64_t done = nvec * per;
     int64_t ntail = n - done;
-    combine_vec_kernel<OP, DT><<<grid_for(nvec > ntail ? nvec : ntail),
-                                 kThreads, 0, stream>>>(
+    // the tail (< 16 bytes) takes the first threads of the first block
+    combine_vec_kernel<OP, DT><<<grid_for(nvec, kUnroll), kThreads, 0,
+                                 stream>>>(
         reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b),
         reinterpret_cast<uint4*>(out), nvec, ta + done, tb + done,
         to + done, ntail);
   } else {
-    combine_scalar_kernel<OP, DT><<<grid_for(n), kThreads, 0, stream>>>(
+    combine_scalar_kernel<OP, DT><<<grid_for(n, 1), kThreads, 0, stream>>>(
         ta, tb, to, n);
   }
   return (int)cudaGetLastError();
@@ -195,25 +232,38 @@ int dispatch_float_op(int op, const void* a, const void* b, void* out,
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. Returns the cudaGetLastError()
-// code after the launch (0 = cudaSuccess), or -1 for an op/dtype pair the
-// kernel does not take. n is the element count of dtype; for DT_BYTES it
-// is the byte count. Launches on `stream`, does not synchronise, and
-// allocates nothing.
-extern "C" int rlo_fused_combine(int op, int dtype, const void* a,
-                                 const void* b, void* out, int64_t n,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Plain C interface, loaded with ctypes: one parameter block, packed on the
+// host in one step (a ctypes call's cost grows with its argument count).
+// Returns the cudaGetLastError() code after the launch (0 = cudaSuccess), or
+// -1 for an op/dtype pair the kernel does not take. n is the element count
+// of dtype; for DT_BYTES it is the byte count. Launches on `stream`, does
+// not synchronise, and allocates nothing.
+struct CombineParams {
+  uint64_t a, b, out;
+  int64_t n;
+  uint64_t stream;
+  int32_t op, dtype;
+};
+static_assert(sizeof(CombineParams) == 48, "packed as <5Q2i");
+
+extern "C" int rlo_fused_combine(const void* params) {
+  CombineParams p;
+  memcpy(&p, params, sizeof p);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(p.stream);
+  const void* a = reinterpret_cast<const void*>(p.a);
+  const void* b = reinterpret_cast<const void*>(p.b);
+  void* out = reinterpret_cast<void*>(p.out);
+  const int64_t n = p.n;
   if (n <= 0) return 0;
-  if (dtype == DT_BYTES) {
-    if (op == OP_AND) return launch<OP_AND, DT_BYTES>(a, b, out, n, s);
-    if (op == OP_OR) return launch<OP_OR, DT_BYTES>(a, b, out, n, s);
+  if (p.dtype == DT_BYTES) {
+    if (p.op == OP_AND) return launch<OP_AND, DT_BYTES>(a, b, out, n, s);
+    if (p.op == OP_OR) return launch<OP_OR, DT_BYTES>(a, b, out, n, s);
     return -1;
   }
-  switch (dtype) {
-    case DT_F32: return dispatch_float_op<DT_F32>(op, a, b, out, n, s);
-    case DT_BF16: return dispatch_float_op<DT_BF16>(op, a, b, out, n, s);
-    case DT_I32: return dispatch_float_op<DT_I32>(op, a, b, out, n, s);
+  switch (p.dtype) {
+    case DT_F32: return dispatch_float_op<DT_F32>(p.op, a, b, out, n, s);
+    case DT_BF16: return dispatch_float_op<DT_BF16>(p.op, a, b, out, n, s);
+    case DT_I32: return dispatch_float_op<DT_I32>(p.op, a, b, out, n, s);
   }
   return -1;
 }

@@ -15,15 +15,16 @@ The port of ``rlo_tpu/pallas/decode.py``'s kernels:
   - ``paged_flash_decode`` (Pallas ``_paged_decode_kernel``): K6 through
     a page table over pools (P, kv_heads, head_dim, page_size);
   - ``write_kv_page_row`` (Pallas ``_write_page_row_kernel``): one row per
-    batch row into lane ``off_b`` of page ``page_b``;
+    batch row into lane ``off_b`` of page ``page_b``, up to two (pool, row)
+    pairs in one launch;
   - ``write_kv_page_block`` (Pallas ``_write_page_block_kernel``): one
     prefill chunk of T <= page_size tokens into one page, up to two (pool,
     rows) pairs in one launch.
 
-K8 and K11 read their rows in place through the rows' strides (the
+K8, K10 and K11 read their rows in place through the rows' strides (the
 callers pass the projection's (.., T, kv_heads, head_dim) output as a
-permuted view; only a dtype other than the cache's is converted first),
-and a k/v pair (or the int8 scale pair) costs one launch.
+view; only a dtype other than the cache's is converted first), and a k/v
+pair (or the int8 scale pair) costs one launch.
 
 Each launches its CUDA kernel in ``csrc/decode.cu`` for CUDA tensors and
 takes its ``*_plain`` twin only for CPU tensors. Layouts are the JAX
@@ -648,51 +649,79 @@ def _scalar_i32(x, device) -> torch.Tensor:
     return x.reshape(1).to(device=device, dtype=torch.int32)
 
 
-def write_kv_page_row_plain(pool, row, page, off):
-    """Plain version of K10: ``pool[page_b, :, :, off_b] = row[b]`` in
-    place, page clamped into [0, P - 1], rows whose off lies outside
-    [0, ps) dropped."""
+def _check_page_row(pool, row, pool2, row2) -> int:
+    """K10's shapes (and the pair's); returns b."""
     P, nkv, d, ps = pool.shape
     b = row.shape[0] if row.dim() == 3 else -1
-    _check_write(pool, row, (b, nkv, d), "write_kv_page_row",
-                 _POOL)
+    _check_write(pool, row, (b, nkv, d), "write_kv_page_row", _POOL)
+    _check_pair("write_kv_page_row", pool, row, pool2, row2)
+    return b
+
+
+def write_kv_page_row_plain(pool, row, page, off, pool2=None, row2=None):
+    """Plain version of K10: ``pool[page_b, :, :, off_b] = row[b]`` in
+    place, page clamped into [0, P - 1], rows whose off lies outside
+    [0, ps) dropped; the same for (``pool2``, ``row2``) when given."""
+    b = _check_page_row(pool, row, pool2, row2)
+    _check_alias("write_kv_page_row", pool, row, pool2, row2)
+    P, ps = pool.shape[0], pool.shape[3]
     pg = _pos_vector(page, b, pool.device).expand(b).long().clamp(0, P - 1)
     of = _pos_vector(off, b, pool.device).expand(b).long()
     idx = torch.nonzero((of >= 0) & (of < ps)).flatten()
     if idx.numel():
-        pool[pg[idx], :, :, of[idx]] = row[idx].to(pool.dtype)
+        for p, r in _pairs(pool, row, pool2, row2):
+            p[pg[idx], :, :, of[idx]] = r[idx].to(p.dtype)
     return pool
 
 
-def write_kv_page_row(pool, row, page, off):
-    """K10: write ``row`` (b, kvh, hd) into lane ``off_b`` of page
-    ``page_b`` of ``pool`` (P, kvh, hd, ps) in place and return the pool;
-    ``page``/``off`` are (b,) int32 (or one shared value). CPU tensors
+#: the parameter block of ``rlo_write_kv_page_rows`` (csrc/decode.cu):
+#: dst0, src0, dst1, src1; the two rows' (batch, head, d) strides; page,
+#: off; page_stride, off_stride, nb, H, D, P, ps, element size
+_PAGE_ROW_PARAMS = struct.Struct("<4Q6q2Q8i")
+
+
+def write_kv_page_row(pool, row, page, off, pool2=None, row2=None):
+    """K10: write ``row`` (b, kvh, hd), any strides, into lane ``off_b``
+    of page ``page_b`` of ``pool`` (P, kvh, hd, ps) in place and return the
+    pool; ``page``/``off`` are (b,) int32 (or one shared value), read on
+    the device. ``pool2``/``row2`` (the same shapes and dtype, aliasing
+    neither of the first pair) are written by the same launch. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
-    P, nkv, d, ps = pool.shape
-    b = row.shape[0] if row.dim() == 3 else -1
-    _check_write(pool, row, (b, nkv, d), "write_kv_page_row",
-                 _POOL)
+    b = _check_page_row(pool, row, pool2, row2)
     if _on("write_kv_page_row", pool):
-        return write_kv_page_row_plain(pool, row, page, off)
-    if not pool.is_contiguous():
-        raise ValueError("K10 needs a contiguous pool")
-    dev = pool.device
-    row = row.to(pool.dtype).contiguous()
-    page = _pos_vector(page, b, dev).expand(b).contiguous()
-    off = _pos_vector(off, b, dev).expand(b).contiguous()
+        return write_kv_page_row_plain(pool, row, page, off, pool2, row2)
+    if not pool.is_contiguous() or not (pool2 is None
+                                        or pool2.is_contiguous()):
+        raise ValueError("K10 needs contiguous pools")
     if row.numel() == 0:
         return pool
-    fn = _lib_fn("rlo_write_kv_page_row",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(pool.data_ptr(), row.data_ptr(), page.data_ptr(),
-                off.data_ptr(), b, nkv * d, P, ps, pool.element_size(),
-                _stream(dev))
+    if row.dtype != pool.dtype:
+        row = row.to(pool.dtype)
+    p1, s1 = (0, 0), (0, 0, 0)
+    if pool2 is not None:
+        if row2.dtype != pool.dtype:
+            row2 = row2.to(pool.dtype)
+        p1, s1 = (pool2.data_ptr(), row2.data_ptr()), row2.stride()
+    dev = pool.device
+    page, off = _pos_vector(page, b, dev), _pos_vector(off, b, dev)
+    P, nkv, d, ps = pool.shape
+    params = _PAGE_ROW_PARAMS.pack(
+        pool.data_ptr(), row.data_ptr(), *p1, *row.stride(), *s1,
+        page.data_ptr(), off.data_ptr(), page.stride(0) if page.dim() else 0,
+        off.stride(0) if off.dim() else 0, b, nkv, d, P, ps,
+        pool.element_size())
+    fn = _lib_fn("rlo_write_kv_page_rows", _BLOCK_ARGTYPES)
+    index = dev.index
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(params, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(params, _stream(index))
+    if rc == -2:
+        raise _alias_error("write_kv_page_row")
     if rc != 0:
         raise RuntimeError(f"K10 page-row write launch failed: CUDA error "
-                           f"{rc}")
+                           f"{rc} ({b} x {nkv} x {d}, {pool.dtype})")
     _count(write_kv_page_row)
     return pool
 

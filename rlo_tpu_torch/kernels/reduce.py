@@ -20,6 +20,7 @@ every integer dtype for and/or.
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 from typing import Optional
 
@@ -28,6 +29,8 @@ import torch
 #: the ops K1 combines, in the order of csrc/reduce.cu's op codes
 OPS = ("sum", "min", "max", "and", "or")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}
+#: op codes from here on are bitwise (and, or)
+_BITWISE = _OP_CODE["and"]
 # dtype codes of csrc/reduce.cu; 0 = bytes (and/or on any integer dtype)
 _DT_CODE = {torch.float32: 1, torch.bfloat16: 2, torch.int32: 3}
 _INT_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16,
@@ -60,15 +63,24 @@ def fused_combine_plain(a: torch.Tensor, b: torch.Tensor, op: str = "sum",
 def _check(a, b, op, out) -> None:
     if op not in _OP_CODE:
         raise ValueError(f"unknown op {op!r}")
-    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+    shape = a.shape
+    if (shape != b.shape or a.dtype != b.dtype or a.is_cuda != b.is_cuda
+            or a.get_device() != b.get_device()):
         raise ValueError(f"operand mismatch: {tuple(a.shape)}/{a.dtype}/"
                          f"{a.device} vs {tuple(b.shape)}/{b.dtype}/"
                          f"{b.device}")
     if op in ("and", "or") and a.dtype not in _INT_DTYPES:
         raise TypeError(f"op {op!r} needs an integer dtype, got {a.dtype}")
-    if out is not None and (out.shape != a.shape or out.dtype != a.dtype
-                            or out.device != a.device):
+    if out is not None and out is not a and (
+            out.shape != shape or out.dtype != a.dtype
+            or out.is_cuda != a.is_cuda
+            or out.get_device() != a.get_device()):
         raise ValueError("out must match a in shape, dtype and device")
+
+
+#: the parameter block of ``rlo_fused_combine`` (csrc/reduce.cu): a, b,
+#: out, n, stream, op, dtype (one ctypes argument, packed in one step)
+_PARAMS = struct.Struct("<5Q2i")
 
 
 def _kernel():
@@ -76,9 +88,7 @@ def _kernel():
     if _fn is None:
         from rlo_tpu_torch.kernels import build
         f = build.load("reduce").rlo_fused_combine
-        f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_void_p]
+        f.argtypes = [ctypes.c_char_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -90,30 +100,42 @@ def fused_combine(a: torch.Tensor, b: torch.Tensor, op: str = "sum",
     ``a`` itself (the accumulate path). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     _check(a, b, op, out)
-    if a.device.type == "cpu":
+    if not a.is_cuda:
+        if a.device.type != "cpu":
+            raise ValueError(f"fused_combine runs on cpu or cuda, not "
+                             f"{a.device}")
         return fused_combine_plain(a, b, op, out)
-    if a.device.type != "cuda":
-        raise ValueError(f"fused_combine runs on cpu or cuda, not "
-                         f"{a.device}")
-    for name, t in (("a", a), ("b", b), ("out", out)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"fused_combine needs contiguous tensors "
-                             f"({name} is not)")
-    if op in ("and", "or"):
+    if not (a.is_contiguous() and b.is_contiguous()
+            and (out is None or out is a or out.is_contiguous())):
+        name = next(n for n, t in (("a", a), ("b", b), ("out", out))
+                    if not t.is_contiguous())
+        raise ValueError(f"fused_combine needs contiguous tensors "
+                         f"({name} is not)")
+    code = _OP_CODE[op]
+    if code >= _BITWISE:
         dt, n = 0, a.numel() * a.element_size()
     else:
-        if a.dtype not in _DT_CODE:
+        dt = _DT_CODE.get(a.dtype)
+        if dt is None:
             raise TypeError(f"the CUDA kernel takes float32, bfloat16 and "
                             f"int32 for {op!r}, not {a.dtype}")
-        dt, n = _DT_CODE[a.dtype], a.numel()
+        n = a.numel()
     if out is None:
         out = torch.empty_like(a)
     if n == 0:
         return out
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _kernel()(_OP_CODE[op], dt, a.data_ptr(), b.data_ptr(),
-                       out.data_ptr(), n, stream)
+    fn = _fn or _kernel()
+    index = a.get_device()
+    # the raw handle of the current stream (no Stream object), and no
+    # device switch when the tensors' device is already the current one
+    params = _PARAMS.pack(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                          torch._C._cuda_getCurrentRawStream(index), code,
+                          dt)
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(params)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(params)
     if rc != 0:
         raise RuntimeError(f"fused_combine kernel launch failed: CUDA "
                            f"error {rc} (op={op}, dtype={a.dtype}, n={n})")

@@ -117,16 +117,16 @@ def paged_write_rows(entry, k_row, v_row, ks_new, vs_new, page, off):
     (K10): ``page``/``off`` (b,) int32, row b lands at [page_b, :, :,
     off_b]; an off outside [0, page_size) (the server's ``page_size``
     sentinel for inactive slots) drops the write. Slots never share a
-    writable page (the copy-on-write invariant). Returns ``entry``."""
-    write_kv_page_row(entry["k"], k_row, page, off)
-    write_kv_page_row(entry["v"], v_row, page, off)
+    writable page (the copy-on-write invariant). The rows may be views
+    (the decode step's ``k[:, 0]`` of the projection, read in place); k
+    with v, and the scales, each take one launch. Returns ``entry``."""
+    write_kv_page_row(entry["k"], k_row, page, off, entry["v"], v_row)
     if ks_new is not None:
         # the scale pools (P, kvh, ps) ride the same kernel through their
         # (P, kvh, 1, ps) view
         write_kv_page_row(entry["ks"][:, :, None, :], ks_new[:, :, None],
-                          page, off)
-        write_kv_page_row(entry["vs"][:, :, None, :], vs_new[:, :, None],
-                          page, off)
+                          page, off, entry["vs"][:, :, None, :],
+                          vs_new[:, :, None])
     return entry
 
 

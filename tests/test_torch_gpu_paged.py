@@ -193,3 +193,87 @@ def test_page_block_write_repeats_the_same_bits_on_card(cuda):
         assert _same(a, first[0]) and _same(a2, first[1])
     with pytest.raises(ValueError, match="alias"):
         kd.write_kv_page_block(pool, rows, *args, pool, rows2)
+
+
+def _row_rows(b, nkv, hd, kind, rng, dev, layout):
+    """(b, kvh, hd) rows in ``layout`` (see ``LAYOUTS``): the decode step's
+    ``k[:, 0]`` of the k slice of a (b, 1, 3 * kvh * hd) projection output
+    (hd contiguous, 16-byte aligned: the kernel's 16-byte loads), that
+    slice one element off (scalar loads), or a contiguous copy."""
+    w = nkv * hd
+    pad = 1 if layout == "misaligned" else 0
+    t = _on(_values((b, 1, 3 * w + pad), kind, rng), dev, kind)
+    view = t[..., w + pad:2 * w + pad].reshape(b, 1, nkv, hd)[:, 0]
+    return view.contiguous() if layout == "contiguous" else view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [1, 16, 32, 64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_page_row_write_kernel_matches_plain_on_card(cuda, kind, hd, layout):
+    """K10, single and pair form, bit for bit against its plain version:
+    element sizes 4/2/1, hd 16-128 and the scale pools' hd = 1 view, rows
+    as the decode step's views or not; lanes at both page edges, off = ps
+    and off = -1 (dropped), a page past the pool (clamped), two rows on one
+    page (both land), shared and per-row page/off. A pair costs one
+    launch."""
+    rng = np.random.default_rng(100 + hd)
+    P, nkv, ps, b = 7, 2, 128, 6
+    pool = _chunk_pool(P, nkv, hd, ps, kind, rng, cuda)
+    pool2 = _chunk_pool(P, nkv, hd, ps, kind, rng, cuda)
+    vec = torch.tensor
+    # rows 3 and 4 share page 2; row 2's page clamps to P - 1 = 6, whose
+    # own row writes nothing (off = ps); one page shared by every row (0-d),
+    # each in its own lane; one lane shared by rows on distinct pages
+    for page, off in ((vec([1, 5, P + 3, 2, 2, 6]), vec([0, 127, 4, 9, 10,
+                                                          ps])),
+                      (vec([3, 0, 4, 6, 1, 2]), vec([-1, 64, 1, 2, 3, 5])),
+                      (vec(4), vec([0, 3, 17, 64, 100, 127])),
+                      (vec([1, 2, 3, 4, 5, 6]), vec(77))):
+        page, off = (x.to(torch.int32).to(cuda) for x in (page, off))
+        row = _row_rows(b, nkv, hd, kind, rng, cuda, layout)
+        row2 = _row_rows(b, nkv, hd, kind, rng, cuda, layout)
+        a, c = pool.clone(), pool.clone()
+        kd.write_kv_page_row(a, row, page, off)
+        kd.write_kv_page_row_plain(c, row, page, off)
+        torch.cuda.synchronize()
+        assert _same(a, c), (page, off, "single")
+        a2, c2 = pool2.clone(), pool2.clone()
+        before = kd.write_kv_page_row.launches
+        kd.write_kv_page_row(a, row, page, off, a2, row2)
+        assert kd.write_kv_page_row.launches == before + 1
+        kd.write_kv_page_row_plain(c, row, page, off, c2, row2)
+        torch.cuda.synchronize()
+        assert _same(a, c) and _same(a2, c2), (page, off, "pair")
+
+
+@pytest.mark.gpu
+def test_page_row_write_repeats_the_same_bits_on_card(cuda):
+    """50 launches of the bf16 k/v pair from the decode step's views (32
+    rows x 16 kv heads x 64 into 289 pages of 128) give the first launch's
+    bits, and the rows' other-page neighbours stay as they were; aliasing
+    pairs raise."""
+    rng = np.random.default_rng(5)
+    P, ps, b = 289, 128, 32
+    pool = _chunk_pool(P, 16, 64, ps, "bf16", rng, cuda)
+    pool2 = _chunk_pool(P, 16, 64, ps, "bf16", rng, cuda)
+    row = _row_rows(b, 16, 64, "bf16", rng, cuda, "view")
+    row2 = _row_rows(b, 16, 64, "bf16", rng, cuda, "view")
+    page = torch.tensor(rng.permutation(P - 1)[:b] + 1, dtype=torch.int32,
+                        device=cuda)
+    off = torch.tensor(rng.integers(0, ps, b), dtype=torch.int32,
+                       device=cuda)
+    first = None
+    for _ in range(50):
+        a, a2 = pool.clone(), pool2.clone()
+        kd.write_kv_page_row(a, row, page, off, a2, row2)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (a, a2)
+        assert _same(a, first[0]) and _same(a2, first[1])
+    c, c2 = pool.clone(), pool2.clone()
+    kd.write_kv_page_row_plain(c, row, page, off, c2, row2)
+    assert _same(first[0], c) and _same(first[1], c2)
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_page_row(pool, row, page, off, pool, row2)

@@ -76,13 +76,28 @@ def _values(shape, kind, rng):
 # K10 / K11: the page writes (exact)
 # ---------------------------------------------------------------------------
 
+def _row_view(row):
+    """(b, kvh, hd) rows as ``paged_decode_step`` hands them to K10:
+    ``k[:, 0]`` of the k slice of a (b, 1, 3 * kvh * hd) projection output
+    (hd contiguous, batch rows 3 * kvh * hd apart)."""
+    b, nkv, d = row.shape
+    w = nkv * d
+    proj = torch.zeros((b, 1, 3 * w), dtype=row.dtype)
+    proj[:, 0, w:2 * w] = row.reshape(b, w)
+    view = proj[..., w:2 * w].reshape(b, 1, nkv, d)[:, 0]
+    assert view.stride() == (3 * w, d, 1) and not view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "view"])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "scales"])
 @pytest.mark.parametrize("ps", [8, 128])
-def test_page_row_write_matches_pallas(kind, ps):
+def test_page_row_write_matches_pallas(kind, ps, layout):
     """Lanes inside the page, off = ps (the drop sentinel), a negative
-    off, and a page index past the pool (clamped to P - 1). No two rows
-    write one page (the copy-on-write invariant the Pallas kernel relies
-    on: a revisited page block rereads the pool as it was)."""
+    off, and a page index past the pool (clamped to P - 1); rows
+    contiguous or as the decode step's strided ``k[:, 0]`` view. No two
+    rows write one page (the copy-on-write invariant the Pallas kernel
+    relies on: a revisited page block rereads the pool as it was)."""
     rng = np.random.default_rng(ps)
     P, nkv, d, b = 6, 2, 16, 5
     if kind == "scales":   # the f32 scale pools' (P, kvh, 1, ps) view
@@ -96,8 +111,10 @@ def test_page_row_write_matches_pallas(kind, ps):
     want = np.asarray(jdec.write_kv_page_row(
         jnp.asarray(pool), jnp.asarray(row), jnp.asarray(page),
         jnp.asarray(off), interpret=True))
-    tp = _tensor(pool)
-    assert kd.write_kv_page_row(tp, _tensor(row), torch.as_tensor(page),
+    tp, tr = _tensor(pool), _tensor(row)
+    if layout == "view":
+        tr = _row_view(tr)
+    assert kd.write_kv_page_row(tp, tr, torch.as_tensor(page),
                                 torch.as_tensor(off)) is tp     # in place
     got = np.asarray(cache_to_numpy([{"k": tp}])[0]["k"])
     np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
@@ -121,6 +138,73 @@ def test_page_row_write_two_rows_on_one_page():
     np.testing.assert_array_equal(got[2, 0, :, 5], row[1, 0])
     np.testing.assert_array_equal(want[2, 0, :, 1], [0, 0])
     np.testing.assert_array_equal(want[2, 0, :, 5], row[1, 0])
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_page_row_write_pair_equals_two_single_writes(kind):
+    """K10's pair form (k with v from the decode step's views; for int8
+    also the scale pools' pair through their (P, kvh, 1, ps) views)
+    writes what two single calls write; pairs that alias raise."""
+    rng = np.random.default_rng(13)
+    P, nkv, d, ps, b = 6, 2, 16, 32, 5
+    k, v = (_tensor(_values((P, nkv, d, ps), kind, rng)) for _ in range(2))
+    kr, vr = (_row_view(_tensor(_values((b, nkv, d), kind, rng)))
+              for _ in range(2))
+    page = torch.tensor([2, 0, 4, 3, P + 4], dtype=torch.int32)
+    off = torch.tensor([ps - 1, ps, 3, -1, 1], dtype=torch.int32)
+    got, want = [k.clone(), v.clone()], [k.clone(), v.clone()]
+    kd.write_kv_page_row(got[0], kr, page, off, got[1], vr)
+    kd.write_kv_page_row(want[0], kr, page, off)
+    kd.write_kv_page_row(want[1], vr, page, off)
+    if kind == "int8":
+        ks, vs = (_tensor(_values((P, nkv, ps), "f32", rng))
+                  for _ in range(2))
+        # (b, kvh) scale rows as the decode step makes them, as (b, kvh, 1)
+        ksr, vsr = (_tensor(_values((b, nkv), "f32", rng))[:, :, None]
+                    for _ in range(2))
+        got += [ks.clone(), vs.clone()]
+        want += [ks.clone(), vs.clone()]
+        kd.write_kv_page_row(got[2][:, :, None, :], ksr, page, off,
+                             got[3][:, :, None, :], vsr)
+        kd.write_kv_page_row(want[2][:, :, None, :], ksr, page, off)
+        kd.write_kv_page_row(want[3][:, :, None, :], vsr, page, off)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[0], k) and not torch.equal(got[1], v)
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_page_row(got[0], kr, page, off, got[1],
+                             got[0][:b, :, :, 0])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_page_row(got[0], kr, page, off, got[0], vr)
+    with pytest.raises(ValueError, match="match the first"):
+        kd.write_kv_page_row(got[0], kr, page, off, got[1], vr[:2])
+    with pytest.raises(ValueError, match="both tensors"):
+        kd.write_kv_page_row(got[0], kr, page, off, got[1])
+
+
+@pytest.mark.parametrize("variant", ["mha", "int8"])
+def test_paged_write_rows_takes_one_call_per_pair(variant, monkeypatch):
+    """The decode step's write passes k with v (and the int8 scales) as
+    pairs: one K10 call for a bf16/f32 layer, two for an int8 one, each
+    pair from the same page and off."""
+    calls = []
+
+    def counting(pool, row, page, off, pool2=None, row2=None):
+        calls.append((pool2 is not None, row.is_contiguous()))
+        return kd.write_kv_page_row(pool, row, page, off, pool2, row2)
+
+    monkeypatch.setattr(tpaged, "write_kv_page_row", counting)
+    jc, tc, jp, tp = _model(variant)
+    pools = tpaged.init_page_pool(tc, 6, 8, device="cpu")
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    tpaged.paged_decode_step(tp, torch.tensor([3, 5], dtype=torch.int32),
+                             torch.tensor([0, 9], dtype=torch.int32), pools,
+                             table, torch.tensor([True, True]), tc)
+    per_layer = 2 if variant == "int8" else 1
+    assert len(calls) == per_layer * KW["n_layers"]
+    assert all(pair for pair, _ in calls)
+    if variant == "mha":    # the k, v rows are the projection's views
+        assert not any(contiguous for _, contiguous in calls)
 
 
 def _as_view(rows, pad=0):
