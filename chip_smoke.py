@@ -37,7 +37,15 @@ Phases, each printing its own lines:
    carried state, fully masked rows, permuted ring positions); K7 and K8
    must be bit-identical; operands that are views (an offset-by-one,
    misaligned bf16 k/v, a transposed q and o) give K2's bits for their
-   contiguous copies. K2 is timed at the prefill shape, the training
+   contiguous copies. K6 and K9 split the cache axis at ``SPLIT_K`` and
+   merge in the launch: each is held against its twin at ``SPLIT_K``, row
+   t of a T = 4 call must equal a T = 1 call at pos + t bit for bit (rows
+   across split edges), 50 repeat launches the first launch's bits, q
+   read from the projection's view its contiguous copy's bits; they and
+   ``scaled_dot_product_attention`` are timed by events and by device
+   time (the profiler), and the window that times K6 or K9 must hold one
+   launch of its kernel a call and nothing else (its count and the
+   profiler). K2 is timed at the prefill shape, the training
    shape and on its f32 route, in turns with
    ``scaled_dot_product_attention``. Then K9 (paged decode) at the paged
    decode shape (289 permuted pages of 128), a prefill chunk, GQA group 4
@@ -113,6 +121,13 @@ runs only the K8, K10 and K11 timings of phase 4 and K1's of phase 2
 and prints them as one JSON line; they call nothing the port lacked
 before the writes took views and pairs, so a copy of this file at the
 root of an older tree times that tree's kernels the same way.
+
+    python3 chip_smoke.py --time-decode
+
+likewise times K6 and K9 alone at the serving path's shapes (the
+flagship decode shape, 289 pages in turns with K6, GQA batch 4, a
+128-token prefill chunk) by device time, events and host time a call
+(``time_attend``), calling nothing the port lacked before the split.
 
 Every profiled window (``profiled``: device times, the kernels a call
 runs) idles a few ms inside both of its edges; one that records no
@@ -750,14 +765,92 @@ def _int8_cache(x):
     return torch.round(x / s[:, :, None, :]).to(torch.int8), s
 
 
+def _q_view(q):
+    """q (b, T, nh, hd) as the decode step passes it to K6/K9: the middle
+    third of a (b, T, 3 * nh * hd) projection, read in place."""
+    import torch
+    b, T, nh, hd = q.shape
+    proj = torch.zeros(b, T, 3 * nh * hd, dtype=q.dtype, device=q.device)
+    proj[..., nh * hd:2 * nh * hd] = q.reshape(b, T, nh * hd)
+    return proj[..., nh * hd:2 * nh * hd].reshape(b, T, nh, hd)
+
+
+def _split_edges(b, T, L, gen, dev):
+    """(b,) int32 positions for a T-query call: rows whose T positions
+    cross a split edge (at 1, 2 and 3 splits), one past max_len (a
+    retired slot), the rest spread over [0, L - T]."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    pos = torch.randint(0, L - T + 1, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    S = kd.SPLIT_K
+    edges = [S - 2, 2 * S - 1, 3 * S - T + 1, L + 1, 0][:b]
+    pos[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    return pos
+
+
+def _attend_bits(call, q, pos, what) -> None:
+    """K6/K9's bit gates: row t of a T-query call at pos p equals a T = 1
+    call at p + t (q[:, t:t + 1], a strided view); 50 repeat launches give
+    the first launch's bits (the in-launch merge runs in split order); q
+    read in place from the projection's view gives its contiguous copy's
+    bits. ``call(q, pos)`` launches the kernel."""
+    import torch
+    block = call(q, pos)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(block).all()), f"{what}: non-finite output")
+    for t in range(q.shape[1]):
+        one = call(q[:, t:t + 1], pos + t)
+        torch.cuda.synchronize()
+        check(same_bits(one[:, 0], block[:, t]),
+              f"{what}: row {t} of T = {q.shape[1]} at pos differs from T = 1"
+              f" at pos + {t}: max |err| {abs_err(one[:, 0], block[:, t])}")
+    for _ in range(50):
+        again = call(q, pos)
+        torch.cuda.synchronize()
+        check(same_bits(again, block), f"{what}: a repeat launch gave other "
+                                       f"bits")
+    got = call(_q_view(q), pos)
+    torch.cuda.synchronize()
+    check(same_bits(got, block), f"{what}: q read from the projection's "
+                                 f"view differs from its contiguous copy")
+
+
+def _attend_device_ms(fn, counted, paged, what, reps: int = 50) -> float:
+    """Device ms of one K6 (``paged`` False) or K9 call, from one profiled
+    window of ``reps`` calls that is also the one-launch gate: the calls
+    add exactly ``reps`` to ``counted``'s count (on the host) and the card
+    ran ``reps`` launches of that kernel and nothing else (the profiler):
+    no copy of q, no second pass."""
+    fn()
+    before, taken = counted.launches, windows["taken"]
+    ran = profiled(fn, reps)
+    calls = reps * (windows["taken"] - taken)   # every take runs its calls
+    check(counted.launches == before + calls,
+          f"{what}: {calls} calls took {counted.launches - before} launches")
+    mine = {k: v for k, v in ran.items() if "decode_kernel" in k
+            and ("paged_decode_kernel" in k) == paged}
+    check(len(mine) == len(ran) and sum(c for c, _ in mine.values()) == reps,
+          f"{what}: the card ran {ran} in {reps} calls, not {reps} launches "
+          f"of its kernel")
+    us = sum(t for _, t in mine.values())
+    check(us > 0, f"{what}: the profiler recorded no device time")
+    return us / reps / 1e3
+
+
 def phase_k6(dev) -> dict:
-    """K6 at T = 1 and 4, batch 32, L 1088, 16 kv heads, hd 64, bf16 and
-    int8 caches, scalar and ragged positions (one past max_len, as a
-    retired serving slot has), plus GQA groups 2 and 8. Tolerance rtol
-    1e-3 / atol 2e-3: the kernel and its plain twin share the tile
-    partition and the bf16 roundings, and differ in f32 summation order
-    and the last bit of exp (which can move a probability across a bf16
-    rounding boundary)."""
+    """K6 at T = 1 and 4, batch 32, L 1088 (five splits of SPLIT_K), 16 kv
+    heads, hd 64, bf16 and int8 caches, scalar and ragged positions (one
+    past max_len, as a retired serving slot has), plus GQA groups 2 and 8
+    (GQA batch 4 also at T = 128), against the plain twin at SPLIT_K.
+    Tolerance rtol 1e-3 / atol 2e-3: the kernel and its plain twin share
+    the tile and split partition and the bf16 roundings, and differ in f32
+    summation order and the last bit of exp (which can move a probability
+    across a bf16 rounding boundary). Then the bit gates (``_attend_bits``)
+    at T = 4 over rows crossing split edges, bf16 and int8, and one launch
+    a call. Times K6 (events and device time by the profiler) beside
+    ``scaled_dot_product_attention`` (its device time too: by events a
+    call this short includes the host's time)."""
     import torch
     import torch.nn.functional as F
     from rlo_tpu_torch.kernels import decode as kd
@@ -780,7 +873,7 @@ def phase_k6(dev) -> dict:
             if kind == "f32" and nkv != 16:
                 continue
             k, v, ks, vs = caches(b, nkv, kind)
-            for T in (1, 4):
+            for T in (1, 4) + ((128,) if nkv == 2 else ()):
                 q = torch.randn(b, T, nh, 64, generator=gen,
                                 device=dev).to(torch.bfloat16)
                 ragged = torch.randint(0, L - T, (b,), generator=gen,
@@ -800,9 +893,23 @@ def phase_k6(dev) -> dict:
                     worst = max(worst, abs_err(got, want))
                     n += 1
     print(f"[k6] {n} cases (T 1 and 4, batch 32 x 16 kv heads x L {L} x hd "
-          f"64, GQA groups 1/2/8, bf16/int8/f32 caches, scalar and ragged "
-          f"pos incl. one past max_len) within rtol 1e-3 / atol 2e-3 of the "
-          f"plain version; max |err| {worst:.3g}")
+          f"64, GQA groups 1/2/8, GQA batch 4 also at T 128, bf16/int8/f32 "
+          f"caches, scalar and ragged pos incl. one past max_len; "
+          f"{-(-L // kd.SPLIT_K)} splits of {kd.SPLIT_K}) within rtol 1e-3 "
+          f"/ atol 2e-3 of the plain version at SPLIT_K; max |err| "
+          f"{worst:.3g}")
+    for kind in ("bf16", "int8"):
+        for b, nkv, nh in ((32, 16, 16), (4, 2, 16)):
+            k, v, ks, vs = caches(b, nkv, kind)
+            q = torch.randn(b, 4, nh, 64, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            _attend_bits(lambda q_, p_: kd.flash_block_decode(
+                q_, k, v, p_, 0.125, ks, vs), q,
+                _split_edges(b, 4, L, gen, dev), f"K6 {kind} b={b} kvh={nkv}")
+    print("[k6] bit gates: row t of T = 4 equals T = 1 at pos + t, 50 repeat "
+          "launches equal, q from the projection's view equals its copy "
+          "(bf16 and int8, batch 32 x 16 and GQA batch 4 x 2, rows across "
+          "split edges)")
 
     out = {}
     for kind in ("bf16", "int8"):
@@ -810,29 +917,144 @@ def phase_k6(dev) -> dict:
         q = torch.randn(32, 1, 16, 64, generator=gen,
                         device=dev).to(torch.bfloat16)
         pos = torch.tensor(L - 1, dtype=torch.int32, device=dev)
-        kern = time_ms(lambda: kd.flash_block_decode(q, k, v, pos, 0.125,
-                                                     ks, vs))
+        f = lambda: kd.flash_block_decode(q, k, v, pos, 0.125,  # noqa: E731
+                                          ks, vs)
+        kern = time_ms(f)
+        kern_dev = _attend_device_ms(f, kd.flash_block_decode, False,
+                                     f"K6 {kind}")
         plain = time_ms(lambda: kd.flash_block_decode_plain(
             q, k, v, pos, 0.125, ks, vs), iters=5)
-        lib = None
+        lib = lib_dev = None
         if kind == "bf16":
             qh = q.transpose(1, 2)                        # (b, h, 1, d)
             kh, vh = k.transpose(2, 3), v.transpose(2, 3)  # (b, h, L, d)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, scale=0.125))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, scale=0.125)
+            lib, lib_dev = time_ms(sdpa), device_ms(sdpa, 50)
         nbytes = 2 * k.numel() * k.element_size() + (
             2 * ks.numel() * 4 if ks is not None else 0)
         bound = nbytes / PEAK_HBM_BYTES_S * 1e3
-        out[kind] = dict(ms=kern, plain_ms=plain, library_ms=lib,
+        out[kind] = dict(ms=kern, device_ms=kern_dev, plain_ms=plain,
+                         library_ms=lib, library_device_ms=lib_dev,
                          bound_ms=bound, bound_by="bytes")
         print(f"[k6] T=1 batch 32 x 16 kv heads x L {L} {kind} cache: kernel "
-              f"{kern:.4f} ms, plain {plain:.4f} ms, "
-              f"scaled_dot_product_attention "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-              f"{bound:.4f} ms ({nbytes} B of live cache / 3.35 TB/s), "
-              f"kernel at {100 * bound / kern:.1f}% of bound")
+              f"{kern:.4f} ms by events, {kern_dev:.5f} ms device, plain "
+              f"{plain:.4f} ms, scaled_dot_product_attention "
+              f"{'n/a' if lib is None else f'{lib:.4f} / {lib_dev:.5f} ms'}"
+              f", bound {bound:.4f} ms ({nbytes} B of live cache / 3.35 "
+              f"TB/s), kernel at {100 * bound / kern_dev:.1f}% of bound by "
+              f"device time ({100 * bound / kern:.1f}% by events)")
     out["bf16"]["max_abs_err"] = worst
-    return out["bf16"]
+    return out
+
+
+def _attend_times(fn, nbytes, lib=None) -> dict:
+    """K6/K9's figures for one call: device time of the decode kernel
+    alone and of every kernel the call runs (a copy of q included) over
+    50 calls (``profiled``), launches a call, CUDA events around one
+    call, host time a call over 200 calls, and the byte bound (the live
+    bytes over 3.35 TB/s); with ``lib`` the same for its yardstick."""
+    fn()
+    ran = profiled(fn, 50)
+    mine = sum(us for k, (_, us) in ran.items() if "decode_kernel" in k)
+    check(mine > 0, "the profiler recorded no decode kernel")
+    bound = nbytes / PEAK_HBM_BYTES_S * 1e3
+    out = dict(device_ms=mine / 50 / 1e3,
+               call_device_ms=sum(us for _, us in ran.values()) / 50 / 1e3,
+               launches=sum(c for c, _ in ran.values()) / 50,
+               ms=time_ms(fn, iters=100, warmup=10),
+               host_us=host_us(fn, n=200), bound_ms=bound)
+    out["pct_of_bound"] = 100 * bound / out["device_ms"]
+    if lib is not None:
+        out.update(library_device_ms=device_ms(lib, 50),
+                   library_ms=time_ms(lib, iters=100, warmup=10))
+    return out
+
+
+def time_attend(dev, gen) -> dict:
+    """K6 and K9 alone at the serving path's shapes, head_dim 64, bf16
+    queries (``_attend_times``): K6 at the flagship decode shape (batch
+    32 x 16 kv heads x 1088 positions, T 1, one shared position at the
+    end; bf16 and int8 caches), bf16 beside ``scaled_dot_product_attention``;
+    K9 over 289 permuted pages of 128 holding those columns, ragged
+    positions, in turns with K6 on the same columns (K9, K6, K6, K9); K6
+    at GQA batch 4 (4 rows x 2 kv heads, 16 query heads); K9 on one
+    128-token prefill chunk (batch 1 x 16 heads at position 896, 9 pages
+    of the 289). Calls only what the parent tree has too
+    (``--time-decode``)."""
+    import torch
+    import torch.nn.functional as F
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models.paged import pages_from_dense
+    L, ps = 1088, 128
+    mp = -(-L // ps)
+    P = 32 * mp + 1
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(32, mp).contiguous()
+
+    def caches(b, nkv, kind):
+        k = torch.randn(b, nkv, 64, L, generator=gen, device=dev)
+        v = torch.randn(b, nkv, 64, L, generator=gen, device=dev)
+        if kind == "bf16":
+            return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        (k, ks), (v, vs) = _int8_cache(k), _int8_cache(v)
+        return {"k": k, "v": v, "ks": ks, "vs": vs}
+
+    def live_bytes(pos, T, c):
+        """k, v (and the scales) of positions [0, pos_b + T) of each row,
+        each read once."""
+        b, nkv = c["k"].shape[:2]
+        live = int((pos.long().expand(b) + T).clamp(0, L).sum())
+        return live * nkv * (2 * 64 * c["k"].element_size()
+                             + (8 if "ks" in c else 0))
+
+    def q_of(b, T):
+        return torch.randn(b, T, 16, 64, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    out = {}
+    for kind in ("bf16", "int8"):
+        c = caches(32, 16, kind)
+        q = q_of(32, 1)
+        pos = torch.tensor(L - 1, dtype=torch.int32, device=dev)
+        lib = None
+        if kind == "bf16":
+            qh = q.transpose(1, 2)
+            kh, vh = c["k"].transpose(2, 3), c["v"].transpose(2, 3)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, scale=0.125)
+        out[f"K6 {kind} T=1 flagship"] = _attend_times(
+            lambda: kd.flash_block_decode(q, c["k"], c["v"], pos, 0.125,
+                                          c.get("ks"), c.get("vs")),
+            live_bytes(pos, 1, c), lib)
+        ragged = torch.randint(0, L, (32,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        pg = pages_from_dense([c], table, P, ps)[0]
+        nbytes = live_bytes(ragged, 1, c) + table.numel() * 4
+        f9 = lambda: kd.paged_flash_decode(  # noqa: E731
+            q, pg["k"], pg["v"], table, ragged, 0.125, pg.get("ks"),
+            pg.get("vs"))
+        f6 = lambda: kd.flash_block_decode(  # noqa: E731
+            q, c["k"], c["v"], ragged, 0.125, c.get("ks"), c.get("vs"))
+        t = [_attend_times(f, nbytes) for f in (f9, f6, f6, f9)]
+        out[f"K9 {kind} T=1 289 pages"] = [t[0], t[3]]
+        out[f"K6 {kind} T=1 same columns"] = [t[1], t[2]]
+        del c, pg
+    c = caches(4, 2, "bf16")
+    q = q_of(4, 1)
+    pos = torch.tensor(L - 1, dtype=torch.int32, device=dev)
+    out["K6 bf16 T=1 GQA batch 4"] = _attend_times(
+        lambda: kd.flash_block_decode(q, c["k"], c["v"], pos, 0.125),
+        live_bytes(pos, 1, c))
+    c = caches(1, 16, "bf16")
+    pg = pages_from_dense([c], table[:1], P, ps)[0]
+    q = q_of(1, 128)
+    pos = torch.tensor(896, dtype=torch.int32, device=dev)
+    out["K9 bf16 T=128 prefill chunk at 896"] = _attend_times(
+        lambda: kd.paged_flash_decode(q, pg["k"], pg["v"], table[:1], pos,
+                                      0.125),
+        live_bytes(pos, 128, c) + mp * 4)
+    return out
 
 
 def _vector_loads(rows) -> bool:
@@ -1287,13 +1509,15 @@ def phase_k9(dev) -> dict:
     pages of 128 over 9 logical pages, 289 pages with a seeded
     permutation as the table, positions spread over 0..1087, T 1; bf16
     and int8 pools), a prefill chunk (batch 1, T 128), GQA group 4 and
-    pages of 256, each against its plain version at K6's tolerance (rtol
-    1e-3 / atol 2e-3: shared tile partition and bf16 roundings, another
-    f32 summation order). Then K9 on pages holding a dense cache's
-    columns against K6 on that cache: equal bit for bit. Times K9, its
-    plain version and K6 on the equivalent dense cache (the yardstick of
-    the indirection's cost); no single PyTorch call computes paged
-    attention, so there is no library figure."""
+    pages of 256, each against its plain version at SPLIT_K at K6's
+    tolerance (rtol 1e-3 / atol 2e-3: shared tile and split partition and
+    bf16 roundings, another f32 summation order). The bit gates
+    (``_attend_bits``) at T = 4 over rows crossing split edges, bf16 and
+    int8. Then K9 on pages holding a dense cache's columns against K6 on
+    that cache: equal bit for bit, one launch a call. Times K9 (events
+    and device time), its plain version and K6 on the equivalent dense
+    cache (the yardstick of the indirection's cost); no single PyTorch
+    call computes paged attention, so there is no library figure."""
     import torch
     from rlo_tpu_torch.kernels import decode as kd
     from rlo_tpu_torch.models import paged as PG
@@ -1349,8 +1573,21 @@ def phase_k9(dev) -> dict:
     print(f"[k9] {n} cases (decode b 32 x 16 kv heads x hd 64 over 289 "
           f"permuted pages of 128, T 1/4; a prefill chunk b 1 x T 128; GQA "
           f"group 4; pages of 256; bf16/int8/f32 pools, null-page tails) "
-          f"within rtol 1e-3 / atol 2e-3 of the plain version; max |err| "
-          f"{worst:.3g}")
+          f"within rtol 1e-3 / atol 2e-3 of the plain version at SPLIT_K; "
+          f"max |err| {worst:.3g}")
+    for kind in ("bf16", "int8"):
+        b, nkv, ps, mp = 32, 16, 128, 9
+        P = b * mp + 1
+        table = table_of(b, mp, P)
+        k, v, ks, vs = pools(P, nkv, ps, kind)
+        q = torch.randn(b, 4, 16, 64, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        _attend_bits(lambda q_, p_: kd.paged_flash_decode(
+            q_, k, v, table, p_, 0.125, ks, vs), q,
+            _split_edges(b, 4, L, gen, dev), f"K9 {kind}")
+    print("[k9] bit gates: row t of T = 4 equals T = 1 at pos + t, 50 repeat "
+          "launches equal, q from the projection's view equals its copy "
+          "(bf16 and int8 pools, 289 pages of 128, rows across split edges)")
 
     # K9 on pages that hold a dense cache's columns == K6 on that cache
     out = {}
@@ -1388,6 +1625,13 @@ def phase_k9(dev) -> dict:
         # in turns (K9, K6, K6, K9), so neither gains from going second
         t = [time_ms(fn) for fn in (k9_fn, k6_fn, k6_fn, k9_fn)]
         kern, dense_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        t = [_attend_device_ms(fn, counted, paged, f"{name} {kind}")
+             for fn, counted, paged, name in (
+                 (k9_fn, kd.paged_flash_decode, True, "K9"),
+                 (k6_fn, kd.flash_block_decode, False, "K6"),
+                 (k6_fn, kd.flash_block_decode, False, "K6"),
+                 (k9_fn, kd.paged_flash_decode, True, "K9"))]
+        kern_dev, dense_dev = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         plain = time_ms(lambda: kd.paged_flash_decode_plain(
             q, paged["k"], paged["v"], table, pos, 0.125, paged.get("ks"),
             paged.get("vs")), iters=5)
@@ -1396,16 +1640,18 @@ def phase_k9(dev) -> dict:
                   + table.numel() * 4 + pos.numel() * 4
                   + q.numel() * 2 + q.numel() * 4)
         bound = nbytes / PEAK_HBM_BYTES_S * 1e3
-        out[kind] = dict(ms=kern, plain_ms=plain, library_ms=None,
-                         bound_ms=bound, bound_by="bytes", k6_ms=dense_ms)
-        extra = 100 * (kern / dense_ms - 1)
+        out[kind] = dict(ms=kern, device_ms=kern_dev, plain_ms=plain,
+                         library_ms=None, bound_ms=bound, bound_by="bytes",
+                         k6_ms=dense_ms, k6_device_ms=dense_dev)
         print(f"[k9] T=1 batch 32 x 16 kv heads, 289 pages of 128, ragged "
-              f"pos {kind} pools: kernel {kern:.4f} ms, K6 on the same "
-              f"columns dense {dense_ms:.4f} ms ({extra:+.1f} %), plain "
+              f"pos {kind} pools: kernel {kern:.4f} ms by events, "
+              f"{kern_dev:.5f} ms device; K6 on the same columns dense "
+              f"{dense_ms:.4f} / {dense_dev:.5f} ms (K9 / K6 "
+              f"{kern_dev / dense_dev:.3f} by device time), plain "
               f"{plain:.4f} ms, bound {bound:.4f} ms "
               f"({nbytes} B live cache + table + q + out / 3.35 TB/s), "
-              f"kernel at {100 * bound / kern:.1f}% of bound; max |K9 - K6| "
-              f"{same[kind]}")
+              f"kernel at {100 * bound / kern_dev:.1f}% of bound by device "
+              f"time; max |K9 - K6| {same[kind]}")
     out["bf16"]["max_abs_err"] = worst
     out["bf16"]["k6_equal_max_abs_err"] = max(same.values())
     return out
@@ -2752,6 +2998,14 @@ def main() -> int:
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     check(torch.cuda.device_count() == 1, "more than one card visible")
+    if sys.argv[1:] == ["--time-decode"]:
+        from rlo_tpu_torch.kernels import build
+        build.load("decode")
+        times = time_attend(dev, torch.Generator(device=dev).manual_seed(
+            SEED + 12))
+        windows_line("time-decode")
+        print(json.dumps(times))
+        return 0
     if sys.argv[1:] == ["--time-writes"]:
         from rlo_tpu_torch.kernels import build
         build.load("decode")
@@ -2861,7 +3115,10 @@ def main() -> int:
                      serve_p),
         kernel_entry("K6 flash_block_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:70",
-                     served["flash_block_decode"], k6_stats, serve_p),
+                     served["flash_block_decode"], k6_stats["bf16"], serve_p,
+                     split_k=kd.SPLIT_K, int8={
+                         k: k6_stats["int8"][k]
+                         for k in ("ms", "device_ms", "bound_ms")}),
         kernel_entry("K7 write_kv_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:141",
                      served["write_kv_row"], w_stats["K7"], serve_p),
@@ -2872,7 +3129,12 @@ def main() -> int:
         kernel_entry("K9 paged_flash_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:466",
                      paged_launches["paged_flash_decode"], k9_stats["bf16"],
-                     paged_p),
+                     paged_p, split_k=kd.SPLIT_K,
+                     k6_same_columns_device_ms=k9_stats["bf16"][
+                         "k6_device_ms"],
+                     int8={k: k9_stats["int8"][k]
+                           for k in ("ms", "device_ms", "bound_ms",
+                                     "k6_device_ms")}),
         kernel_entry("K10 write_kv_page_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:350",
                      paged_launches["write_kv_page_row"], pw_stats["K10"],

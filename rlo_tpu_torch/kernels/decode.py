@@ -45,10 +45,18 @@ K6's numerics follow the TPU kernel: dots in bf16 with f32 accumulation
 (f32 for f32 caches), the probabilities rounded to the dot dtype before
 P.V, for int8 the k scale multiplying the scores and the v scale the
 probabilities after l is accumulated, V zeroed under the mask, out =
-o / l. The cache axis is cut into ``BLOCK_K``-wide tiles for every T, so
-T = 1 and T > 1 share one partition (and one accumulation order). K9
-cuts the LOGICAL cache axis the same way whatever the page size, so
-pages that hold a dense cache's columns give K6's result bit for bit.
+o / l. The cache axis is cut into ``BLOCK_K``-wide tiles, and the tiles
+into splits of ``SPLIT_K`` positions fixed in absolute positions (split
+s is [s * SPLIT_K, (s + 1) * SPLIT_K)), the same for every T, batch,
+length and dtype: each split runs the online softmax over its tiles, and
+the splits' (m, l, o) merge in split order (M = max m_s, l = sum l_s *
+e^(m_s - M), o = sum o_s * e^(m_s - M), out = o / l). A split wholly
+past a row's last position adds exactly 0, so T = 1 and T > 1 give a
+row the same bits. K9 cuts the LOGICAL cache axis the same way whatever
+the page size, so pages that hold a dense cache's columns give K6's
+result bit for bit. q is read in place through its strides (the decode
+step passes a view of the projection) and rounded to the dot dtype by
+the kernel.
 """
 
 from __future__ import annotations
@@ -63,10 +71,15 @@ import torch
 NEG = -1e30
 #: K6's cache-axis tile, the same for every T (the plain twin mirrors it)
 BLOCK_K = 128
+#: K6/K9's split of the cache axis across blocks, a multiple of BLOCK_K,
+#: fixed in absolute positions and the same for every call (the plain
+#: twins compute the same partition and merge)
+SPLIT_K = 256
 #: K8's widest block, as on the TPU
 MAX_BLOCK_T = 128
 
 _CACHE_CODE = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
+_Q_CODE = {torch.float32: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
 
 _count_lock = threading.Lock()
@@ -177,31 +190,26 @@ def _ungroup(out, T, nh):
             .reshape(b, T, nh, d))
 
 
-def flash_block_decode_plain(q, k_cache, v_cache, pos0, scale,
-                             k_scale=None, v_scale=None, *,
-                             block_k: int = BLOCK_K):
-    """Plain PyTorch version of K6: the TPU kernel's tile loop over the
-    cache axis (``block_k`` wide) with its online softmax and its
-    roundings. The CPU path, and the version the kernel is held against
-    on the card."""
-    _check_decode(q, k_cache, v_cache, k_scale, v_scale)
-    b, T, nh, d = q.shape
-    nkv, L = k_cache.shape[1], k_cache.shape[3]
-    r = nh // nkv
-    R = T * r
+def _check_split(split_k, block_k) -> None:
+    if split_k is not None and (not isinstance(split_k, int) or split_k <= 0
+                                or split_k % block_k):
+        raise ValueError(f"split_k must be None or a positive multiple of "
+                         f"the tile width {block_k}; got {split_k!r}")
+
+
+def _sweep(qg, k_cache, v_cache, k_scale, v_scale, c0, c1, block_k, scale,
+           qlim, clim):
+    """The online softmax over the tiles of cache positions [c0, c1),
+    ``block_k`` wide, from m = NEG, l = 0, o = 0: (m, l, o)."""
+    b, nkv, R, d = qg.shape
     quant = k_scale is not None
     dot = _dot_dtype(k_cache.dtype)
-    dev = q.device
-    qg = _group_queries(q, nkv).to(dot).float()
-    posv = _positions(_pos_vector(pos0, b, dev), b).long()
-    qoff = torch.arange(R, device=dev) // r
-    qlim = (posv[:, None] + qoff[None, :])[:, None, :, None]  # (b,1,R,1)
-    clim = (posv + (T - 1))[:, None, None, None]              # (b,1,1,1)
+    dev = qg.device
     m = torch.full((b, nkv, R), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, nkv, R), dtype=torch.float32, device=dev)
     o = torch.zeros((b, nkv, R, d), dtype=torch.float32, device=dev)
-    for k0 in range(0, L, block_k):
-        k1 = min(L, k0 + block_k)
+    for k0 in range(c0, c1, block_k):
+        k1 = min(c1, k0 + block_k)
         row = torch.arange(k0, k1, device=dev)[None, None, None, :]
         mask_row = row <= qlim                                 # (b,1,R,bk)
         mask_col = row <= clim                                 # (b,1,1,bk)
@@ -222,69 +230,141 @@ def flash_block_decode_plain(q, k_cache, v_cache, pos0, scale,
         pv = pv.to(dot).float()
         o = o * corr[..., None] + torch.matmul(pv, vt.transpose(-1, -2))
         m = m_new
+    return m, l, o
+
+
+def flash_block_decode_plain(q, k_cache, v_cache, pos0, scale,
+                             k_scale=None, v_scale=None, *,
+                             block_k: int = BLOCK_K, split_k=SPLIT_K):
+    """Plain PyTorch version of K6: the TPU kernel's tile loop over the
+    cache axis (``block_k`` wide) with its online softmax and its
+    roundings, run over each split of ``split_k`` positions (a multiple
+    of ``block_k``; None: one split over the whole cache, the TPU
+    kernel's single sweep), the splits merged in split order as the
+    kernel merges them. The CPU path, and the version the kernel is held
+    against on the card."""
+    _check_decode(q, k_cache, v_cache, k_scale, v_scale)
+    _check_split(split_k, block_k)
+    b, T, nh, d = q.shape
+    nkv, L = k_cache.shape[1], k_cache.shape[3]
+    r = nh // nkv
+    R = T * r
+    dev = q.device
+    qg = _group_queries(q, nkv).to(_dot_dtype(k_cache.dtype)).float() \
+        .contiguous()
+    posv = _positions(_pos_vector(pos0, b, dev), b).long()
+    qoff = torch.arange(R, device=dev) // r
+    qlim = (posv[:, None] + qoff[None, :])[:, None, :, None]  # (b,1,R,1)
+    clim = (posv + (T - 1))[:, None, None, None]              # (b,1,1,1)
+    step = max(L, 1) if split_k is None else split_k
+    parts = [_sweep(qg, k_cache, v_cache, k_scale, v_scale, c0,
+                    min(L, c0 + step), block_k, scale, qlim, clim)
+             for c0 in range(0, max(L, 1), step)]
+    m, l, o = parts[0]
+    if len(parts) > 1:
+        big_m = torch.stack([p[0] for p in parts]).amax(dim=0)
+        l, o = torch.zeros_like(l), torch.zeros_like(o)
+        for m_s, l_s, o_s in parts:
+            e = torch.exp(m_s - big_m)
+            l = l + l_s * e
+            o = o + o_s * e[..., None]
     return _ungroup(o / l[..., None], T, nh)
 
 
-def _prepare_launch(kind, q, pos0, nkv, cache_dtype, tensors):
-    """What K6 and K9 launch on: checks the head dim, the cache type and
-    that every tensor of ``tensors`` ((name, tensor or None) pairs) is
-    contiguous on q's device; returns (q grouped (b, nkv, T*r, hd) f32 in
-    the dot dtype's values, the positions, the (b, nkv, T*r, hd) f32
-    output)."""
+#: the parameter block of ``rlo_decode_attend`` (csrc/decode.cu): q, k,
+#: v, ks, vs, pos, out, table, workspace, counters; q's (batch, token,
+#: head, d) strides, the workspace's and counters' sizes; cache code, q
+#: code, b, nkv, T, r, hd, L, pos_per_row, P, ps, mp, split_k, paged;
+#: scale, pad
+_ATTEND_PARAMS = struct.Struct("<10Q6q14ifi")
+
+#: per (device index, stream): the f32 workspace of the splits' (m, l, o)
+#: and the int32 arrival counters of K6/K9, grown as needed and never
+#: cleared by a call (each launch leaves its counters at 0)
+_scratch = {}
+
+
+def _scratch_for(dev, stream: int, n_ws: int, n_cnt: int):
+    key = (dev.index, stream)
+    with _count_lock:
+        ws, cnt = _scratch.get(key, (None, None))
+        if ws is None or ws.numel() < n_ws:
+            ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+        if cnt is None or cnt.numel() < n_cnt:
+            cnt = torch.zeros(n_cnt, dtype=torch.int32, device=dev)
+        _scratch[key] = (ws, cnt)
+    return ws, cnt
+
+
+def _launch_attend(kind, counted, q, k, v, ks, vs, pos0, scale, L,
+                   table=None):
+    """One K6 (``table`` None: caches (b, kvh, hd, L)) or K9 (pools (P,
+    kvh, hd, ps) through ``table``) launch, split at ``SPLIT_K``; q is
+    read in place. Checks the head dim, the cache type and that the
+    caches (pools), scales and table are contiguous on q's device.
+    Returns out (b, T, nh, hd) f32."""
     b, T, nh, d = q.shape
+    nkv = k.shape[1]
+    dev = q.device
     if d not in _HEAD_DIMS:
         raise ValueError(f"{kind} takes head_dim in {_HEAD_DIMS}, not {d}")
-    if cache_dtype not in _CACHE_CODE:
+    if k.dtype not in _CACHE_CODE:
         raise TypeError(f"{kind} takes f32, bf16 and int8 caches, not "
-                        f"{cache_dtype}")
-    for name, t in tensors:
-        if t is not None and (not t.is_contiguous()
-                              or t.device != q.device):
-            raise ValueError(f"{kind} needs {name} contiguous on "
-                             f"{q.device}")
-    qg = _group_queries(q, nkv).to(_dot_dtype(cache_dtype)).float() \
-        .contiguous()
-    out = torch.empty(qg.shape, dtype=torch.float32, device=q.device)
-    return qg, _pos_vector(pos0, b, q.device), out
+                        f"{k.dtype}")
+    for name, t in (("k", k), ("v", v), ("k scales", ks), ("v scales", vs),
+                    ("table", table)):
+        if t is not None and (not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{kind} needs its {name} contiguous on {dev}")
+    out = torch.empty((b, T, nh, d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    if q.dtype not in _Q_CODE:
+        q = q.float()
+    pos = _pos_vector(pos0, b, dev)
+    nsplit = -(-L // SPLIT_K)
+    stream = _stream(dev)
+    R = T * (nh // nkv)
+    n_ws, n_cnt = (b * nkv * R * nsplit * (d + 2), b * nkv * R) \
+        if nsplit > 1 else (0, 0)
+    ws, cnt = _scratch_for(dev, stream, n_ws, n_cnt)
+    P, _, _, ps = k.shape if table is not None else (0, 0, 0, 0)
+    params = _ATTEND_PARAMS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        0 if ks is None else ks.data_ptr(),
+        0 if vs is None else vs.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        0 if table is None else table.data_ptr(), ws.data_ptr(),
+        cnt.data_ptr(), *q.stride(), ws.numel(), cnt.numel(),
+        _CACHE_CODE[k.dtype], _Q_CODE[q.dtype], b, nkv, T, nh // nkv, d,
+        L if table is None else 0, 1 if pos.dim() else 0, P, ps,
+        0 if table is None else table.shape[1], SPLIT_K,
+        0 if table is None else 1, float(scale), 0)
+    fn = _lib_fn("rlo_decode_attend", _BLOCK_ARGTYPES)
+    if torch._C._cuda_getDevice() == dev.index:
+        rc = fn(params, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(params, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kind} decode attention launch failed: CUDA "
+                           f"error {rc} (b={b}, kvh={nkv}, T={T}, nh={nh}, "
+                           f"hd={d}, L={L}, {k.dtype})")
+    _count(counted)
+    return out
 
 
 def flash_block_decode(q, k_cache, v_cache, pos0, scale, k_scale=None,
                        v_scale=None):
     """Fused T-query decode attention (T = 1 is single-token decode):
-    ``q`` (b, T, n_heads, head_dim), row b's query t at ``pos0_b + t``.
-    Returns (b, T, n_heads, head_dim) f32. CPU tensors take the plain
-    version; CUDA tensors launch K6 or raise."""
+    ``q`` (b, T, n_heads, head_dim), any strides, row b's query t at
+    ``pos0_b + t``, the cache axis split at ``SPLIT_K``. Returns (b, T,
+    n_heads, head_dim) f32. CPU tensors take the plain version; CUDA
+    tensors launch K6 or raise."""
     _check_decode(q, k_cache, v_cache, k_scale, v_scale)
     if _on("flash_block_decode", q):
         return flash_block_decode_plain(q, k_cache, v_cache, pos0, scale,
                                         k_scale, v_scale)
-    b, T, nh, d = q.shape
-    nkv, L = k_cache.shape[1], k_cache.shape[3]
-    quant = k_scale is not None
-    dev = q.device
-    qg, pos, out = _prepare_launch(
-        "K6", q, pos0, nkv, k_cache.dtype,
-        (("k_cache", k_cache), ("v_cache", v_cache), ("k_scale", k_scale),
-         ("v_scale", v_scale)))
-    R = qg.shape[2]
-    if out.numel() == 0:
-        return _ungroup(out, T, nh)
-    fn = _lib_fn("rlo_flash_decode",
-                 [ctypes.c_int] + [ctypes.c_void_p] * 7
-                 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(_CACHE_CODE[k_cache.dtype], qg.data_ptr(),
-                k_cache.data_ptr(), v_cache.data_ptr(),
-                k_scale.data_ptr() if quant else None,
-                v_scale.data_ptr() if quant else None, pos.data_ptr(),
-                out.data_ptr(), b, nkv, R, nh // nkv, T, d, L,
-                1 if pos.dim() else 0, float(scale), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"K6 decode kernel launch failed: CUDA error "
-                           f"{rc} (b={b}, kvh={nkv}, R={R}, hd={d}, L={L}, "
-                           f"{k_cache.dtype})")
-    _count(flash_block_decode)
-    return _ungroup(out, T, nh)
+    return _launch_attend("K6", flash_block_decode, q, k_cache, v_cache,
+                          k_scale, v_scale, pos0, scale, k_cache.shape[3])
 
 
 flash_block_decode.launches = 0
@@ -563,11 +643,12 @@ def gather_pages(pool, table):
 
 def paged_flash_decode_plain(q, k_pool, v_pool, table, pos0, scale,
                              ks_pool=None, vs_pool=None, *,
-                             block_k: int = BLOCK_K):
+                             block_k: int = BLOCK_K, split_k=SPLIT_K):
     """Plain PyTorch version of K9: the table (clamped into [0, P - 1])
     gathers each row's logical cache out of the pools, and K6's plain
-    tile loop (``block_k`` wide) attends it. The CPU path, and the
-    version the kernel is held against on the card."""
+    tile loop (``block_k`` wide, split and merged at ``split_k``)
+    attends it. The CPU path, and the version the kernel is held against
+    on the card."""
     _check_paged(q, k_pool, v_pool, table, ks_pool, vs_pool)
     tab = table.clamp(0, k_pool.shape[0] - 1)
     kg, vg = gather_pages(k_pool, tab), gather_pages(v_pool, tab)
@@ -575,54 +656,29 @@ def paged_flash_decode_plain(q, k_pool, v_pool, table, pos0, scale,
     if ks_pool is not None:
         ksg, vsg = gather_pages(ks_pool, tab), gather_pages(vs_pool, tab)
     return flash_block_decode_plain(q, kg, vg, pos0, scale, ksg, vsg,
-                                    block_k=block_k)
+                                    block_k=block_k, split_k=split_k)
 
 
 def paged_flash_decode(q, k_pool, v_pool, table, pos0, scale, ks_pool=None,
                        vs_pool=None):
     """Fused paged decode attention (K9): ``q`` (b, T, n_heads,
-    head_dim), row b's query t at position ``pos0_b + t`` attending the
-    positions <= it of its logical cache, whose page i is physical page
-    ``table[b, i]`` of the pools (P, kv_heads, head_dim, page_size)
-    (int8 pools take f32 scale pools (P, kv_heads, page_size)). ``table``
-    is (b, max_pages) int32; table entries are clamped into [0, P - 1].
-    Returns (b, T, n_heads, head_dim) f32. CPU tensors take the plain
-    version; CUDA tensors launch K9 or raise."""
+    head_dim), any strides, row b's query t at position ``pos0_b + t``
+    attending the positions <= it of its logical cache, whose page i is
+    physical page ``table[b, i]`` of the pools (P, kv_heads, head_dim,
+    page_size) (int8 pools take f32 scale pools (P, kv_heads,
+    page_size)). ``table`` is (b, max_pages) int32; table entries are
+    clamped into [0, P - 1]. The logical cache axis is split at
+    ``SPLIT_K``. Returns (b, T, n_heads, head_dim) f32. CPU tensors take
+    the plain version; CUDA tensors launch K9 or raise."""
     _check_paged(q, k_pool, v_pool, table, ks_pool, vs_pool)
     if _on("paged_flash_decode", q):
         return paged_flash_decode_plain(q, k_pool, v_pool, table, pos0,
                                         scale, ks_pool, vs_pool)
-    b, T, nh, d = q.shape
-    P, nkv, _, ps = k_pool.shape
-    mp = table.shape[1]
     if table.dtype != torch.int32:
         raise TypeError(f"K9 takes an int32 table, not {table.dtype}")
-    quant = ks_pool is not None
-    dev = q.device
-    qg, pos, out = _prepare_launch(
-        "K9", q, pos0, nkv, k_pool.dtype,
-        (("k_pool", k_pool), ("v_pool", v_pool), ("ks_pool", ks_pool),
-         ("vs_pool", vs_pool), ("table", table)))
-    R = qg.shape[2]
-    if out.numel() == 0:
-        return _ungroup(out, T, nh)
-    fn = _lib_fn("rlo_paged_flash_decode",
-                 [ctypes.c_int] + [ctypes.c_void_p] * 8
-                 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(_CACHE_CODE[k_pool.dtype], qg.data_ptr(),
-                k_pool.data_ptr(), v_pool.data_ptr(),
-                ks_pool.data_ptr() if quant else None,
-                vs_pool.data_ptr() if quant else None, table.data_ptr(),
-                pos.data_ptr(), out.data_ptr(), b, nkv, R, nh // nkv, T, d,
-                P, ps, mp, 1 if pos.dim() else 0, float(scale),
-                _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"K9 paged decode kernel launch failed: CUDA "
-                           f"error {rc} (b={b}, kvh={nkv}, R={R}, hd={d}, "
-                           f"P={P}, ps={ps}, mp={mp}, {k_pool.dtype})")
-    _count(paged_flash_decode)
-    return _ungroup(out, T, nh)
+    return _launch_attend("K9", paged_flash_decode, q, k_pool, v_pool,
+                          ks_pool, vs_pool, pos0, scale,
+                          table.shape[1] * k_pool.shape[3], table)
 
 
 paged_flash_decode.launches = 0

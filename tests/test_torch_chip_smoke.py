@@ -4,8 +4,9 @@ taken again with a longer idle, three empty takes fail, and the
 pair-write gate
 (``_one_launch``) takes its launch count from the wrapper's own counter
 and fails on any kernel other than the write kernel (a copy of its
-source) or on no launch. The windows' real behaviour on the card is
-``chip_smoke.py``'s own run."""
+source) or on no launch; K6/K9's device-time window (``_attend_device_ms``)
+is also their one-launch gate. The windows' real behaviour on the card
+is ``chip_smoke.py``'s own run."""
 
 import importlib.util
 from pathlib import Path
@@ -156,3 +157,44 @@ def test_one_launch_fails_when_nothing_is_recorded(stub):
     path = _counted(1)
     with pytest.raises(RuntimeError, match="no CUDA kernel"):
         cs._one_launch(path, path.counted, "write_page_row_kernel", "K10")
+
+
+K6 = "void (anonymous namespace)::decode_kernel<__nv_bfloat16, 64, 1, false, true>(DecodeArgs)"
+K9 = "void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, 64, 1, true, true>(DecodeArgs)"
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_attend_device_ms_is_the_one_launch_gate(stub, paged):
+    """K6/K9's device time comes from a window whose 50 calls are 50
+    launches of the kernel on the host counter and on the card."""
+    stub.windows = [[], [_evt(K9 if paged else K6, 50, 100.0)]]
+    path = _counted(1)
+    assert cs._attend_device_ms(path, path.counted, paged, "K") == \
+        pytest.approx(100.0 / 50 / 1e3)
+    assert path.counted.launches == 1 + 50 + 50     # warm-up, two takes
+    assert cs.windows == {"taken": 2, "empty": 1}
+
+
+@pytest.mark.parametrize("window,match", [
+    ([_evt(K6, 50), _evt("void at::native::elementwise_kernel<128, 4>("
+                         "copy)", 50)], "not 50 launches"),
+    ([_evt(K6, 49)], "not 50 launches"),
+    ([_evt(K9, 50)], "not 50 launches"),
+])
+def test_attend_device_ms_fails_on_other_kernels_or_counts(stub, window,
+                                                           match):
+    """A copy of q, a missing or extra launch, or the other kernel (K9
+    where K6 was called) fails the gate."""
+    stub.windows = [window]
+    path = _counted(1)
+    with pytest.raises(RuntimeError, match=match):
+        cs._attend_device_ms(path, path.counted, False, "K6")
+
+
+@pytest.mark.parametrize("launches", [0, 2])
+def test_attend_device_ms_counts_launches_on_the_host(stub, launches):
+    stub.windows = [[_evt(K6, 50)]]
+    path = _counted(launches)
+    with pytest.raises(RuntimeError, match=f"took {50 * launches} "
+                                           f"launches"):
+        cs._attend_device_ms(path, path.counted, False, "K6")

@@ -58,21 +58,92 @@ def cuda():
     return torch.device("cuda")
 
 
+#: caches of one split and of four (K6 splits the cache axis at SPLIT_K)
+LENGTHS = (300, 3 * kd.SPLIT_K + 40)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("T", [1, 4, 128])
 def test_decode_kernel_matches_plain_on_card(cuda, kind, T):
-    L = 300
-    args = _case(T, L, kind, seed=T, dev=cuda)
-    for pos in (torch.tensor(200, dtype=torch.int32, device=cuda),
-                torch.tensor([0, 150, L - T], dtype=torch.int32,
-                             device=cuda)):
-        got = kd.flash_block_decode(args[0], args[1], args[2], pos, 0.25,
-                                    args[3], args[4])
+    """Against the twin at SPLIT_K, over one split and over four, scalar
+    and ragged positions (one past max_len: a retired slot)."""
+    for L in LENGTHS:
+        args = _case(T, L, kind, seed=T, dev=cuda)
+        for pos in (torch.tensor(200, dtype=torch.int32, device=cuda),
+                    torch.tensor([0, L + 1, L - T], dtype=torch.int32,
+                                 device=cuda)):
+            got = kd.flash_block_decode(args[0], args[1], args[2], pos, 0.25,
+                                        args[3], args[4])
+            torch.cuda.synchronize()
+            want = kd.flash_block_decode_plain(args[0], args[1], args[2],
+                                               pos, 0.25, args[3], args[4])
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_decode_kernel_head_dims_on_card(cuda, kind, hd):
+    """Every head dim the kernel takes, over four splits, T 1 and 16
+    (row tiles of one row group and of two; f32 at hd 128 runs a ring of
+    one stage, the two-stage ring not fitting in shared memory)."""
+    L = LENGTHS[1]
+    rng = np.random.default_rng(hd)
+    k = rng.standard_normal((2, 2, hd, L)).astype(np.float32)
+    v = rng.standard_normal((2, 2, hd, L)).astype(np.float32)
+    ks = vs = None
+    if kind == "int8":
+        (k, ks), (v, vs) = _quant(k), _quant(v)
+    k, v, ks, vs = [None if a is None else from_numpy([a], cuda)[0]
+                    for a in (k, v, ks, vs)]
+    if kind == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    for T in (1, 16):
+        q = from_numpy([rng.standard_normal((2, T, 8, hd))
+                        .astype(np.float32)], cuda)[0]
+        pos = torch.tensor([L - T, 300], dtype=torch.int32, device=cuda)
+        got = kd.flash_block_decode(q, k, v, pos, 0.25, ks, vs)
         torch.cuda.synchronize()
-        want = kd.flash_block_decode_plain(args[0], args[1], args[2], pos,
-                                           0.25, args[3], args[4])
+        want = kd.flash_block_decode_plain(q, k, v, pos, 0.25, ks, vs)
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def _proj_view(q):
+    """q (b, T, nh, hd) as the decode step passes it: the middle third of
+    a (b, T, 3 * nh * hd) projection, strided."""
+    b, T, nh, hd = q.shape
+    proj = torch.zeros(b, T, 3 * nh * hd, dtype=q.dtype, device=q.device)
+    proj[..., nh * hd:2 * nh * hd] = q.reshape(b, T, nh * hd)
+    return proj[..., nh * hd:2 * nh * hd].reshape(b, T, nh, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_kernel_bits_on_card(cuda, kind):
+    """Row t of a T = 4 call at pos p equals a T = 1 call at p + t bit for
+    bit (rows crossing a split edge, one past max_len), 50 repeat launches
+    give the first launch's bits (the in-launch merge is in split order),
+    and q read in place from the projection's view gives its contiguous
+    copy's bits."""
+    L = LENGTHS[1]
+    S = kd.SPLIT_K
+    q, k, v, ks, vs = _case(4, L, kind, seed=11, dev=cuda)
+    q = q.to(torch.bfloat16)
+    pos = torch.tensor([S - 2, 2 * S - 1, L + 1], dtype=torch.int32,
+                       device=cuda)
+    block = kd.flash_block_decode(q, k, v, pos, 0.25, ks, vs)
+    for t in range(4):
+        one = kd.flash_block_decode(q[:, t:t + 1], k, v, pos + t, 0.25, ks,
+                                    vs)
+        assert torch.equal(one[:, 0], block[:, t]), t
+    for _ in range(50):
+        assert torch.equal(kd.flash_block_decode(q, k, v, pos, 0.25, ks, vs),
+                           block)
+    view = _proj_view(q)
+    assert not view.is_contiguous()
+    assert torch.equal(kd.flash_block_decode(view, k, v, pos, 0.25, ks, vs),
+                       block)
 
 
 @pytest.mark.gpu

@@ -66,13 +66,50 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("T", [1, 4, 128])
 def test_paged_kernel_matches_plain_on_card(cuda, kind, T):
-    args = _paged_case(kind, 32, T, 2, seed=T, dev=cuda, d=64, mp=9)
-    got = kd.paged_flash_decode(*args[:5], 0.125, args[5], args[6])
-    torch.cuda.synchronize()
-    want = kd.paged_flash_decode_plain(*args[:5], 0.125, args[5], args[6])
-    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    """Against the twin at SPLIT_K, over 9 pages of 32 (two splits) and
+    26 (four), and pages of 16 (the smallest whose runs are whole 16-byte
+    chunks for every dtype)."""
+    for ps, mp in ((32, 9), (32, 26), (16, 52)):
+        args = _paged_case(kind, ps, T, 2, seed=T, dev=cuda, d=64, mp=mp)
+        L = ps * mp
+        args[4] = torch.tensor([L - T, L // 2, 3], dtype=torch.int32,
+                               device=cuda)
+        got = kd.paged_flash_decode(*args[:5], 0.125, args[5], args[6])
+        torch.cuda.synchronize()
+        want = kd.paged_flash_decode_plain(*args[:5], 0.125, args[5],
+                                           args[6])
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_kernel_bits_on_card(cuda, kind):
+    """Row t of a T = 4 call at pos p equals a T = 1 call at p + t bit for
+    bit, 50 repeat launches give the first launch's bits, and K9 on pages
+    holding a dense cache's columns equals K6 on that cache."""
+    ps, mp = 32, 26
+    S = kd.SPLIT_K
+    q, kp, vp, table, _, ks, vs = _paged_case(kind, ps, 4, 2, seed=5,
+                                              dev=cuda, d=64, mp=mp)
+    q = q.to(torch.bfloat16)
+    pos = torch.tensor([S - 2, 2 * S - 1, ps * mp - 4], dtype=torch.int32,
+                       device=cuda)
+    block = kd.paged_flash_decode(q, kp, vp, table, pos, 0.125, ks, vs)
+    for t in range(4):
+        one = kd.paged_flash_decode(q[:, t:t + 1], kp, vp, table, pos + t,
+                                    0.125, ks, vs)
+        assert torch.equal(one[:, 0], block[:, t]), t
+    for _ in range(50):
+        assert torch.equal(kd.paged_flash_decode(q, kp, vp, table, pos,
+                                                 0.125, ks, vs), block)
+    tab = table.clamp(0, kp.shape[0] - 1)
+    dense = [None if x is None else kd.gather_pages(x, tab).contiguous()
+             for x in (kp, vp, ks, vs)]
+    assert torch.equal(kd.flash_block_decode(q, dense[0], dense[1], pos,
+                                             0.125, dense[2], dense[3]),
+                       block)
 
 
 @pytest.mark.gpu
