@@ -9,7 +9,8 @@ without them, and without the ``rlo_tpu_torch`` package beside it. Runs
 on one card: with several visible it pins itself to the first.
 Phases, each printing its own lines:
 
-1. Card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+1. Card: the count of cards ``nvidia-smi -L`` lists (before the pin),
+   ``nvidia-smi`` name and power limit, torch and CUDA versions;
    builds every kernel of the port from ``rlo_tpu_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); the SASS of the
    flash library must hold HMMA (tensor-core) instructions in every bf16
@@ -52,18 +53,19 @@ Phases, each printing its own lines:
    and pages
    of 256, and on pages holding a dense cache's columns, where it must
    equal K6 bit for bit; K10 and K11 (page writes) bit-identical,
-   sentinels included. K8, K10 and K11 also from the projection's views
-   (16-byte loads along hd, at hd 16-128; and one element off: scalar
-   loads; K10 also at hd 1 and two rows on one page) and in the pair form
+   sentinels included. K7, K8, K10 and K11 also from the projection's
+   views (16-byte loads along hd, at hd 16-128; and one element off:
+   scalar loads; K7 and K10 also at hd 1, K10 two rows on one page) and
+   in the pair form
    (k with v, the int8 scale pair): bit-identical, one launch a pair (the
    wrapper's count), 50 repeat launches the same bits, and the callers'
    k/v write runs that kernel and no copy (the profiler). Times each
    kernel, its plain version, its bound and one PyTorch call that
    computes the same function (K9: K6 on the equivalent dense cache
    instead; no single call pages); the writes also by device time (the
-   profiler) and by host time, K8, K10 and K11 from the path's own views,
-   with their k/v pair against two sliced or indexed assignments
-   (``time_k8``, ``time_k10``, ``time_k11``).
+   profiler) and by host time, K7, K8, K10 and K11 from the path's own
+   views, with their k/v pair against two sliced or indexed assignments
+   (``time_k7``, ``time_k8``, ``time_k10``, ``time_k11``).
 5. Serving at full width (the flagship config, vocab 32768, d 1024, 16
    heads, 8 layers, d_ff 4096, bf16, random weights from the seed):
    ``generate_timed`` at batch 32 / plen 1024 / 64 new tokens, the same
@@ -92,9 +94,10 @@ Phases, each printing its own lines:
    K2's m' on every row from the initial state and K4/K5 hold rtol 1e-4;
    100 repeat launches of K3-K5 give the bits of the first, and views
    (misaligned, transposed) the bits of their contiguous copies. Times
-   each kernel, its plain version, its bound and (K4, K5) the backward of
-   ``scaled_dot_product_attention`` at the same shape (its device time,
-   by the profiler: timed by events, the call is bound by the host).
+   each kernel by events and by device time, its plain version, its
+   bound and (K4, K5) the backward of ``scaled_dot_product_attention``
+   at the same shape (its device time, by the profiler: timed by events,
+   the call is bound by the host).
 8. The VJP (``FlashBlockUpdate``) in its three modes at 64 x 1024 x 64:
    'pallas' and 'pallas_fast' against 'xla' on one update and on a chain
    of two (the ring step); values bit-identical across the modes. The
@@ -117,8 +120,8 @@ Phases, each printing its own lines:
 
     python3 chip_smoke.py --time-writes
 
-runs only the K8, K10 and K11 timings of phase 4 and K1's of phase 2
-and prints them as one JSON line; they call nothing the port lacked
+runs only the K7, K8, K10 and K11 timings of phase 4 and K1's of phase
+2 and prints them as one JSON line; they call nothing the port lacked
 before the writes took views and pairs, so a copy of this file at the
 root of an older tree times that tree's kernels the same way.
 
@@ -128,6 +131,11 @@ likewise times K6 and K9 alone at the serving path's shapes (the
 flagship decode shape, 289 pages in turns with K6, GQA batch 4, a
 128-token prefill chunk) by device time, events and host time a call
 (``time_attend``), calling nothing the port lacked before the split.
+
+    python3 chip_smoke.py --time-k3
+
+likewise times K3 alone at the training shape, causal and not, by
+events and device time, with a digest of its counts (``time_k3``).
 
 Every profiled window (``profiled``: device times, the kernels a call
 runs) idles a few ms inside both of its edges; one that records no
@@ -212,7 +220,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, per: int = 1) -> float:
 #: idles inside its edges, after the profiler starts and before it
 #: stops: WINDOW_IDLE_S on its first take, ten times longer on each
 #: retake. A window that records no CUDA kernel at all is taken again,
-#: WINDOW_TAKES takes in all before it fails.
+#: WINDOW_TAKES takes in all before it fails (a K6/K9 window short of
+#: its launches too: ``_attend_device_ms``).
 WINDOW_IDLE_S = 0.005
 WINDOW_TAKES = 3
 #: profiled windows since the last ``windows_line``, and how many of them
@@ -821,21 +830,32 @@ def _attend_device_ms(fn, counted, paged, what, reps: int = 50) -> float:
     window of ``reps`` calls that is also the one-launch gate: the calls
     add exactly ``reps`` to ``counted``'s count (on the host) and the card
     ran ``reps`` launches of that kernel and nothing else (the profiler):
-    no copy of q, no second pass."""
+    no copy of q, no second pass. A window that shows fewer launches of
+    the kernel and nothing else lost records (see ``WINDOW_IDLE_S``) and
+    is taken again, ``WINDOW_TAKES`` takes in all before it fails."""
     fn()
-    before, taken = counted.launches, windows["taken"]
-    ran = profiled(fn, reps)
-    calls = reps * (windows["taken"] - taken)   # every take runs its calls
-    check(counted.launches == before + calls,
-          f"{what}: {calls} calls took {counted.launches - before} launches")
-    mine = {k: v for k, v in ran.items() if "decode_kernel" in k
-            and ("paged_decode_kernel" in k) == paged}
-    check(len(mine) == len(ran) and sum(c for c, _ in mine.values()) == reps,
-          f"{what}: the card ran {ran} in {reps} calls, not {reps} launches "
-          f"of its kernel")
-    us = sum(t for _, t in mine.values())
-    check(us > 0, f"{what}: the profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(WINDOW_TAKES):
+        before, taken = counted.launches, windows["taken"]
+        ran = profiled(fn, reps)
+        calls = reps * (windows["taken"] - taken)  # every take runs its calls
+        check(counted.launches == before + calls,
+              f"{what}: {calls} calls took {counted.launches - before} "
+              f"launches")
+        mine = {k: v for k, v in ran.items() if "decode_kernel" in k
+                and ("paged_decode_kernel" in k) == paged}
+        seen = sum(c for c, _ in mine.values())
+        check(len(mine) == len(ran) and seen <= reps,
+              f"{what}: the card ran {ran} in {reps} calls, not {reps} "
+              f"launches of its kernel")
+        if seen == reps:
+            us = sum(t for _, t in mine.values())
+            check(us > 0, f"{what}: the profiler recorded no device time")
+            return us / reps / 1e3
+        print(f"[{what}] the profiler recorded {seen} of {reps} launches; "
+              f"window taken again")
+    raise RuntimeError(f"chip_smoke: FAILED: {what}: the card ran {ran} in "
+                       f"{reps} calls, not {reps} launches of its kernel, in "
+                       f"{WINDOW_TAKES} windows")
 
 
 def phase_k6(dev) -> dict:
@@ -1210,6 +1230,41 @@ def _print_write_times(name, shape, st, bound_what) -> None:
             print(f"[{name.lower()}] {k} {st[k]:.5f}")
 
 
+def time_k7(dev, gen) -> dict:
+    """K7 at the dense decode step's shape, bf16: rows (32, 16, 64) into
+    column pos_b of a (32, 16, 64, 1088) cache, per-row positions. The
+    single form from the decode step's ``k[:, 0]`` view of the projection
+    and the k/v pair through ``generate._write_rows``, each beside indexed
+    assignment from the same views. Calls only what the parent tree has
+    too (``--time-writes``)."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import generate as G
+    b, L = 32, 1088
+    lc = {x: torch.randn(b, 16, 64, L, generator=gen,
+                         device=dev).to(torch.bfloat16) for x in "kv"}
+    kv = _row_views(b, 16, 64, torch.bfloat16, gen, dev)
+    pos = torch.randint(0, L, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    bidx, pidx = torch.arange(b, device=dev), pos.long()
+    cache = lc["k"]
+
+    def lib_view():
+        cache[bidx, :, :, pidx] = kv[0]
+
+    def lib_pair():
+        lc["k"][bidx, :, :, pidx] = kv[0]
+        lc["v"][bidx, :, :, pidx] = kv[1]
+
+    st = _write_times(lambda: kd.write_kv_row(cache, kv[0], pos), lib_view,
+                      lambda: G._write_rows(lc, kv[0], kv[1], pos), lib_pair)
+    st.update(
+        plain_ms=time_ms(lambda: kd.write_kv_row_plain(cache, kv[0], pos)),
+        bound_ms=(2 * kv[0].numel() * 2 + b * 4) / PEAK_HBM_BYTES_S * 1e3,
+        bound_by="bytes")
+    return st
+
+
 def time_k8(dev, gen) -> dict:
     """K8 at the dense server's block-decode shape, bf16: a (1, 16, 64,
     64) block into columns 64.. of a (1, 16, 64, 256) cache. The single
@@ -1362,9 +1417,11 @@ def time_k10(dev, gen) -> dict:
 
 def phase_writes(dev) -> dict:
     """K7 and K8 bit-identical to their plain versions, out-of-range
-    positions included (they must leave the cache unchanged); K8 also
-    from the projection's views and in the pair form; then their times
-    at the serving path's shapes, by events and by device time, beside
+    positions included (they must leave the cache unchanged); K8 from the
+    projection's views and K7 from the decode step's, each also in the
+    pair form (one launch, 50 repeats the same bits); the decode step's
+    k/v write one K7 launch and no copy; then their times at the serving
+    path's shapes, by events, by device time and by host time, beside
     indexed assignment's."""
     import torch
     from rlo_tpu_torch.kernels import decode as kd
@@ -1453,32 +1510,54 @@ def phase_writes(dev) -> dict:
                           device=dev).to(torch.bfloat16) for _ in range(2)]
     _same_repeats(kd.write_kv_block, caches, kv, (ragged,),
                   "K8 bf16 views pair")
+    # K7 from the decode step's views (16-byte loads along hd, and one
+    # element off: scalar loads) and from contiguous rows, single and pair
+    # form, at hd 1 (the scale sidecars' view) and 16-128; per-row
+    # positions with drops past the end and below 0, and shared ones
+    rpos = torch.randint(0, L, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rpos[:3] = torch.tensor([L, L + 999, -5], device=dev)
+    shared = [torch.tensor(x, dtype=torch.int32, device=dev)
+              for x in (37, L, -1)]
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        for hd in (1, 16, 32, 64, 128):
+            if dtype == torch.int8:
+                caches = [torch.randint(-127, 128, (b, 16, hd, L),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int8) for _ in range(2)]
+            else:
+                caches = [torch.randn(b, 16, hd, L, generator=gen,
+                                      device=dev).to(dtype) for _ in range(2)]
+            for layout in ("view", "misaligned", "contiguous"):
+                kv = _row_views(b, 16, hd, dtype, gen, dev,
+                                layout == "misaligned")
+                if layout == "contiguous":
+                    kv = tuple(x.contiguous() for x in kv)
+                for pos in [rpos] + shared:
+                    what = (f"K7 {dtype} hd {hd} {layout} rows, pos "
+                            f"{'per row' if pos.dim() else int(pos)}")
+                    same(lambda c: kd.write_kv_row(c, kv[0], pos),
+                         lambda c: kd.write_kv_row_plain(c, kv[0], pos),
+                         caches[0], what)
+                    _same_pair(kd.write_kv_row, kd.write_kv_row_plain,
+                               caches, kv, (pos,), what + " pair")
+                    n += 1
+    kv = _row_views(b, 16, 64, torch.bfloat16, gen, dev)
+    caches = [torch.randn(b, 16, 64, L, generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2)]
+    _same_repeats(kd.write_kv_row, caches, kv, (rpos,), "K7 bf16 views pair")
     print(f"[k7/k8] {n} cases (bf16/int8/f32 caches and f32 scale "
           f"sidecars, batch 32 x L 1088, ragged and scalar pos incl. out of "
           f"range, T 64 blocks straddling the end; K8 from the projection's "
           f"views at hd 16-128 (16-byte loads) and one element off (scalar "
           f"loads), single and k/v pair (one launch), and the int8 scale "
-          f"pair) bit-identical to the plain versions; the bf16 views pair "
-          f"50 times over, the same bits")
+          f"pair; K7 from the decode step's views at hd 1-128, one element "
+          f"off and contiguous, single and pair (one launch), positions "
+          f"per row and shared, past the end and negative) bit-identical to "
+          f"the plain versions; the bf16 views pairs 50 times over, the "
+          f"same bits")
 
-    out = {}
-    cache = torch.randn(32, 16, 64, 1088, generator=gen,
-                        device=dev).to(torch.bfloat16)
-    row = torch.randn(32, 16, 64, generator=gen, device=dev) \
-        .to(torch.bfloat16)
-    pos = torch.randint(0, 1088, (32,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    bidx = torch.arange(32, device=dev)
-
-    def lib_row():
-        cache[bidx, :, :, pos] = row
-
-    out["K7"] = dict(
-        _write_times(lambda: kd.write_kv_row(cache, row, pos), lib_row),
-        plain_ms=time_ms(lambda: kd.write_kv_row_plain(cache, row, pos)),
-        bound_ms=(2 * row.numel() * 2 + 32 * 4) / PEAK_HBM_BYTES_S * 1e3,
-        bound_by="bytes")
-    out["K8"] = time_k8(dev, gen)
+    out = {"K7": time_k7(dev, gen), "K8": time_k8(dev, gen)}
     lc = {x: torch.zeros(1, 16, 64, 256, device=dev, dtype=torch.bfloat16)
           for x in "kv"}
     kv = _proj_views((1,), 64, 16, 64, torch.bfloat16, gen, dev)
@@ -1486,8 +1565,24 @@ def phase_writes(dev) -> dict:
     _one_launch(lambda: G._write_block(lc, kv[0].transpose(2, 3),
                                        kv[1].transpose(2, 3), p0),
                 kd.write_kv_block, "write_block_kernel", "K8")
+    # the decode step's k/v write: one K7 launch and no copy; an int8
+    # layer's write is two launches (k with v, ks with vs)
+    lc = {x: torch.zeros(b, 16, 64, L, device=dev, dtype=torch.bfloat16)
+          for x in "kv"}
+    kv = _row_views(b, 16, 64, torch.bfloat16, gen, dev)
+    _one_launch(lambda: G._write_rows(lc, kv[0], kv[1], rpos),
+                kd.write_kv_row, "write_row_kernel", "K7")
+    lc8 = {x: torch.zeros(b, 16, 64, L, device=dev, dtype=torch.int8)
+           for x in "kv"}
+    lc8.update({x: torch.zeros(b, 16, L, device=dev) for x in ("ks", "vs")})
+    before = kd.write_kv_row.launches
+    G._write_rows(lc8, kv[0], kv[1], rpos)
+    check(kd.write_kv_row.launches == before + 2,
+          f"an int8 layer's row write took "
+          f"{kd.write_kv_row.launches - before} K7 launches, not 2")
     for name, shape, st, what in (
-            ("K7", "row (32, 16, 64) into (32, 16, 64, 1088)", out["K7"],
+            ("K7", "rows (32, 16, 64) from the decode step's view into "
+                   "(32, 16, 64, 1088)", out["K7"],
              "rows read + bytes written"),
             ("K8", "block (1, 16, 64, 64) from the projection's view into "
                    "(1, 16, 64, 256)", out["K8"],
@@ -1810,7 +1905,7 @@ def phase_page_writes(dev) -> dict:
     entry = {"k": pools[0], "v": pools[1]}
     _one_launch(lambda: PG.paged_write_rows(entry, kv[0], kv[1], None, None,
                                             rows_page, rows_off),
-                kd.write_kv_page_row, "write_page_row_kernel", "K10")
+                kd.write_kv_page_row, "write_row_kernel", "K10")
     kv = _proj_views((), ps, 16, 64, torch.bfloat16, gen, dev)
     pg, o0, nv = (torch.tensor([x], dtype=torch.int32, device=dev)
                   for x in (17, 0, ps))
@@ -2524,21 +2619,57 @@ def phase_k345(dev) -> dict:
             (5, lambda: kf.bwd_dkv(*ops, **kw),
              lambda: kf.bwd_dkv_plain(*ops, **kw), lib)):
         ms = time_ms(kern, iters=10, per=10)
+        dev_ms = device_ms(kern, 50)
         plain_ms = time_ms(plain, iters=5)
         bound, by = _bwd_bound(which, h, n, n, d, 2, pairs)
-        stats[f"K{which}"] = dict(ms=ms, plain_ms=plain_ms,
+        stats[f"K{which}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                                   library_ms=library, bound_ms=bound,
                                   bound_by=by, max_abs_err=worst[which])
         print(f"[k3-k5] K{which} causal {h} heads x {n} x 64 bf16: kernel "
-              f"{ms:.4f} ms a launch in runs of 10, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms "
-              f"({by}), kernel at {100 * bound / ms:.1f}% of bound")
+              f"{ms:.4f} ms a launch in runs of 10, {dev_ms:.5f} ms device, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"kernel at {100 * bound / dev_ms:.1f}% of bound by device "
+              f"time ({100 * bound / ms:.1f}% by events)")
     k45 = stats['K4']['ms'] + stats['K5']['ms']
     print(f"[k3-k5] scaled_dot_product_attention backward at the same "
           f"shape (the yardstick of K4+K5, {k45:.4f} ms): device {lib:.4f} "
           f"ms by the profiler ({k45 / lib:.2f}x), {lib_events:.4f} ms a "
           f"call in runs of 10 by CUDA events (host time included)")
     return stats
+
+
+def time_k3(dev) -> dict:
+    """K3 alone at the training shape (``BWD_SHAPE`` folded heads x L x
+    64, bf16, from the initial state), causal and not: CUDA-event ms a
+    launch in runs of 10 and device ms by the profiler, beside the bound,
+    and a digest of the counts (equal digests: equal counts). Calls only
+    what the parent tree has too (``--time-k3``)."""
+    import hashlib
+    import torch
+    from rlo_tpu_torch.kernels import flash as kf
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    h, n = BWD_SHAPE
+    q, k, v = (torch.randn(h, n, 64, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    m = torch.full((h, 1, n), kf.NEG, device=dev)
+    state = (m, torch.zeros_like(m), torch.zeros(h, n, 64, device=dev))
+    pos = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, n)
+    out = {}
+    for causal in (True, False):
+        kw = dict(causal=causal, scale=0.125)
+        with torch.no_grad():
+            m2 = kf.flash_block_update_hld(q, k, v, *state, pos, pos,
+                                           **kw)[0]
+        f = lambda: kf.rowstats(q, k, m2, pos, pos, **kw)  # noqa: E731
+        cnt = f()
+        pairs = h * (n * (n + 1) // 2 if causal else n * n)
+        bound, by = _bwd_bound(3, h, n, n, 64, 2, pairs)
+        out["causal" if causal else "non-causal"] = dict(
+            ms=time_ms(f, iters=10, per=10), device_ms=device_ms(f, 50),
+            bound_ms=bound, bound_by=by,
+            counts_sha1=hashlib.sha1(cnt.cpu().numpy().tobytes())
+            .hexdigest()[:12])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2883,6 +3014,19 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def cards_line() -> str:
+    """How many cards the machine has, as ``nvidia-smi -L`` lists them
+    (read before ``pin_one_card`` hides all but the first)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], check=True,
+                             capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"[cards] nvidia-smi -L failed: {e}"
+    n = sum(line.startswith("GPU ") for line in out.splitlines())
+    return f"[cards] nvidia-smi -L lists {n} card(s)"
+
+
 def pin_one_card() -> None:
     """Run on one card: with several visible, keep the first (before
     CUDA starts), so the device count the last line reports is the
@@ -2926,7 +3070,7 @@ def check_tensor_cores() -> None:
             hmma[fn] = 0
         elif fn and "HMMA" in line:
             hmma[fn] += 1
-    kinds = {"K2": "flash_fwd_", "K3": "flash_rowstats_kernel",
+    kinds = {"K2": "flash_fwd_", "K3": "flash_rowstats_",
              "K4": "flash_bwd_dq_", "K5": "flash_bwd_dkv_"}
     seen = {}
     for fn, n in hmma.items():
@@ -2977,6 +3121,7 @@ def kernel_entry(name, source, replaces, launches, st, path,
 
 
 def main() -> int:
+    print(cards_line())
     pin_one_card()
     import torch
     if not torch.cuda.is_available():
@@ -3006,12 +3151,20 @@ def main() -> int:
         windows_line("time-decode")
         print(json.dumps(times))
         return 0
+    if sys.argv[1:] == ["--time-k3"]:
+        from rlo_tpu_torch.kernels import build
+        build.load("flash")
+        times = time_k3(dev)
+        windows_line("time-k3")
+        print(json.dumps(times))
+        return 0
     if sys.argv[1:] == ["--time-writes"]:
         from rlo_tpu_torch.kernels import build
         build.load("decode")
         build.load("reduce")
         gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-        times = {"K8": time_k8(dev, gen), "K10": time_k10(dev, gen),
+        times = {"K7": time_k7(dev, gen), "K8": time_k8(dev, gen),
+                 "K10": time_k10(dev, gen),
                  "K11": time_k11(dev, gen), "K1": time_k1(dev, gen, N_FULL)}
         windows_line("time-writes")
         print(json.dumps(times))
@@ -3121,7 +3274,8 @@ def main() -> int:
                          for k in ("ms", "device_ms", "bound_ms")}),
         kernel_entry("K7 write_kv_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:141",
-                     served["write_kv_row"], w_stats["K7"], serve_p),
+                     served["write_kv_row"], w_stats["K7"], serve_p,
+                     launch_unit=PAIR_LAUNCH),
         kernel_entry("K8 write_kv_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:168",
                      served["write_kv_block"], w_stats["K8"], serve_p,

@@ -81,31 +81,31 @@
 // over 3.35 TB/s.
 //
 // K7 replaces rlo_tpu/pallas/decode.py:_write_row_kernel (write_kv_row):
-// cache[b, :, :, pos_b] = row[b]; a position outside [0, L) matches no
-// column and its write is dropped, as on the TPU. pos is read on the device:
-// stride 0 (one shared position) or 1 (one per row). Bound: the bytes
-// written (plus the rows read); one thread per element, element size 1, 2
-// or 4 bytes.
-//
+// cache[b, :, :, pos_b] = row[b]; a position outside [0, L) (negative ones
+// included) matches no column and its write is dropped, as on the TPU; pos
+// is read on the device, stride 0 (one shared position) or 1 (one per row).
 // K10 replaces _write_page_row_kernel (write_kv_page_row): row b lands at
 // pool[page_b, :, :, off_b], page clamped into [0, P-1]; an off outside
 // [0, ps) (the server's off = ps sentinel for inactive slots) drops the
 // write. Two rows on one page both land (the TPU kernel rereads a revisited
 // page as it was and keeps only the last row's write; the server never
-// lets two slots write one page). One launch writes up to two (pool, row)
-// pairs (k with v, or the int8 scale sidecars through their (P, kvh, 1, ps)
-// views, hd = 1), and reads each row in place through its strides: the
+// lets two slots write one page).
+// One kernel serves both (write_row_kernel): the dense cache (b, kvh, hd, L)
+// is a pool of b pages whose page is the batch row (a null page pointer)
+// and whose lane is pos_b. One launch writes up to two (destination, row)
+// pairs (k with v, or the int8 scale sidecars through their (.., kvh, 1,
+// L) views, hd = 1), and reads each row in place through its strides: the
 // decode step passes k[:, 0] of the projection, hd contiguous and batch
-// rows 3 * d apart. A thread owns 16 bytes of one (pair, batch row, kv head)
-// row along hd: one 16-byte load where the view allows (hd contiguous, the
-// address aligned), else scalar loads, issued together with the loads of
-// page_b and off_b (nothing waits on those before the stores), then one
-// store per element, ps elements apart (the pool is seq-minor). A decode
-// step's write is 64 KB (bf16, 32 rows x 16 heads x 64): latency and the
-// scattered 2-byte stores, not bytes, bound it, so the design keeps to one
-// wave of one-warp blocks spread over the SMs, with no shared memory and no
-// barrier (write_block_kernel's transposing tile would leave 63 of its 64
-// token lanes idle at T = 1).
+// rows 3 * d apart. A thread owns 16 bytes of one (pair, batch row, kv
+// head) row along hd: one 16-byte load where the view allows (hd
+// contiguous, the address aligned), else scalar loads, issued together
+// with the loads of page_b and the lane (nothing waits on those before the
+// stores), then one store per element, L (ps) elements apart (the cache is
+// seq-minor). A decode step's write is 64 KB (bf16, 32 rows x 16 heads x
+// 64): latency and the scattered 2-byte stores, not bytes, bound it, so the
+// design keeps to one wave of one-warp blocks spread over the SMs, with no
+// shared memory and no barrier (write_block_kernel's transposing tile
+// would leave 63 of its 64 token lanes idle at T = 1).
 //
 // K8 replaces _write_block_kernel (write_kv_block): cache[b, :, :, pos0_b + t]
 // = rows[b, :, :, t], t < T <= 128, columns outside [0, L) dropped. K11
@@ -641,29 +641,18 @@ int dispatch_cache(int cache_code, int HD, const DecodeArgs& a,
   return -1;
 }
 
-// K7 row copies, by element size
-template <typename E>
-__global__ void write_row_kernel(E* cache, const E* row, const int* pos, int b,
-                                 int inner, int L, int pos_stride) {
-  int64_t n = (int64_t)b * inner;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    int bi = (int)(i / inner);
-    int p = pos[bi * pos_stride];
-    if (p >= 0 && p < L) cache[i * L + p] = row[i];
-  }
-}
-
-// K10: one launch writes up to two (pool, row) pairs of one row per batch row.
-// A block is one warp, so that a decode step's scattered stores spread over
-// every SM (blocks of 128 threads kept them on 32 SMs and ran slower).
+// K7 / K10: one launch writes up to two (destination, row) pairs of one row
+// per batch row. A block is one warp, so that a decode step's scattered
+// stores spread over every SM (blocks of 128 threads kept them on 32 SMs and
+// ran slower).
 constexpr int kRThreads = 32;
 
-struct PageRowWrite {
+struct RowWrite {
   void* dst[2];                   // (P, H, D, ps) contiguous
   const void* src[2];             // element (bi, h, d) at
   long long sb[2], sh[2], sd[2];  //   bi*sb + h*sh + d*sd
-  const int* page;                // page[bi * page_stride], clamped
+  const int* page;                // page[bi * page_stride], clamped; null:
+                                  //   the batch row bi (K7, nb == P)
   const int* off;                 // off[bi * off_stride], kept in [0, ps)
   int page_stride, off_stride;
   int nb, H, D, P, ps, n_chunks;  // n_chunks: 16-byte chunks of a row
@@ -671,7 +660,7 @@ struct PageRowWrite {
 
 template <typename E>
 __global__ void __launch_bounds__(kRThreads)
-write_page_row_kernel(PageRowWrite a) {
+write_row_kernel(RowWrite a) {
   constexpr int VEC = 16 / (int)sizeof(E);
   // the pair by selects, not a run-time index into the parameters (which
   // would copy them to local memory)
@@ -683,7 +672,7 @@ write_page_row_kernel(PageRowWrite a) {
   const int d0 = (i % a.n_chunks) * VEC;
   const int nd = a.D - d0 < VEC ? a.D - d0 : VEC;
   const int o = __ldg(a.off + (long long)bi * a.off_stride);
-  int pg = __ldg(a.page + (long long)bi * a.page_stride);
+  int pg = a.page ? __ldg(a.page + (long long)bi * a.page_stride) : bi;
   const long long sd = second ? a.sd[1] : a.sd[0];
   const E* src = static_cast<const E*>(second ? a.src[1] : a.src[0]) +
                  bi * (second ? a.sb[1] : a.sb[0]) +
@@ -839,27 +828,13 @@ write_block_kernel(BlockWrite a) {
   }
 }
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 template <typename E>
-int launch_write_row(void* cache, const void* row, const int* pos, int b,
-                     int inner, int L, int ps, cudaStream_t s) {
-  write_row_kernel<E><<<grid_for((int64_t)b * inner), 256, 0, s>>>(
-      static_cast<E*>(cache), static_cast<const E*>(row), pos, b, inner, L, ps);
-  return (int)cudaGetLastError();
-}
-
-template <typename E>
-int launch_page_row(PageRowWrite& a, int pairs, cudaStream_t s) {
+int launch_row_write(RowWrite& a, int pairs, cudaStream_t s) {
   a.n_chunks = (a.D + 16 / (int)sizeof(E) - 1) / (16 / (int)sizeof(E));
   const long long n = (long long)a.nb * a.H * a.n_chunks;
   if (n > 0x7fffffffLL - kRThreads) return -1;
   dim3 grid((unsigned)((n + kRThreads - 1) / kRThreads), pairs);
-  write_page_row_kernel<E><<<grid, kRThreads, 0, s>>>(a);
+  write_row_kernel<E><<<grid, kRThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -950,42 +925,28 @@ extern "C" int rlo_decode_attend(const void* params, void* stream) {
                  : dispatch_cache<false>(p.cache_code, p.HD, a, sc, s);
 }
 
-// K7. cache (b, inner, L), row (b, inner), inner = kvh * hd.
-extern "C" int rlo_write_kv_row(void* cache, const void* row, const void* pos,
-                                int b, int inner, int L, int elem_size,
-                                int pos_per_row, void* stream) {
-  if (b <= 0 || inner <= 0 || L <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto ip = static_cast<const int*>(pos);
-  int ps = pos_per_row ? 1 : 0;
-  switch (elem_size) {
-    case 1: return launch_write_row<uint8_t>(cache, row, ip, b, inner, L, ps, s);
-    case 2: return launch_write_row<uint16_t>(cache, row, ip, b, inner, L, ps, s);
-    case 4: return launch_write_row<uint32_t>(cache, row, ip, b, inner, L, ps, s);
-  }
-  return -1;
-}
-
-// K10: up to two (pool, row) pairs (dst1 null: one pair), one launch,
-// described by one parameter block. pool (P, H, D, ps) contiguous; row
-// element (bi, h, d) at bi*sb + h*sh + d*sd elements from its pointer,
-// bi < nb; row bi lands in lane off[bi * off_stride] of page
+// K7 and K10: up to two (destination, row) pairs (dst1 null: one pair), one
+// launch, described by one parameter block. Destination (P, H, D, ps)
+// contiguous; row element (bi, h, d) at bi*sb + h*sh + d*sd elements from
+// its pointer, bi < nb; row bi lands in lane off[bi * off_stride] of page
 // page[bi * page_stride] (clamped into [0, P-1]) when that lane lies in
-// [0, ps). Returns -2 when the two pairs alias.
-struct PageRowParams {
+// [0, ps). K7 passes a null page: the dense cache (b, H, D, L) is P = nb
+// pages whose page is the batch row, and off is pos. Returns -2 when the
+// two pairs alias.
+struct RowWriteParams {
   uint64_t dst0, src0, dst1, src1;
   int64_t sb0, sh0, sd0, sb1, sh1, sd1;
   uint64_t page, off;
   int32_t page_stride, off_stride, nb, H, D, P, ps, elem_size;
 };
-static_assert(sizeof(PageRowParams) == 128, "packed as <4Q6q2Q8i");
+static_assert(sizeof(RowWriteParams) == 128, "packed as <4Q6q2Q8i");
 
-extern "C" int rlo_write_kv_page_rows(const void* params, void* stream) {
-  PageRowParams p;
+extern "C" int rlo_write_kv_rows(const void* params, void* stream) {
+  RowWriteParams p;
   memcpy(&p, params, sizeof p);
   if (p.nb <= 0 || p.H <= 0 || p.D <= 0) return 0;
-  if (p.P <= 0 || p.ps <= 0 || !p.dst0 || !p.src0 || !p.page || !p.off ||
-      (!p.dst1) != (!p.src1))
+  if (p.P <= 0 || p.ps <= 0 || !p.dst0 || !p.src0 || !p.off ||
+      (!p.page && p.nb != p.P) || (!p.dst1) != (!p.src1))
     return -1;
   if (p.dst1) {
     auto end = [&](uint64_t s, int64_t sb, int64_t sh, int64_t sd) {
@@ -999,17 +960,17 @@ extern "C" int rlo_write_kv_page_rows(const void* params, void* stream) {
       return -2;
   }
   auto ptr = [](uint64_t x) { return reinterpret_cast<void*>(x); };
-  PageRowWrite a{{ptr(p.dst0), ptr(p.dst1)}, {ptr(p.src0), ptr(p.src1)},
-                 {p.sb0, p.sb1}, {p.sh0, p.sh1}, {p.sd0, p.sd1},
-                 static_cast<const int*>(ptr(p.page)),
-                 static_cast<const int*>(ptr(p.off)), p.page_stride,
-                 p.off_stride, p.nb, p.H, p.D, p.P, p.ps, 0};
+  RowWrite a{{ptr(p.dst0), ptr(p.dst1)}, {ptr(p.src0), ptr(p.src1)},
+             {p.sb0, p.sb1}, {p.sh0, p.sh1}, {p.sd0, p.sd1},
+             static_cast<const int*>(ptr(p.page)),
+             static_cast<const int*>(ptr(p.off)), p.page_stride, p.off_stride,
+             p.nb, p.H, p.D, p.P, p.ps, 0};
   const int pairs = p.dst1 ? 2 : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p.elem_size) {
-    case 1: return launch_page_row<uint8_t>(a, pairs, s);
-    case 2: return launch_page_row<uint16_t>(a, pairs, s);
-    case 4: return launch_page_row<uint32_t>(a, pairs, s);
+    case 1: return launch_row_write<uint8_t>(a, pairs, s);
+    case 2: return launch_row_write<uint16_t>(a, pairs, s);
+    case 4: return launch_row_write<uint32_t>(a, pairs, s);
   }
   return -1;
 }

@@ -752,10 +752,16 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 // are most of the bytes).
 //
 // Design, by dtype:
-// - K3 (both dtypes) and the f32 K4/K5 take the CUDA cores: 256 threads,
-//   each a 4 x 4 patch of the 64 x 64 score tile and a 4 x (D/16) patch of
-//   the output, from f32 tiles in shared memory (K3's bf16 scores come from
-//   mma_scores through a shared f32 tile).
+// - The f32 K3-K5 take the CUDA cores: 256 threads, each a 4 x 4 patch of
+//   the 64 x 64 score tile and a 4 x (D/16) patch of the output, from f32
+//   tiles in shared memory.
+// - bf16 K3 (flash_rowstats_mma_kernel) is K4's shape with one product:
+//   each warp owns 16 query rows (kK3Warps warps a block), its Q fragments
+//   in registers, K tiles of 64 keys and their positions double-buffered by
+//   cp.async; the scores land in mma C fragments, where the mask, the
+//   multiply by scale and the compare with m' run, and each lane keeps its
+//   share of a row's count in a register (no shared score tile, one barrier
+//   a tile).
 // - bf16 K4 and K5 run every product on the tensor cores (mma.sync
 //   m16n8k16, f32 accumulation). The f32 operands do', ds~ and p are split
 //   exactly into bf16 hi + lo (split_bf16: ~16 bits, against bf16's 8,
@@ -790,98 +796,35 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// A 64-row bf16 tile (row stride D + 8) for the mma score routine, zero
-// past n_rows; 16-byte copies (the wrapper checks the alignment).
+// Dynamic shared memory of the f32 CUDA-core kernels: f32 row tiles (row
+// stride D + 1) and f32 score tiles (row stride SP).
 template <int D>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
-                                               int r0, int n_rows, int tid) {
-  constexpr int CH = D / 8;
-  for (int i = tid; i < 64 * CH; i += kThreads) {
-    int r = i / CH, c = i % CH, gr = r0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < n_rows)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = x;
-  }
-}
-
-// The raw 64 x 64 score tile of bf16 tiles qb (query rows) and kb (key
-// rows) into sc (row stride SP) by mma_scores: warp w takes the 16 query
-// rows 16 * (w % 4) against the 32 keys 32 * (w / 4).
-template <int D>
-__device__ __forceinline__ void mma_score_tile(const bf16* qb, const bf16* kb,
-                                               float* sc, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
-  uint32_t qf[D / 16][4];
-  load_q_frags<D>(qf, qb + r0 * (D + 8), lane);
-  float s[4][4];
-  mma_scores<D, 4>(qf, kb + c0 * (D + 8), lane, s);
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sc[(r0 + g + (e >> 1) * 8) * SP + c0 + j * 8 + t4 * 2 + (e & 1)] = s[j][e];
-}
-
-// This thread's 4 x 4 patch (rows ty*4+i, columns tx+16*j) of the raw
-// score tile: tile_dots on the f32 tiles, or (bf16) the mma tile through
-// sc. Every thread of the block calls it (bf16: a barrier inside); sc may
-// be a tile the caller later writes at the same patch positions.
-template <typename T, int D>
-__device__ __forceinline__ void score_patch(const float* qs, const float* ks,
-                                            const bf16* qb, const bf16* kb,
-                                            float* sc, int tid,
-                                            float s[4][4]) {
-  const int ty = tid / 16, tx = tid % 16;
-  if constexpr (kTensor<T>) {
-    mma_score_tile<D>(qb, kb, sc, tid);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = sc[(ty * 4 + i) * SP + tx + 16 * j];
-  } else {
-    tile_dots<D>(qs, ks, ty, tx, s);
-  }
-}
-
-// Dynamic shared memory of the CUDA-core kernels: f32 row tiles (row
-// stride D + 1), f32 score tiles (row stride SP) and, for bf16 (K3), the
-// two bf16 score-operand tiles (64 x (D + 8) each, the bytes of 64 x
-// (D + 8) floats).
-template <typename T, int D>
 constexpr size_t bwd_smem_bytes(int f32_row_tiles, int score_tiles) {
   return sizeof(float) * ((size_t)f32_row_tiles * 64 * (D + 1) +
-                          (size_t)score_tiles * 64 * SP +
-                          (kTensor<T> ? (size_t)64 * (D + 8) : 0));
+                          (size_t)score_tiles * 64 * SP);
 }
 
-template <typename T, int D>
+// K3, f32 route: 256 threads, each a 4 x 4 patch of the 64 x 64 score tile
+// by tile_dots from f32 tiles in shared memory.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const float* __restrict__ m2,
-                      const int* __restrict__ qpos,
-                      const int* __restrict__ kpos, float* __restrict__ cnt,
-                      int Lq, int Lk, int causal, float scale) {
+flash_rowstats_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ m2,
+                          const int* __restrict__ qpos,
+                          const int* __restrict__ kpos,
+                          float* __restrict__ cnt, int Lq, int Lk, int causal,
+                          float scale) {
   extern __shared__ float smem[];
-  // f32: qs | ks (BQ, BK x D + 1); bf16: qb | kb (64 x D + 8) | sc (BQ x SP)
-  float* qs = smem;
-  float* ks = qs + BQ * (D + 1);
-  bf16* qb = reinterpret_cast<bf16*>(smem);
-  bf16* kb = qb + 64 * (D + 8);
-  float* sc = smem + 64 * (D + 8);
+  float* qs = smem;              // BQ x D + 1
+  float* ks = qs + BQ * (D + 1); // BK x D + 1
   __shared__ float m2_s[BQ];
   __shared__ int qp_s[BQ], kp_s[BK];
   __shared__ int qmax_s;
 
   const int tid = threadIdx.x, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const T* kh = k + (size_t)h * Lk * D;
-  if constexpr (kTensor<T>)
-    load_rows_bf16<D>(qb, q + (size_t)h * Lq * D, q0, Lq, tid);
-  else
-    load_rows<D>(qs, q + (size_t)h * Lq * D, q0, Lq, tid);
+  const float* kh = k + (size_t)h * Lk * D;
+  load_rows<D>(qs, q + (size_t)h * Lq * D, q0, Lq, tid);
   if (tid < BQ) {
     int qr = q0 + tid;
     bool ok = qr < Lq;
@@ -908,13 +851,10 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       continue;
     }
-    if constexpr (kTensor<T>)
-      load_rows_bf16<D>(kb, kh, k0, Lk, tid);
-    else
-      load_rows<D>(ks, kh, k0, Lk, tid);
+    load_rows<D>(ks, kh, k0, Lk, tid);
     __syncthreads();
     float s[4][4];
-    score_patch<T, D>(qs, ks, qb, kb, sc, tid, s);
+    tile_dots<D>(qs, ks, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       int r = ty * 4 + i;
@@ -936,6 +876,185 @@ flash_rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       n[i] += __shfl_xor_sync(kFull, n[i], off);
     int qr = q0 + ty * 4 + i;
     if (tx == 0 && qr < Lq) cnt[(size_t)h * Lq + qr] = (float)n[i];
+  }
+}
+
+// Warps of a bf16 K3 block, each 16 query rows.
+constexpr int kK3Warps = 4;
+constexpr int K3Q = 16 * kK3Warps;         // query rows of a block
+constexpr int kK3Threads = 32 * kK3Warps;
+
+template <int D>
+constexpr size_t rowstats_mma_smem_bytes() {  // the Q tile, 2 K tiles, bf16
+  return sizeof(bf16) * (size_t)(K3Q + 2 * BK) * (D + 8);
+}
+
+// K3, bf16 route: K4's shape without V or do'. Each warp owns 16 query rows
+// (a block of kK3Warps warps K3Q) with its Q fragments in registers; K tiles
+// of 64 keys and their positions are double-buffered by cp.async; the
+// scores come from mma_scores into C fragments, and the mask, the __fmul_rn
+// by scale and the compare with m' run there, in registers. A row's count
+// is split over the 4 lanes of its quad and summed by shuffles at the end.
+// A causal tile that no row of the warp (outside [first, last]: of the
+// block) can see is counted in closed form: a row ties its kvalid positions
+// exactly when its m' is -1e30.
+template <int D>
+__global__ void __launch_bounds__(kK3Threads)
+flash_rowstats_mma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const float* __restrict__ m2,
+                          const int* __restrict__ qpos,
+                          const int* __restrict__ kpos,
+                          float* __restrict__ cnt, int Lq, int Lk, int causal,
+                          float scale) {
+  constexpr int DS = D + 8;             // bf16 row stride in shared memory
+  constexpr int CH = D / 8;             // 16-byte chunks per row
+  constexpr int RPP = kK3Threads / CH;  // rows per pass of the block's copies
+  constexpr int NS = BK / 8;            // score fragments (8 keys each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // K3Q x DS
+  bf16* ks = qs + K3Q * DS;                      // 2 x BK x DS
+  __shared__ int kp_s[2][BK];
+  __shared__ int span_s[3];  // max query position; first, last live tile
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y;
+  // the longest causal rows first: they finish last
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * K3Q;
+  const size_t hq = (size_t)h * Lq;
+  const bf16* kh = k + (size_t)h * Lk * D;
+  const int cr = tid / CH, cc = (tid % CH) * 8;
+
+  for (int r = cr; r < K3Q; r += RPP) {
+    const bool ok = q0 + r < Lq;
+    cp_async16(qs + r * DS + cc, q + (hq + (ok ? q0 + r : 0)) * D + cc, ok);
+  }
+  cp_async_commit();
+
+  bool ok[2];
+  int qp[2];
+  float mr[2];
+  int wmax = INT_MIN;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + warp * 16 + g + 8 * hf;
+    ok[hf] = r < Lq;
+    qp[hf] = ok[hf] ? qpos[r] : INT_MIN;
+    mr[hf] = ok[hf] ? m2[hq + r] : 0.f;
+    if (ok[hf]) wmax = max(wmax, qp[hf]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    wmax = max(wmax, __shfl_xor_sync(kFull, wmax, off));
+  const bool warp_rows = __any_sync(kFull, ok[0]);
+
+  // the K tiles some row of the block may see, as in K2
+  const int ntiles = (Lk + BK - 1) / BK;
+  int first = 0, last = ntiles - 1;
+  if (causal) {
+    if (tid == 0) {
+      span_s[0] = INT_MIN;
+      span_s[1] = INT_MAX;
+      span_s[2] = -1;
+    }
+    __syncthreads();
+    if (lane == 0) atomicMax(&span_s[0], wmax);
+    __syncthreads();
+    const int qmax = span_s[0];
+    int f = INT_MAX, l = -1;
+    for (int i = tid; i < Lk; i += kK3Threads)
+      if (kpos[i] <= qmax) {
+        f = min(f, i / BK);
+        l = i / BK;
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      f = min(f, __shfl_xor_sync(kFull, f, off));
+      l = max(l, __shfl_xor_sync(kFull, l, off));
+    }
+    if (lane == 0) {
+      atomicMin(&span_s[1], f);
+      atomicMax(&span_s[2], l);
+    }
+    __syncthreads();
+    first = span_s[1];
+    last = span_s[2];
+  }
+
+  auto load_tile = [&](int t, int buf) {
+    const int k0 = t * BK;
+    bf16* kd = ks + buf * BK * DS + cc;
+    for (int r = cr; r < BK; r += RPP) {
+      const bool in = k0 + r < Lk;
+      cp_async16(kd + r * DS, kh + (size_t)(in ? k0 + r : 0) * D + cc, in);
+    }
+    if (tid < BK) {
+      const bool in = k0 + tid < Lk;
+      cp_async4(&kp_s[buf][tid], kpos + (in ? k0 + tid : 0), in);
+    }
+    cp_async_commit();
+  };
+
+  // the tiles outside [first, last] hold only masked positions
+  const int live_cols =
+      first <= last ? min(Lk, (last + 1) * BK) - first * BK : 0;
+  int n[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    n[hf] = t4 == 0 && mr[hf] == kNeg ? Lk - live_cols : 0;
+
+  if (first <= last)
+    load_tile(first, 0);
+  else
+    cp_async_commit();
+  cp_async_wait<1>();  // the Q tile
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(qf, qs + warp * 16 * DS, lane);
+
+  for (int t = first, buf = 0; t <= last; ++t, buf ^= 1) {
+    if (t < last)
+      load_tile(t + 1, buf ^ 1);  // freed by the last iteration's barrier
+    else
+      cp_async_commit();
+    cp_async_wait<1>();  // tile t
+    __syncthreads();
+
+    const int k0 = t * BK, kvalid = min(BK, Lk - k0);
+    const int* kp = kp_s[buf];
+    bool sees = false;
+#pragma unroll
+    for (int c = lane; c < BK; c += 32)
+      sees |= c < kvalid && (!causal || kp[c] <= wmax);
+    // warp-uniform: a tile none of the warp's rows sees, in closed form
+    if (!__any_sync(kFull, sees)) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        n[hf] += t4 == 0 && mr[hf] == kNeg ? kvalid : 0;
+    } else if (warp_rows) {
+      float s[NS][4];
+      mma_scores<D, NS>(qf, ks + buf * BK * DS, lane, s);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + t4 * 2 + (e & 1), hf = e >> 1;
+          const bool mask = !causal || kp[c] <= qp[hf];
+          const float st = mask ? __fmul_rn(s[j][e], scale) : kNeg;
+          n[hf] += c < kvalid && st == mr[hf];
+        }
+    }
+    __syncthreads();  // every warp is done with buf before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    n[hf] += __shfl_xor_sync(kFull, n[hf], 1);
+    n[hf] += __shfl_xor_sync(kFull, n[hf], 2);
+    if (t4 == 0 && ok[hf])
+      cnt[hq + q0 + warp * 16 + g + 8 * hf] = (float)n[hf];
   }
 }
 
@@ -1715,12 +1834,18 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
   dim3 qgrid((Lq + BQ - 1) / BQ, H), kgrid((Lk + BK - 1) / BK, H);
   int e;
   if (which == 3) {
-    // bf16 stages its score operands in place of the two f32 row tiles
-    constexpr int R = kTensor<T> ? 1 : 0;
-    constexpr size_t smem = bwd_smem_bytes<T, D>(2 - 2 * R, R);
-    if ((e = set_smem(flash_rowstats_kernel<T, D>, smem))) return e;
-    flash_rowstats_kernel<T, D><<<qgrid, kThreads, smem, stream>>>(
-        tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
+    if constexpr (kTensor<T>) {
+      constexpr size_t smem = rowstats_mma_smem_bytes<D>();
+      if ((e = set_smem(flash_rowstats_mma_kernel<D>, smem))) return e;
+      flash_rowstats_mma_kernel<D>
+          <<<dim3((Lq + K3Q - 1) / K3Q, H), kK3Threads, smem, stream>>>(
+              tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
+    } else {
+      constexpr size_t smem = bwd_smem_bytes<D>(2, 0);
+      if ((e = set_smem(flash_rowstats_f32_kernel<D>, smem))) return e;
+      flash_rowstats_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
+          tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
+    }
   } else if (which == 4) {
     if constexpr (kTensor<T>) {
       constexpr size_t smem = dq_mma_smem_bytes<D>();
@@ -1729,7 +1854,7 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
           tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal,
           scale);
     } else {
-      constexpr size_t smem = bwd_smem_bytes<T, D>(4, 1);
+      constexpr size_t smem = bwd_smem_bytes<D>(4, 1);
       if ((e = set_smem(flash_bwd_dq_f32_kernel<D>, smem))) return e;
       flash_bwd_dq_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
           tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal,
@@ -1744,7 +1869,7 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
           tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
           scale);
     } else {
-      constexpr size_t smem = bwd_smem_bytes<T, D>(4, 2);
+      constexpr size_t smem = bwd_smem_bytes<D>(4, 2);
       if ((e = set_smem(flash_bwd_dkv_f32_kernel<D>, smem))) return e;
       flash_bwd_dkv_f32_kernel<D><<<kgrid, kThreads, smem, stream>>>(
           tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,

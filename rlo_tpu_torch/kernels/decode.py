@@ -8,7 +8,8 @@ The port of ``rlo_tpu/pallas/decode.py``'s kernels:
     row b at position ``pos0_b + t`` attending cache positions <= it;
     bf16 or f32 caches, or int8 caches with f32 scale sidecars;
   - ``write_kv_row`` (Pallas ``_write_row_kernel``): one (kv_heads,
-    head_dim) column per batch row at ``pos_b``;
+    head_dim) column per batch row at ``pos_b``, up to two (cache, row)
+    pairs in one launch (K10's kernel, the page being the batch row);
   - ``write_kv_block`` (Pallas ``_write_block_kernel``): T <= 128
     consecutive columns from ``pos0_b``, up to two (cache, rows) pairs in
     one launch;
@@ -21,10 +22,11 @@ The port of ``rlo_tpu/pallas/decode.py``'s kernels:
     prefill chunk of T <= page_size tokens into one page, up to two (pool,
     rows) pairs in one launch.
 
-K8, K10 and K11 read their rows in place through the rows' strides (the
-callers pass the projection's (.., T, kv_heads, head_dim) output as a
-view; only a dtype other than the cache's is converted first), and a k/v
-pair (or the int8 scale pair) costs one launch.
+The writes (K7, K8, K10, K11) read their rows in place through the
+rows' strides (the callers pass the projection's (.., T, kv_heads,
+head_dim) output as a view; only a dtype other than the cache's is
+converted first), and a k/v pair (or the int8 scale pair) costs one
+launch.
 
 Each launches its CUDA kernel in ``csrc/decode.cu`` for CUDA tensors and
 takes its ``*_plain`` twin only for CPU tensors. Layouts are the JAX
@@ -383,7 +385,7 @@ def flash_decode(q, k_cache, v_cache, pos, scale, k_scale=None,
 
 
 # ---------------------------------------------------------------------------
-# K7 / K8: in-place cache writes
+# The in-place cache writes (K7 with K10 below, K8 with K11)
 # ---------------------------------------------------------------------------
 
 def _check_write(cache, rows, want_rows, kind,
@@ -393,49 +395,6 @@ def _check_write(cache, rows, want_rows, kind,
                          f"got {tuple(cache.shape)}, {tuple(rows.shape)}")
     if rows.get_device() != cache.get_device():
         raise ValueError(f"{kind}: rows and cache on different devices")
-
-
-def write_kv_row_plain(cache, row, pos):
-    """Plain version of K7: ``cache[b, :, :, pos_b] = row[b]`` in place,
-    dropping rows whose position lies outside [0, L)."""
-    b, L = cache.shape[0], cache.shape[3]
-    _check_write(cache, row, tuple(cache.shape[:3]), "write_kv_row")
-    posv = _positions(_pos_vector(pos, b, cache.device), b).long()
-    ok = (posv >= 0) & (posv < L)
-    idx = torch.nonzero(ok).flatten()
-    if idx.numel():
-        cache[idx, :, :, posv[idx]] = row[idx].to(cache.dtype)
-    return cache
-
-
-def write_kv_row(cache, row, pos):
-    """K7: write ``row`` (b, kvh, hd) into column ``pos_b`` of ``cache``
-    (b, kvh, hd, L) in place and return the cache. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    b, nkv, d, L = cache.shape
-    _check_write(cache, row, (b, nkv, d), "write_kv_row")
-    if _on("write_kv_row", cache):
-        return write_kv_row_plain(cache, row, pos)
-    if not cache.is_contiguous():
-        raise ValueError("K7 needs a contiguous cache")
-    row = row.to(cache.dtype).contiguous()
-    pos = _pos_vector(pos, b, cache.device)
-    if cache.numel() == 0:
-        return cache
-    fn = _lib_fn("rlo_write_kv_row",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(cache.device):
-        rc = fn(cache.data_ptr(), row.data_ptr(), pos.data_ptr(), b,
-                nkv * d, L, cache.element_size(), 1 if pos.dim() else 0,
-                _stream(cache.device))
-    if rc != 0:
-        raise RuntimeError(f"K7 row-write launch failed: CUDA error {rc}")
-    _count(write_kv_row)
-    return cache
-
-
-write_kv_row.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -730,10 +689,52 @@ def write_kv_page_row_plain(pool, row, page, off, pool2=None, row2=None):
     return pool
 
 
-#: the parameter block of ``rlo_write_kv_page_rows`` (csrc/decode.cu):
-#: dst0, src0, dst1, src1; the two rows' (batch, head, d) strides; page,
-#: off; page_stride, off_stride, nb, H, D, P, ps, element size
-_PAGE_ROW_PARAMS = struct.Struct("<4Q6q2Q8i")
+#: the parameter block of ``rlo_write_kv_rows`` (csrc/decode.cu): dst0,
+#: src0, dst1, src1; the two rows' (batch, head, d) strides; page (0: the
+#: batch row), off; page_stride, off_stride, nb, H, D, P, ps, element size
+_ROW_PARAMS = struct.Struct("<4Q6q2Q8i")
+
+
+def _launch_rows(kind, counted, dst, row, dst2, row2, page, off) -> None:
+    """One K7/K10 launch over one or two (destination, rows) pairs, the
+    rows read in place through their strides; ``page`` None is K7's
+    dense cache (page = batch row), else K10's (b,) or shared page."""
+    if not dst.is_contiguous() or not (dst2 is None or dst2.is_contiguous()):
+        raise ValueError(f"{kind} needs contiguous destinations")
+    if row.numel() == 0 or dst.numel() == 0:
+        return
+    if row.dtype != dst.dtype:
+        row = row.to(dst.dtype)
+    p1, s1 = (0, 0), (0, 0, 0)
+    if dst2 is not None:
+        if row2.dtype != dst.dtype:
+            row2 = row2.to(dst.dtype)
+        p1, s1 = (dst2.data_ptr(), row2.data_ptr()), row2.stride()
+    b = row.shape[0]
+    dev = dst.device
+    off = _pos_vector(off, b, dev)
+    pg, pg_stride = 0, 0
+    if page is not None:
+        page = _pos_vector(page, b, dev)
+        pg, pg_stride = page.data_ptr(), page.stride(0) if page.dim() else 0
+    P, nkv, d, ps = dst.shape
+    params = _ROW_PARAMS.pack(
+        dst.data_ptr(), row.data_ptr(), *p1, *row.stride(), *s1, pg,
+        off.data_ptr(), pg_stride, off.stride(0) if off.dim() else 0, b,
+        nkv, d, P, ps, dst.element_size())
+    fn = _lib_fn("rlo_write_kv_rows", _BLOCK_ARGTYPES)
+    index = dev.index
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(params, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(params, _stream(index))
+    if rc == -2:
+        raise _alias_error(counted.__name__)
+    if rc != 0:
+        raise RuntimeError(f"{kind} row write launch failed: CUDA error {rc} "
+                           f"({b} x {nkv} x {d}, {dst.dtype})")
+    _count(counted)
 
 
 def write_kv_page_row(pool, row, page, off, pool2=None, row2=None):
@@ -743,46 +744,53 @@ def write_kv_page_row(pool, row, page, off, pool2=None, row2=None):
     the device. ``pool2``/``row2`` (the same shapes and dtype, aliasing
     neither of the first pair) are written by the same launch. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
-    b = _check_page_row(pool, row, pool2, row2)
+    _check_page_row(pool, row, pool2, row2)
     if _on("write_kv_page_row", pool):
         return write_kv_page_row_plain(pool, row, page, off, pool2, row2)
-    if not pool.is_contiguous() or not (pool2 is None
-                                        or pool2.is_contiguous()):
-        raise ValueError("K10 needs contiguous pools")
-    if row.numel() == 0:
-        return pool
-    if row.dtype != pool.dtype:
-        row = row.to(pool.dtype)
-    p1, s1 = (0, 0), (0, 0, 0)
-    if pool2 is not None:
-        if row2.dtype != pool.dtype:
-            row2 = row2.to(pool.dtype)
-        p1, s1 = (pool2.data_ptr(), row2.data_ptr()), row2.stride()
-    dev = pool.device
-    page, off = _pos_vector(page, b, dev), _pos_vector(off, b, dev)
-    P, nkv, d, ps = pool.shape
-    params = _PAGE_ROW_PARAMS.pack(
-        pool.data_ptr(), row.data_ptr(), *p1, *row.stride(), *s1,
-        page.data_ptr(), off.data_ptr(), page.stride(0) if page.dim() else 0,
-        off.stride(0) if off.dim() else 0, b, nkv, d, P, ps,
-        pool.element_size())
-    fn = _lib_fn("rlo_write_kv_page_rows", _BLOCK_ARGTYPES)
-    index = dev.index
-    if torch._C._cuda_getDevice() == index:
-        rc = fn(params, _stream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = fn(params, _stream(index))
-    if rc == -2:
-        raise _alias_error("write_kv_page_row")
-    if rc != 0:
-        raise RuntimeError(f"K10 page-row write launch failed: CUDA error "
-                           f"{rc} ({b} x {nkv} x {d}, {pool.dtype})")
-    _count(write_kv_page_row)
+    _launch_rows("K10", write_kv_page_row, pool, row, pool2, row2, page, off)
     return pool
 
 
 write_kv_page_row.launches = 0
+
+
+def _check_row(cache, row, cache2, row2) -> None:
+    """K7's shapes (and the pair's)."""
+    _check_write(cache, row, tuple(cache.shape[:3]), "write_kv_row")
+    _check_pair("write_kv_row", cache, row, cache2, row2)
+
+
+def write_kv_row_plain(cache, row, pos, cache2=None, row2=None):
+    """Plain version of K7: ``cache[b, :, :, pos_b] = row[b]`` in place,
+    dropping rows whose position lies outside [0, L); the same for
+    (``cache2``, ``row2``) when given."""
+    _check_row(cache, row, cache2, row2)
+    _check_alias("write_kv_row", cache, row, cache2, row2)
+    b, L = cache.shape[0], cache.shape[3]
+    posv = _positions(_pos_vector(pos, b, cache.device), b).long()
+    idx = torch.nonzero((posv >= 0) & (posv < L)).flatten()
+    if idx.numel():
+        for c, r in _pairs(cache, row, cache2, row2):
+            c[idx, :, :, posv[idx]] = r[idx].to(c.dtype)
+    return cache
+
+
+def write_kv_row(cache, row, pos, cache2=None, row2=None):
+    """K7: write ``row`` (b, kvh, hd), any strides, into column ``pos_b``
+    of ``cache`` (b, kvh, hd, L) in place and return the cache; ``pos``
+    is (b,) int32 or one shared value, read on the device. ``cache2``/
+    ``row2`` (the same shapes and dtype, aliasing neither of the first
+    pair) are written by the same launch. K10's kernel, the cache a pool
+    whose page is the batch row. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    _check_row(cache, row, cache2, row2)
+    if _on("write_kv_row", cache):
+        return write_kv_row_plain(cache, row, pos, cache2, row2)
+    _launch_rows("K7", write_kv_row, cache, row, cache2, row2, None, pos)
+    return cache
+
+
+write_kv_row.launches = 0
 
 
 def _check_page_block(pool, rows, pool2, rows2) -> int:

@@ -341,7 +341,7 @@ def _launch_bwd(wrapper, symbol: str, label: str, ops: dict, outs,
 
 
 def _grad_out(shape, ops: dict):
-    """An f32 output of K4/K5: uninitialised when the kernel launches
+    """An f32 output of K3-K5: uninitialised when the kernel launches
     (it writes every element), zeros for the empty shapes that launch
     nothing."""
     h, lq, _ = ops["q"].shape
@@ -362,7 +362,7 @@ def rowstats(q, k, m2, q_pos, k_pos, *, causal: bool = False,
     _check_bwd(q, k, None, q_pos, k_pos, m2=m2)
     ops = _launch_operands("K3", dict(q=q, k=k, m2=m2, q_pos=q_pos,
                                       k_pos=k_pos), q.shape[2])
-    cnt = torch.zeros_like(ops["m2"])
+    cnt = _grad_out(ops["m2"].shape, ops)
     _launch_bwd(rowstats, "rlo_flash_rowstats", "K3 rowstats", ops, (cnt,),
                 causal, scale)
     return cnt

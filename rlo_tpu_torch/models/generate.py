@@ -99,17 +99,18 @@ def _attend_cache_block(q, k_cache, v_cache, pos0, scale, k_scale=None,
 
 
 def _write_rows(lc, k_row, v_row, posv):
-    """One decode step's cache write (in place, K7); returns the scale
-    sidecars for the attend (None for unquantised caches)."""
+    """One decode step's cache write (in place, K7): the rows may be
+    views (the decode step's ``k[:, 0]`` of the projection, read in
+    place); k with v, and the scales, each take one launch. Returns the
+    scale sidecars for the attend (None for unquantised caches)."""
     if "ks" in lc:
         k_row, ks_new = _quantize_kv(k_row)
         v_row, vs_new = _quantize_kv(v_row)
         # the sidecars ride the same kernel through the (b, kvh, 1, L)
         # view of their (b, kvh, L) storage
-        write_kv_row(lc["ks"][:, :, None, :], ks_new[:, :, None], posv)
-        write_kv_row(lc["vs"][:, :, None, :], vs_new[:, :, None], posv)
-    write_kv_row(lc["k"], k_row, posv)
-    write_kv_row(lc["v"], v_row, posv)
+        write_kv_row(lc["ks"][:, :, None, :], ks_new[:, :, None], posv,
+                     lc["vs"][:, :, None, :], vs_new[:, :, None])
+    write_kv_row(lc["k"], k_row, posv, lc["v"], v_row)
     return lc.get("ks"), lc.get("vs")
 
 

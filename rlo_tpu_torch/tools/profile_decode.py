@@ -36,9 +36,8 @@ import time
 #: CUDA function names; cuBLAS/CUTLASS products by theirs)
 GROUPS = (("K9 paged decode attention", ("paged_decode_kernel",)),
           ("K6 decode attention", ("decode_kernel",)),
-          ("K10 page row write", ("write_page_row_kernel",)),
+          ("K7/K10 row write", ("write_row_kernel",)),
           ("K8/K11 block write", ("write_block_kernel",)),
-          ("K7 cache write", ("write_row_kernel",)),
           ("K2 flash", ("flash_fwd_",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",
                                "cublas")))

@@ -32,7 +32,7 @@ from rlo_tpu_torch.tools.profile_decode import _report, trace
 #: kernel-name fragments of each group (the port's kernels by their CUDA
 #: function names; cuBLAS/CUTLASS products by theirs)
 GROUPS = (("K2 flash forward", ("flash_fwd_",)),
-          ("K3 tie counts", ("flash_rowstats_kernel",)),
+          ("K3 tie counts", ("flash_rowstats_",)),
           ("K4 flash dq", ("flash_bwd_dq_",)),
           ("K5 flash dk/dv", ("flash_bwd_dkv_",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet",

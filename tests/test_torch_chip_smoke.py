@@ -191,6 +191,21 @@ def test_attend_device_ms_fails_on_other_kernels_or_counts(stub, window,
         cs._attend_device_ms(path, path.counted, False, "K6")
 
 
+def test_attend_device_ms_takes_a_short_window_again(stub):
+    """A window that shows fewer launches of the kernel and nothing else
+    lost records: it is taken again, and the next full window gives the
+    time; short windows only fail after ``WINDOW_TAKES`` takes."""
+    stub.windows = [[_evt(K6, 49, 98.0)], [_evt(K6, 50, 100.0)]]
+    path = _counted(1)
+    assert cs._attend_device_ms(path, path.counted, False, "K6") == \
+        pytest.approx(100.0 / 50 / 1e3)
+    assert path.counted.launches == 1 + 50 + 50
+    stub.windows = [[_evt(K6, 49)]]
+    stub.opened = 0
+    with pytest.raises(RuntimeError, match=f"in {cs.WINDOW_TAKES} windows"):
+        cs._attend_device_ms(path, path.counted, False, "K6")
+
+
 @pytest.mark.parametrize("launches", [0, 2])
 def test_attend_device_ms_counts_launches_on_the_host(stub, launches):
     stub.windows = [[_evt(K6, 50)]]

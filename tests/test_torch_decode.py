@@ -157,6 +157,98 @@ def test_write_row_out_of_range_is_dropped():
     np.testing.assert_array_equal(tc.numpy(), cache)
 
 
+def _proj_rows(b, nkv, hd, dtype, seed):
+    """k and v rows (b, kvh, hd) as the decode step hands them to K7:
+    k[:, 0] and v[:, 0] of one (b, 1, 3 * kvh * hd) projection output (hd
+    contiguous, batch rows 3 * kvh * hd apart); their numpy copies beside
+    them."""
+    rng = np.random.default_rng(seed)
+    w = nkv * hd
+    proj = (rng.integers(-127, 127, (b, 1, 3 * w)).astype(np.int8)
+            if dtype == "int8"
+            else rng.standard_normal((b, 1, 3 * w)).astype(np.float32))
+    t = torch.from_numpy(proj)
+    views = [t[:, 0, a:a + w].reshape(b, nkv, hd) for a in (w, 2 * w)]
+    assert not views[0].is_contiguous()
+    return views, [np.ascontiguousarray(x.numpy()) for x in views]
+
+
+def _jax_rows(caches, rows, pos):
+    return [np.asarray(jdec.write_kv_row(jnp.asarray(c), jnp.asarray(r),
+                                         jnp.asarray(pos), interpret=True))
+            for c, r in zip(caches, rows)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+@pytest.mark.parametrize("pos", ["shared", "per-row"])
+def test_write_row_pair_matches_two_pallas_writes(dtype, pos):
+    """K7's pair form from the decode step's views, k with v in one call
+    (for int8 also the f32 scale sidecars' pair at hd 1, through their
+    (b, kvh, 1, L) views), bit-equal to two calls of the Pallas kernel on
+    the same inputs; the wrapper's CPU path is the plain version."""
+    L = 256
+    p = np.int32(129) if pos == "shared" else np.array([0, L - 1, 131],
+                                                        np.int32)
+    caches = [_cache(L, dtype, seed=70 + i) for i in range(2)]
+    views, rows = _proj_rows(B, NKV, D, dtype, 72)
+    pairs = [(caches, views, rows)]
+    if dtype == "int8":
+        rng = np.random.default_rng(74)
+        scales = [rng.random((B, NKV, 1, L)).astype(np.float32)
+                  for _ in range(2)]
+        pairs.append((scales,) + _proj_rows(B, NKV, 1, "f32", 75))
+    for dsts, views, rows in pairs:
+        want = _jax_rows(dsts, rows, p)
+        got = from_numpy(dsts, "cpu")
+        wrapped = from_numpy(dsts, "cpu")
+        if dsts[0].shape[2] == 1:           # the sidecars' (b, kvh, L)
+            got = [g[:, :, 0] for g in got]
+            wrapped = [g[:, :, 0] for g in wrapped]
+            got4 = [g[:, :, None, :] for g in got]
+            wr4 = [g[:, :, None, :] for g in wrapped]
+        else:
+            got4, wr4 = got, wrapped
+        assert kd.write_kv_row_plain(got4[0], views[0], torch.as_tensor(p),
+                                     got4[1], views[1]) is got4[0]
+        kd.write_kv_row(wr4[0], views[0], torch.as_tensor(p), wr4[1],
+                        views[1])
+        for g, w, x in zip(got4, want, wr4):
+            np.testing.assert_array_equal(g.numpy(), w)
+            assert torch.equal(x, g)
+        assert not np.array_equal(want[0], dsts[0])
+
+
+def test_write_row_pair_drops_out_of_range_and_refuses_aliases():
+    """The pair form drops positions outside [0, L), past the end and
+    negative, shared or per row (the Quirk
+    ``test_write_row_out_of_range_is_dropped`` pins); pairs that alias
+    raise where K10's do."""
+    L = 256
+    caches = from_numpy([_cache(L, "f32", seed=80 + i) for i in range(2)],
+                        "cpu")
+    before = [c.clone() for c in caches]
+    (kr, vr), _ = _proj_rows(B, NKV, D, "f32", 82)
+    for pos in (torch.tensor([L, L + 7, -3], dtype=torch.int32), L, -1,
+                torch.tensor(-128, dtype=torch.int32)):
+        kd.write_kv_row(caches[0], kr, pos, caches[1], vr)
+        for c, b in zip(caches, before):
+            assert torch.equal(c, b)
+    kd.write_kv_row(caches[0], kr, torch.tensor([-1, 5, L],
+                                                dtype=torch.int32),
+                    caches[1], vr)
+    for c, b, r in zip(caches, before, (kr, vr)):
+        b[1, :, :, 5] = r[1]
+        assert torch.equal(c, b)
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_row(caches[0], kr, 5, caches[1], caches[0][:, :, :, 0])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_row(caches[0], kr, 5, caches[0], vr)
+    with pytest.raises(ValueError, match="match the first"):
+        kd.write_kv_row(caches[0], kr, 5, caches[1], vr[:2])
+    with pytest.raises(ValueError, match="both tensors"):
+        kd.write_kv_row(caches[0], kr, 5, caches[1])
+
+
 def _as_view(rows, pad=0):
     """(b, kvh, hd, T) rows as the callers hand them to K8: a permuted
     view of the k slice of a (b, T, 3 * kvh * hd) projection output (hd
@@ -271,4 +363,4 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.load("decode")
     with pytest.raises(build.KernelBuildError):
-        kd._lib_fn("rlo_write_kv_row", [])
+        kd._lib_fn("rlo_write_kv_rows", [])

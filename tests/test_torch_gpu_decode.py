@@ -270,3 +270,70 @@ def test_block_write_repeats_the_same_bits_on_card(cuda):
         assert _same(a, first[0]) and _same(a2, first[1])
     with pytest.raises(ValueError, match="alias"):
         kd.write_kv_block(cache, rows, pos, cache2, cache[..., :100])
+
+
+def _step_rows(b, nkv, hd, kind, rng, dev, layout):
+    """(b, kvh, hd) rows in ``layout``: the decode step's ``k[:, 0]`` of
+    the k slice of a (b, 1, 3 * kvh * hd) projection output (hd
+    contiguous, 16-byte aligned: the kernel's 16-byte loads), that slice
+    one element off (scalar loads), or a contiguous copy."""
+    return _block_rows(b, nkv, hd, 1, kind, rng, dev, layout)[..., 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [1, 16, 64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_row_write_kernel_matches_plain_on_card(cuda, kind, hd, layout):
+    """K7, single and pair form, bit for bit against its plain version:
+    element sizes 4/2/1, hd 16-128 and the scale sidecars' hd = 1 view,
+    rows as the decode step's views (16-byte loads), one element off and
+    contiguous (scalar loads); positions at both ends, past L and negative
+    (dropped), shared and per row. A pair costs one launch."""
+    rng = np.random.default_rng(200 + hd)
+    b, nkv, L = 5, 2, 256
+    cache = _block_cache(b, nkv, hd, L, kind, rng, cuda)
+    cache2 = _block_cache(b, nkv, hd, L, kind, rng, cuda)
+    for p in (0, 77, L - 1, L, -1, [0, L - 1, L + 3, -2, 131],
+              [9, 9, 9, 200, 4]):
+        pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+        row = _step_rows(b, nkv, hd, kind, rng, cuda, layout)
+        row2 = _step_rows(b, nkv, hd, kind, rng, cuda, layout)
+        a, c = cache.clone(), cache.clone()
+        kd.write_kv_row(a, row, pos)
+        kd.write_kv_row_plain(c, row, pos)
+        torch.cuda.synchronize()
+        assert _same(a, c), (p, "single")
+        a2, c2 = cache2.clone(), cache2.clone()
+        before = kd.write_kv_row.launches
+        kd.write_kv_row(a, row, pos, a2, row2)
+        assert kd.write_kv_row.launches == before + 1
+        kd.write_kv_row_plain(c, row, pos, c2, row2)
+        torch.cuda.synchronize()
+        assert _same(a, c) and _same(a2, c2), (p, "pair")
+
+
+@pytest.mark.gpu
+def test_row_write_repeats_the_same_bits_on_card(cuda):
+    """50 launches of the bf16 k/v pair from the decode step's views (32
+    rows x 16 kv heads x 64 into L 1088) give the first launch's bits;
+    aliasing pairs raise."""
+    rng = np.random.default_rng(6)
+    b, L = 32, 1088
+    cache = _block_cache(b, 16, 64, L, "bf16", rng, cuda)
+    cache2 = _block_cache(b, 16, 64, L, "bf16", rng, cuda)
+    row = _step_rows(b, 16, 64, "bf16", rng, cuda, "view")
+    row2 = _step_rows(b, 16, 64, "bf16", rng, cuda, "view")
+    pos = torch.tensor(rng.integers(0, L, b), dtype=torch.int32, device=cuda)
+    first = None
+    for _ in range(50):
+        a, a2 = cache.clone(), cache2.clone()
+        kd.write_kv_row(a, row, pos, a2, row2)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (a, a2)
+        assert _same(a, first[0]) and _same(a2, first[1])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_row(cache, row, pos, cache2, cache[..., 0])
+    with pytest.raises(ValueError, match="alias"):
+        kd.write_kv_row(cache, row, pos, cache, row2)

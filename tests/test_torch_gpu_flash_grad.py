@@ -117,6 +117,44 @@ def test_bf16_ties_with_k2_max_on_card(cuda, h, hk, lq, lk, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 16),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64)])
+@pytest.mark.parametrize("lq,lk", [(33, 7), (129, 77), (256, 256),
+                                   (1024, 1024)])
+def test_tie_counts_match_plain_on_card(cuda, lq, lk, dtype, d):
+    """K3's counts equal ``rowstats_plain``'s exactly, each side on its
+    own forward's m' (the kernels': K2's; the plain version's: the plain
+    forward's), causal and not, from the initial state (every row ties
+    at least once) and from a carried one; repeat launches give the same
+    bits."""
+    h = 8 if lq < 1024 else 4
+    for causal in (True, False):
+        for carried in (False, True):
+            q, k, v, m, l, o, qp, kp = from_numpy(
+                make_hld(lq + lk + d, h, lq, lk, d), cuda)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            qp = qp + (lk - lq)
+            if not carried:
+                m = torch.full_like(m, tf.NEG)
+                l, o = torch.zeros_like(l), torch.zeros_like(o)
+            kw = dict(causal=causal, scale=0.125)
+            m2 = tf.flash_block_update_hld(q, k, v, m, l, o, qp, kp, **kw)[0]
+            m2p = tf.flash_block_update_hld_plain(q, k, v, m, l, o, qp, kp,
+                                                  **kw)[0]
+            cnt = tf.rowstats(q, k, m2, qp, kp, **kw)
+            again = tf.rowstats(q, k, m2, qp, kp, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(cnt, tf.rowstats_plain(q, k, m2p, qp, kp,
+                                                      **kw)), (causal, carried)
+            assert torch.equal(cnt, again)
+            if not carried:
+                assert bool((cnt >= 1).all()), (causal, int((cnt < 1).sum()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bwd", ["pallas", "pallas_fast"])
 def test_vjp_on_card_matches_xla_mode(cuda, bwd):
     """Each backward mode against autograd through the plain version
