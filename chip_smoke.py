@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one card: the rootless collectives, the
-dense serving path, the paged serving path and the training step.
+dense serving path, the paged serving path, the training step,
+speculative decoding and mixture-of-experts layers.
 
     python3 chip_smoke.py
 
@@ -115,8 +116,27 @@ Phases, each printing its own lines:
    equal to the single-process grads within the stated limit. K1, K2,
    K4 and K5's launch counts are set to 0 just before phase 9 and read
    after phase 10: each must have run.
-11. One JSON line of kernel figures, each with the path whose launches
-   it counts, then the last line ``{"ok": true, "device": {...}}``.
+11. Speculative decoding at full width: the flagship target with
+   spec_bench's draft (d 512, 8 heads, 2 layers, d_ff 2048, bf16),
+   batch 8, plen 256, 64 new tokens, gamma 4, with the random draft,
+   the target itself and the target plus seeded noise: greedy tokens
+   equal ``generate``'s up to a near-tie; the self-draft takes
+   ceil(63 / 4) rounds unless a near-tie parted draft and verify (each
+   parting at one); tokens per round and ms per emitted token beside
+   ``generate``'s. K6, K7 and K8's launch counts are set to 0 just
+   before the three runs and read just after.
+12. MoE at full width: the flagship's widths with 8 experts. Training
+   on 4 x 1024 as phase 9 (loss and grads against 'xla' mode, 10 SGD
+   steps falling, aux finite and > 0, the share of tokens dropped, the
+   step with the sorted dispatch forced beside it); serving drop-free
+   (capacity factor 8): ``generate`` at batch 32 / plen 1024 / 16 new
+   against the argmax of a teacher-forced ``forward``, a 16-request
+   ``DecodeServer`` against each prompt's own ``generate``, and 16
+   teacher-forced ``paged_decode_step``s beside ``decode_step``. K2,
+   K4-K10's launch counts are set to 0 before this phase and read after.
+13. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-12), then the last
+   line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
 
@@ -2214,39 +2234,21 @@ def paged_reference(params, cfg, reqs, ps, group):
     return out
 
 
-def phase_paged_serving(dev, counted) -> dict:
-    """Paged serving at full width on the flagship config: (a) a batch-32
-    prefill of 1024 tokens into a dense cache, its columns copied into
-    289 permuted pages, then 64 teacher-forced steps of
-    ``paged_decode_step`` beside ``decode_step`` (greedy tokens equal at
-    every position); (b) a paged ``DecodeServer`` with 32 requests that
-    share prefixes and repeat prompts, held against each request's own
-    paged reference (at least 24 of 32 to the end) and against each
-    prompt's own ``generate``, partings only at near-ties. ``counted`` kernels' launch
-    counts are set to 0 just before the server run and read just after
-    it."""
-    import numpy as np
+def paged_beside_dense(params, cfg, prompt, steps, gen, ps=128) -> dict:
+    """A dense prefill of ``prompt`` (b, plen) copied into permuted pages
+    of ``ps``, then ``steps`` teacher-forced ``paged_decode_step``s
+    beside ``decode_step``: greedy tokens equal at every step. Returns
+    the page count, the largest logit difference and the median step
+    times."""
     import torch
-    from rlo_tpu_torch.kernels import decode as kd
     from rlo_tpu_torch.models import generate as G
     from rlo_tpu_torch.models import paged as PG
-    from rlo_tpu_torch.models import serve as S
-    from rlo_tpu_torch.models.transformer import (TransformerConfig,
-                                                  cast_params, init_params)
-    from rlo_tpu_torch.utils.metrics import Registry
 
-    out = {}
-    cfg = TransformerConfig(**SERVE_CFG)
-    params = cast_params(init_params(cfg, seed=SEED, device=dev),
-                         cfg.act_dtype)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    b, plen, steps, ps = PAGED_TF["batch"], PAGED_TF["plen"], \
-        PAGED_TF["steps"], 128
+    dev = prompt.device
+    b, plen = prompt.shape
     L = plen + steps
     mp = -(-L // ps)
     P = b * mp + 1
-    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
-                           device=dev, dtype=torch.int32)
     cache = G.init_kv_cache(cfg, b, L, device=dev)
     logits, _ = G.prefill(params, prompt, cache, cfg)
     table = (torch.randperm(P - 1, generator=gen, device=dev)[:b * mp] + 1) \
@@ -2273,16 +2275,47 @@ def phase_paged_serving(dev, counted) -> dict:
               f"paged and dense greedy tokens differ at step {i}")
         dmax = max(dmax, abs_err(pl, dl))
         tok, pos = dtok, pos + 1
-    out["teacher_forced"] = dict(
-        steps=steps, max_abs_logit_diff=dmax,
-        dense_ms_per_step=statistics.median(dense_ms),
-        paged_ms_per_step=statistics.median(paged_ms))
+    return dict(pages=P, steps=steps, max_abs_logit_diff=dmax,
+                dense_ms_per_step=statistics.median(dense_ms),
+                paged_ms_per_step=statistics.median(paged_ms))
+
+
+def phase_paged_serving(dev, counted) -> dict:
+    """Paged serving at full width on the flagship config: (a) a batch-32
+    prefill of 1024 tokens into a dense cache, its columns copied into
+    289 permuted pages, then 64 teacher-forced steps of
+    ``paged_decode_step`` beside ``decode_step`` (greedy tokens equal at
+    every position); (b) a paged ``DecodeServer`` with 32 requests that
+    share prefixes and repeat prompts, held against each request's own
+    paged reference (at least 24 of 32 to the end) and against each
+    prompt's own ``generate``, partings only at near-ties. ``counted`` kernels' launch
+    counts are set to 0 just before the server run and read just after
+    it."""
+    import numpy as np
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.models import serve as S
+    from rlo_tpu_torch.models.transformer import (TransformerConfig,
+                                                  cast_params, init_params)
+    from rlo_tpu_torch.utils.metrics import Registry
+
+    out = {}
+    cfg = TransformerConfig(**SERVE_CFG)
+    params = cast_params(init_params(cfg, seed=SEED, device=dev),
+                         cfg.act_dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, plen, steps = PAGED_TF["batch"], PAGED_TF["plen"], PAGED_TF["steps"]
+    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                           device=dev, dtype=torch.int32)
+    out["teacher_forced"] = tf = paged_beside_dense(params, cfg, prompt,
+                                                    steps, gen)
     print(f"[paged] teacher-forced batch {b}, plen {plen}, {steps} steps, "
-          f"{P} pages of {ps} (permuted): greedy tokens equal at every step, "
-          f"max |paged - dense logit| {dmax}; median step dense "
-          f"{out['teacher_forced']['dense_ms_per_step']:.3f} ms, paged "
-          f"{out['teacher_forced']['paged_ms_per_step']:.3f} ms")
-    del cache, pools
+          f"{tf['pages']} pages of 128 (permuted): greedy tokens equal at "
+          f"every step, max |paged - dense logit| "
+          f"{tf['max_abs_logit_diff']}; median step dense "
+          f"{tf['dense_ms_per_step']:.3f} ms, paged "
+          f"{tf['paged_ms_per_step']:.3f} ms")
+    ps = 128
 
     rng = np.random.default_rng(SEED + 1)
     reqs = paged_requests(cfg.vocab, rng)
@@ -2999,12 +3032,406 @@ def phase_dp(dev, train) -> dict:
             "loss_rel": lrel}
 
 
-def _to_device(tree, device):
+# ---------------------------------------------------------------------------
+# Phase 11: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+#: the draft of benchmarks/spec_bench.py:288-293 beside the flagship
+#: target, and its run (spec_bench's batch 8 and plen 256)
+SPEC_DRAFT = dict(vocab=32768, d_model=512, n_heads=8, n_layers=2,
+                  d_ff=2048, dtype="bfloat16")
+SPEC_RUN = dict(batch=8, plen=256, max_new=64, gamma=4)
+#: the perturbed draft's noise, times each weight tensor's spread: the
+#: reference's 0.03 absolute (tests/test_speculative.py:60-69) exceeds
+#: the flagship's embedding scale and no proposal is ever accepted
+SPEC_NOISE = 0.3
+
+
+@contextlib.contextmanager
+def _recording_picks(SP, cfg):
+    """For the duration, every ``decode_step`` (the draft's) and
+    ``block_decode`` (the verify's) that ``speculative_generate`` calls
+    records its greedy picks and their top-2 gaps on the host."""
+    import torch
+    rec = {"draft": [], "verify": []}
+    orig = SP.decode_step, SP.block_decode
+
+    def note(kind, logits):
+        flat = logits.reshape(-1, logits.shape[-1])
+        rec[kind].append((
+            torch.argmax(flat, -1).reshape(logits.shape[:-1]).cpu().numpy(),
+            top2_gap(flat, cfg).reshape(logits.shape[:-1]).float().cpu()
+            .numpy()))
+
+    def draft_step(*a, **kw):
+        logits, cache = orig[0](*a, **kw)
+        note("draft", logits)
+        return logits, cache
+
+    def verify(*a, **kw):
+        logits, cache = orig[1](*a, **kw)
+        note("verify", logits)
+        return logits, cache
+
+    SP.decode_step, SP.block_decode = draft_step, verify
+    try:
+        yield rec
+    finally:
+        SP.decode_step, SP.block_decode = orig
+
+
+def _partings(rec, gamma, max_new):
+    """Replay a greedy run's acceptance from its recorded picks: the
+    (round, row, gap) of each row still short of ``max_new`` whose draft
+    pick parted from the verify's before the last proposal (a
+    rejection), with the verify's scaled top-2 gap there."""
+    import numpy as np
+    d = [rec["draft"][r * gamma:(r + 1) * gamma]
+         for r in range(len(rec["verify"]))]
+    n_out, out = None, []
+    for r, (t_pick, t_gap) in enumerate(rec["verify"]):
+        d_pick = np.stack([p for p, _ in d[r]], axis=1)      # (b, gamma)
+        if n_out is None:
+            n_out = np.ones(len(t_pick), np.int64)
+        acc = np.cumprod(d_pick == t_pick, axis=1).sum(axis=1)
+        for row in np.nonzero(n_out < max_new)[0]:
+            if acc[row] < gamma - 1:
+                out.append((r, int(row), float(t_gap[row, acc[row]])))
+        n_out = np.where(n_out < max_new,
+                         np.minimum(n_out + np.minimum(acc, gamma - 1) + 1,
+                                    max_new), n_out)
+    return out
+
+
+def phase_speculative(dev, counted) -> dict:
+    """Speculative decoding at full width: the flagship target with
+    spec_bench's draft, batch 8, plen 256, 64 new tokens, gamma 4,
+    random weights from the seed; three drafts (the random draft, the
+    target itself, the target plus seeded noise). Greedy tokens equal
+    the port's ``generate`` on the same prompt up to a near-tie; the
+    self-draft takes ceil((max_new - 1) / gamma) rounds unless a near-tie
+    parted draft and verify (every parting at one). ``counted`` (K6, K7,
+    K8) are set to 0 just before the three runs and read just after:
+    each must have run. Tokens per round and ms per emitted token beside
+    ``generate``'s are figures, not gates."""
+    import torch
+    from rlo_tpu_torch.models import generate as G
+    from rlo_tpu_torch.models import speculative as SP
+    from rlo_tpu_torch.models.transformer import (TransformerConfig,
+                                                  cast_params, init_params)
+
+    cfg, dcfg = TransformerConfig(**SERVE_CFG), TransformerConfig(**SPEC_DRAFT)
+    b, plen, max_new, gamma = (SPEC_RUN[k] for k in ("batch", "plen",
+                                                      "max_new", "gamma"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    f32 = init_params(cfg, seed=SEED, device=dev)
+    noisy = cast_params(_tree_map(lambda p: p + SPEC_NOISE * p.std() *
+                                  torch.randn(p.shape, generator=gen,
+                                              device=dev), f32),
+                        cfg.act_dtype)
+    params = cast_params(f32, cfg.act_dtype)
+    del f32
+    drafts = {"random": (cast_params(init_params(dcfg, seed=SEED + 14,
+                                                 device=dev), dcfg.act_dtype),
+                         dcfg),
+              "self": (params, cfg), "perturbed": (noisy, cfg)}
+    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                           device=dev, dtype=torch.int32)
+    want, gaps = greedy_with_gaps(params, prompt, cfg, max_new)
+    check(bool((G.generate(params, prompt, cfg, max_new=max_new).cpu()
+                .numpy() == want).all()),
+          "greedy_with_gaps differs from generate")
+
+    out, runs = {}, {}
+    for fn in counted:
+        fn.launches = 0
+    for name, (dp, dc) in drafts.items():
+        with _recording_picks(SP, cfg) as rec:
+            toks, rounds = SP.speculative_generate(
+                params, dp, prompt, cfg, dc, max_new=max_new, gamma=gamma,
+                return_rounds=True)
+        runs[name] = (toks.cpu().numpy(), rounds, rec)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for fn in counted:
+        check(launches[fn.__name__] > 0,
+              f"{fn.__name__} was not launched by speculative decoding")
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    gen_ms = timed(lambda: G.generate(params, prompt, cfg, max_new=max_new))
+    expected = -(-(max_new - 1) // gamma)
+    for name, (toks, rounds, rec) in runs.items():
+        compared = [compare_until_near_tie(toks[i], want[i], gaps[i])
+                    for i in range(b)]
+        parted = _partings(rec, gamma, max_new)
+        if name == "self":    # the same model: it parts only at near-ties
+            for r, row, gap in parted:
+                check(gap < NEAR_TIE, f"the self-draft parts from the verify "
+                                      f"in round {r}, row {row}, away from a "
+                                      f"near-tie (scaled top-2 gap {gap:.4g})")
+            check(rounds == expected or parted,
+                  f"the self-draft took {rounds} rounds, not {expected}, "
+                  f"and no near-tie parted draft and verify")
+        dp, dc = drafts[name]
+        ms = timed(lambda: SP.speculative_generate(
+            params, dp, prompt, cfg, dc, max_new=max_new, gamma=gamma))
+        out[name] = dict(
+            rounds=rounds, tokens_per_round=(max_new - 1) / rounds,
+            rejections=len(parted), positions_equal=[c[0] for c in compared],
+            compared_to_end=sum(c[1] for c in compared),
+            ms=ms, ms_per_token=ms / max_new)
+        print(f"[spec] {name} draft: {rounds} rounds ({(max_new - 1) / rounds:.2f}"
+              f" tokens a round a row after the first), {len(parted)} "
+              f"(round, row) rejections before the last proposal"
+              f"{' (near-tie partings)' if name == 'self' else ''}; tokens equal "
+              f"generate's, {out[name]['compared_to_end']} of {b} rows to "
+              f"the end (equal positions {out[name]['positions_equal']}, "
+              f"any parting at a near-tie); {ms:.1f} ms, "
+              f"{ms / max_new:.3f} ms per emitted token against generate's "
+              f"{gen_ms / max_new:.3f}")
+    out["generate_ms"], out["launches"] = gen_ms, launches
+    print(f"[spec] target {SERVE_CFG['d_model']} wide x "
+          f"{SERVE_CFG['n_layers']} layers, draft {SPEC_DRAFT['d_model']} x "
+          f"{SPEC_DRAFT['n_layers']}, batch {b}, plen {plen}, {max_new} new, "
+          f"gamma {gamma}: the self-draft's rounds {runs['self'][1]} (expected "
+          f"{expected} without near-tie partings); launches of the three runs "
+          f"{json.dumps(launches)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: MoE layers on one card at full width
+# ---------------------------------------------------------------------------
+
+#: the flagship's widths with 8 experts (capacity factor 2.0, aux
+#: coefficient 1e-2: the config's defaults)
+MOE_EXPERTS = 8
+#: phase 12's serving runs: generate and the teacher-forced paged steps
+MOE_SERVE = dict(batch=32, plen=1024, max_new=16)
+
+
+@contextlib.contextmanager
+def _routing_counts(M):
+    """For the duration, every ``route`` call adds its (kept, routed)
+    token counts, as device tensors, to the list it yields."""
+    seen, orig = [], M.route
+
+    def route(*a, **kw):
+        r = orig(*a, **kw)
+        seen.append((r[4].sum(), r[4].numel()))
+        return r
+
+    M.route = route
+    try:
+        yield seen
+    finally:
+        M.route = orig
+
+
+def phase_moe(dev, flash_fns) -> dict:
+    """MoE layers at full width: the flagship's widths with 8 experts.
+    Training on one batch of 4 x 1024 from the seed (K2, K4, K5 through
+    'pallas_fast'): the loss and grads against the same step with the
+    attention backward in 'xla' mode (losses equal, grads within
+    GRAD_REL_LIMIT), the aux term finite and > 0, 10 SGD steps with the
+    loss falling; the share of tokens dropped, the median step, tokens/s,
+    peak memory, launches per step, and the step with the sorted
+    dispatch forced (the kept rows only, a host read a layer) beside it.
+    Serving at capacity_factor = n_experts (drop-free everywhere):
+    ``generate`` at batch 32 / plen 1024 / 16 new (timed in bf16), in f32
+    against the argmax of a teacher-forced f32 ``forward`` over prompt +
+    output; a 16-request dense f32 ``DecodeServer`` against each
+    prompt's own ``generate``; 16 bf16 teacher-forced
+    ``paged_decode_step``s beside ``decode_step``, tokens equal at every
+    step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rlo_tpu_torch.models import generate as G
+    from rlo_tpu_torch.models import moe as M
+    from rlo_tpu_torch.models import serve as S
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.utils.metrics import Registry
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the f32 router product would round its inputs")
+    cfg = tt.TransformerConfig(**SERVE_CFG, n_experts=MOE_EXPERTS)
+    params = tt.init_params(cfg, seed=SEED + 15, device=dev)
+    n_params = sum(t.numel() for t in tt.tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    loss_k, grads_k = tt.grads_and_loss(params, tokens, cfg)
+    with _attention_backward_xla():
+        loss_x, grads_x = tt.grads_and_loss(params, tokens, cfg)
+    check(bool(torch.isfinite(loss_k)) and torch.equal(loss_k, loss_x),
+          f"MoE: the kernel path's loss {float(loss_k)} != the xla mode's "
+          f"{float(loss_x)}")
+    check(all(torch.isfinite(g).all() for g in tt.tree_leaves(grads_k)),
+          "MoE: non-finite grads on the kernel path")
+    rel = _rel_l2(grads_k, grads_x)
+    check(max(rel) <= GRAD_REL_LIMIT,
+          f"MoE: kernel-path grads differ from the xla mode's: max relative "
+          f"L2 {max(rel):.3g} > {GRAD_REL_LIMIT}")
+    del grads_k, grads_x
+    with torch.no_grad(), _routing_counts(M) as seen:
+        _, aux = tt.forward(params, tokens, cfg, with_aux=True)
+    kept = sum(float(k) for k, _ in seen)
+    routed = sum(n for _, n in seen)
+    drop = 1.0 - kept / routed
+    check(math.isfinite(float(aux)) and float(aux) > 0,
+          f"MoE: aux {float(aux)} not finite and > 0")
+    print(f"[moe] {n_params} params ({MOE_EXPERTS} experts a layer), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss {float(loss_k):.6f} equal with "
+          f"the attention backward in xla mode; grads' relative L2 max "
+          f"{max(rel):.3g} (limit {GRAD_REL_LIMIT}); aux {float(aux):.6f} "
+          f"(summed over {cfg.n_layers} layers); tokens dropped at capacity "
+          f"factor {cfg.capacity_factor}: {100 * drop:.2f}%")
+
+    def sgd_steps(n):
+        p, walls, losses = params, [], []
+        before = {fn.__name__: fn.launches for fn in flash_fns}
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, loss = tt.train_step(p, tokens, cfg, lr=SGD_LR)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        counts = {fn.__name__: (fn.launches - before[fn.__name__]) / n
+                  for fn in flash_fns}
+        return statistics.median(walls[1:]), losses, counts
+
+    step_ms, sgd, step_counts = sgd_steps(10)
+    check(all(map(math.isfinite, sgd)) and sgd[-1] < sgd[0],
+          f"MoE SGD losses not finite and falling: {sgd}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    limits = M.PAD_ROWS, M.PAD_RATIO
+    M.PAD_ROWS = M.PAD_RATIO = 0          # the sorted dispatch
+    try:
+        sorted_ms, sorted_l, _ = sgd_steps(4)
+    finally:
+        M.PAD_ROWS, M.PAD_RATIO = limits
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3
+    print(f"[moe] 10 SGD steps (lr {SGD_LR}): "
+          f"{' '.join(f'{x:.4f}' for x in sgd)}")
+    print(f"[moe] median SGD step {step_ms:.3f} ms ({tok_s:.0f} tokens/s; "
+          f"the padded dispatch, {MOE_EXPERTS} x capacity rows, no host "
+          f"read); with the sorted dispatch forced (the kept rows only, "
+          f"{cfg.n_layers} host reads a step, shapes moving with the "
+          f"routing) {sorted_ms:.3f} ms; peak device memory {peak:.2f} GiB; "
+          f"launches per step {json.dumps(step_counts)}")
+    out["training"] = dict(n_params=n_params, loss=float(loss_k),
+                           grad_rel_l2_max=max(rel), aux=float(aux),
+                           dropped_share=drop, sgd_losses=sgd,
+                           step_ms_median=step_ms, tokens_per_s=tok_s,
+                           sorted_step_ms_median=sorted_ms,
+                           sorted_losses=sorted_l, peak_mem_gib=peak,
+                           launches_per_step=step_counts)
+    del params
+    torch.cuda.empty_cache()
+
+    # serving, drop-free everywhere. The oracles run in f32: in bf16 a
+    # GEMM of another shape rounds a token's hidden state another way, a
+    # router near-tie then sends it to another expert, and its logits
+    # move by far more than a logit near-tie
+    cfg_s = dataclasses.replace(cfg, capacity_factor=float(MOE_EXPERTS))
+    cfg_f = dataclasses.replace(cfg_s, dtype="float32")
+    f32 = tt.init_params(cfg_s, seed=SEED + 15, device=dev)
+    params = tt.cast_params(f32, cfg_s.act_dtype)
+    check(all(layer["moe"]["wr"].dtype == torch.float32
+              for layer in params["layers"]),
+          "cast_params rounded the router")
+    b, plen, max_new = (MOE_SERVE[k] for k in ("batch", "plen", "max_new"))
+    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                           device=dev, dtype=torch.int32)
+    G.generate(params, prompt, cfg_s, max_new=2)      # warm-up
+    _, out["generate"] = _timed(
+        G, params, prompt, cfg_s, max_new,
+        f"MoE ({MOE_EXPERTS} experts) generate batch {b}, plen {plen}, "
+        f"{max_new} new, bf16")
+    with torch.no_grad():
+        toks = G.generate(f32, prompt, cfg_f, max_new=max_new)
+        seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+        logits = tt.forward(f32, seq, cfg_f)[:, plen - 1:]
+        want = torch.argmax(logits, -1).cpu().numpy()
+        fgaps = top2_gap(logits.reshape(-1, cfg.vocab), cfg_f) \
+            .reshape(b, max_new).float().cpu().numpy()
+        del logits
+    toks = toks.cpu().numpy()
+    compared = [compare_until_near_tie(toks[i], want[i], fgaps[i])
+                for i in range(b)]
+    full = sum(c[1] for c in compared)
+    out["generate"]["f32_forward_compared_to_end"] = full
+    print(f"[moe] f32 generate's tokens against the argmax of a "
+          f"teacher-forced f32 forward over prompt + output: {full} of {b} "
+          f"rows equal to the end, the rest up to a parting at a near-tie")
+
+    rng = np.random.default_rng(SEED + 2)
+    reqs = []
+    for i in range(16):
+        n = int(rng.integers(96, 161)) if i % 8 == 3 else \
+            int(rng.integers(32, 65))      # long ones extend past the bucket
+        reqs.append((rng.integers(0, cfg.vocab, n), int(rng.integers(16, 65))))
+    srv = S.DecodeServer(f32, cfg_f, n_slots=8, max_len=256, round_len=16,
+                         prompt_buckets=(64,), metrics=Registry())
+    t0 = time.perf_counter()
+    for p, m in reqs:
+        srv.submit(p, m)
+    outs = srv.run()
+    wall = time.perf_counter() - t0
+    check([len(o) for o in outs] == [m for _, m in reqs],
+          "the MoE server returned the wrong number of tokens")
+    s_full = 0
+    for i, (p, m) in enumerate(reqs):
+        ptens = torch.as_tensor(p[None].astype(np.int32), device=dev)
+        wtoks, g = greedy_with_gaps(f32, ptens, cfg_f, m)
+        check(bool((G.generate(f32, ptens, cfg_f, max_new=m)[0].cpu()
+                    .numpy() == wtoks[0]).all()),
+              f"MoE: greedy_with_gaps differs from generate on request {i}")
+        s_full += compare_until_near_tie(outs[i], wtoks[0], g[0])[1]
+    del f32
+    ntok = sum(len(o) for o in outs)
+    out["server"] = dict(requests=16, tokens=ntok, wall_s=wall,
+                         tok_per_s=ntok / wall, rounds=srv.rounds_run,
+                         compared_to_end=s_full)
+    print(f"[moe] f32 DecodeServer(n_slots=8, max_len=256, round_len=16, "
+          f"buckets (64,)): 16 requests (2 extended past the bucket), {ntok} "
+          f"tokens in {wall:.2f} s ({ntok / wall:.0f} tok/s); tokens equal "
+          f"each prompt's own generate, {s_full} of 16 to the end and the "
+          f"rest up to a parting at a near-tie")
+
+    out["paged_teacher_forced"] = tf = paged_beside_dense(
+        params, cfg_s, prompt, max_new, gen)
+    print(f"[moe] teacher-forced batch {b}, plen {plen}, {max_new} steps over "
+          f"{tf['pages']} permuted pages of 128: paged and dense greedy tokens "
+          f"equal at every step, max |paged - dense logit| "
+          f"{tf['max_abs_logit_diff']}; median step dense "
+          f"{tf['dense_ms_per_step']:.3f} ms, paged "
+          f"{tf['paged_ms_per_step']:.3f} ms")
+    return out
+
+
+def _to_device(tree, device):
+    return _tree_map(lambda t: t.to(device), tree)
 
 
 def card_line() -> str:
@@ -3247,16 +3674,47 @@ def main() -> int:
     del train["params"], train["grads"]
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    spec = phase_speculative(dev, (kd.flash_block_decode, kd.write_kv_row,
+                                   kd.write_kv_block))
+    print(f"[spec] speculative decoding phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    moe_counted = (k2.flash_block_update_hld, k2.bwd_dq, k2.bwd_dkv,
+                   kd.flash_block_decode, kd.write_kv_row, kd.write_kv_block,
+                   kd.paged_flash_decode, kd.write_kv_page_row)
+    for fn in moe_counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    moe = phase_moe(dev, (k2.flash_block_update_hld, k2.rowstats, k2.bwd_dq,
+                          k2.bwd_dkv))
+    moe_launches = {fn.__name__: fn.launches for fn in moe_counted}
+    print(f"[moe] MoE phase took {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(moe_launches)}")
+    for fn in moe_counted:
+        check(moe_launches[fn.__name__] > 0,
+              f"{fn.__name__} was not launched on the MoE paths")
+    torch.cuda.empty_cache()
+
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
                       "k9_int8": k9_stats["int8"], "vjp": vjp,
-                      "training": train["stats"], "dp_combine": dp}))
+                      "training": train["stats"], "dp_combine": dp,
+                      "speculative": spec, "moe": moe}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
     paged_p = "paged serving (phase 6)"
     chain_p = "exact-mode chained block update (phase 8)"
     train_p = "training step and dp combine (phases 9-10)"
+    spec_p, moe_p = "speculative decoding (phase 11)", "MoE (phase 12)"
+
+    def by_path(name):
+        """The kernel's launches on the later slices' paths."""
+        out = {moe_p: moe_launches[name]} if name in moe_launches else {}
+        if name in spec["launches"]:
+            out[spec_p] = spec["launches"][name]
+        return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
                      dict(k1_stats["256MB"],
@@ -3265,25 +3723,27 @@ def main() -> int:
         kernel_entry("K2 flash_block_update_hld", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:114",
                      served["flash_block_update_hld"], k2_stats["prefill"],
-                     serve_p),
+                     serve_p, **by_path("flash_block_update_hld")),
         kernel_entry("K6 flash_block_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:70",
                      served["flash_block_decode"], k6_stats["bf16"], serve_p,
+                     **by_path("flash_block_decode"),
                      split_k=kd.SPLIT_K, int8={
                          k: k6_stats["int8"][k]
                          for k in ("ms", "device_ms", "bound_ms")}),
         kernel_entry("K7 write_kv_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:141",
                      served["write_kv_row"], w_stats["K7"], serve_p,
-                     launch_unit=PAIR_LAUNCH),
+                     launch_unit=PAIR_LAUNCH, **by_path("write_kv_row")),
         kernel_entry("K8 write_kv_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:168",
                      served["write_kv_block"], w_stats["K8"], serve_p,
-                     launch_unit=PAIR_LAUNCH),
+                     launch_unit=PAIR_LAUNCH, **by_path("write_kv_block")),
         kernel_entry("K9 paged_flash_decode", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:466",
                      paged_launches["paged_flash_decode"], k9_stats["bf16"],
                      paged_p, split_k=kd.SPLIT_K,
+                     **by_path("paged_flash_decode"),
                      k6_same_columns_device_ms=k9_stats["bf16"][
                          "k6_device_ms"],
                      int8={k: k9_stats["int8"][k]
@@ -3292,7 +3752,8 @@ def main() -> int:
         kernel_entry("K10 write_kv_page_row", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:350",
                      paged_launches["write_kv_page_row"], pw_stats["K10"],
-                     paged_p, launch_unit=PAIR_LAUNCH),
+                     paged_p, launch_unit=PAIR_LAUNCH,
+                     **by_path("write_kv_page_row")),
         kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:402",
                      paged_launches["write_kv_page_block"], pw_stats["K11"],
@@ -3302,10 +3763,12 @@ def main() -> int:
                      k345_stats["K3"], chain_p),
         kernel_entry("K4 bwd_dq", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:296",
-                     train_launches["bwd_dq"], k345_stats["K4"], train_p),
+                     train_launches["bwd_dq"], k345_stats["K4"], train_p,
+                     **by_path("bwd_dq")),
         kernel_entry("K5 bwd_dkv", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:320",
-                     train_launches["bwd_dkv"], k345_stats["K5"], train_p)]}))
+                     train_launches["bwd_dkv"], k345_stats["K5"], train_p,
+                     **by_path("bwd_dkv"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

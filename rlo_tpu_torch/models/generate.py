@@ -23,12 +23,15 @@ positions [0, plen). Attention against the cache is K6
 (``models.transformer._local_attention``). On CPU tensors each kernel
 wrapper takes its plain twin; on the card they launch the kernels.
 
-Tensor- and expert-parallel decode and MoE layers belong to a later
-slice of the port (MoE configs raise ``NotImplementedError``).
+MoE configs route drop-free in ``decode_step``, ``block_decode`` and a
+ragged ``prefill`` (``_decode_cfg``); a plain ``prefill`` routes with
+the training capacity, as the JAX package's does. Tensor- and
+expert-parallel decode belong to a later slice of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -38,9 +41,9 @@ from rlo_tpu_torch.kernels.decode import (MAX_BLOCK_T, flash_block_decode,
                                           flash_decode, write_kv_block,
                                           write_kv_row)
 from rlo_tpu_torch.models.transformer import (TransformerConfig,
-                                              _dense_only, _local_attention,
-                                              _rmsnorm, apply_layer,
-                                              cast_params, embed_tokens)
+                                              _local_attention, _rmsnorm,
+                                              apply_layer, cast_params,
+                                              embed_tokens)
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -74,6 +77,19 @@ def _quantize_kv(x):
     scale = torch.clamp_min(amax, 1e-30) * (1.0 / 127.0)
     q = torch.round(xf / scale[..., None]).to(torch.int8)
     return q, scale
+
+
+def _decode_cfg(cfg: TransformerConfig) -> TransformerConfig:
+    """The decode-time config: MoE routing is drop-free (capacity >= the
+    tokens of one step). Capacity dropping depends on the order of the
+    flattened token axis, so it is not causal; decode routes every token
+    to its expert, and equals the training forward exactly when that
+    forward drops nothing (capacity_factor >= n_experts)."""
+    if cfg.n_experts == 0:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=max(cfg.capacity_factor,
+                                 float(cfg.n_experts)))
 
 
 def _pos_tensor(pos, device) -> torch.Tensor:
@@ -123,7 +139,7 @@ def decode_step(params: dict, token, pos, cache, cfg: TransformerConfig):
     the JAX package's scalar-pos path clamps the write into the last
     column; ``generate`` never reaches it (its max_len check), and the
     serving loop's retired slots rely on the drop."""
-    _dense_only(cfg)
+    cfg = _decode_cfg(cfg)
     dt = cfg.act_dtype
     dev = params["embed"].device
     posv = _pos_tensor(pos, dev)
@@ -171,7 +187,7 @@ def block_decode(params: dict, tokens, pos0, cache,
     """T tokens (b, T) through the cache in one forward, row b's token i
     at pos0_b + i. Returns (logits (b, T, vocab) f32, cache), the cache
     updated in place. Write-then-attend with per-(row, i) masks."""
-    _dense_only(cfg)
+    cfg = _decode_cfg(cfg)
     dt = cfg.act_dtype
     dev = params["embed"].device
     b, T = tokens.shape
@@ -200,8 +216,12 @@ def prefill(params: dict, tokens, cache, cfg: TransformerConfig,
     (logits of the last prompt position, or of ``last_index`` (b,) per
     row, cache) with positions [0, plen) of the cache written in place.
     Causal attention over the prompt block runs through K2; int8 caches
-    attend the dequantised block (the values decode reads back)."""
-    _dense_only(cfg)
+    attend the dequantised block (the values decode reads back). MoE
+    prompts route with the training capacity over the whole block; with
+    ``last_index`` (ragged prompts) drop-free, so padding takes no
+    expert's capacity."""
+    if last_index is not None:
+        cfg = _decode_cfg(cfg)
     b, plen = tokens.shape
     dt = cfg.act_dtype
     dev = params["embed"].device

@@ -25,7 +25,8 @@ prefill chunk writes one page through K11 (``write_kv_page_block``),
 (``paged_flash_decode``). On CPU tensors each kernel wrapper takes its
 plain twin; on the card they launch the kernels. The layer math is
 ``apply_layer`` with the ``attention=`` hook, as in dense decode, so
-paged cannot drift from dense.
+paged cannot drift from dense. MoE configs route drop-free in both
+functions, as dense decode does (``generate._decode_cfg``).
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ import torch
 from rlo_tpu_torch.kernels.decode import (gather_pages, paged_flash_decode,
                                           write_kv_page_block,
                                           write_kv_page_row)
-from rlo_tpu_torch.models.generate import _pos_tensor, _quantize_kv
-from rlo_tpu_torch.models.transformer import (TransformerConfig,
-                                              _dense_only, _rmsnorm,
+from rlo_tpu_torch.models.generate import (_decode_cfg, _pos_tensor,
+                                           _quantize_kv)
+from rlo_tpu_torch.models.transformer import (TransformerConfig, _rmsnorm,
                                               apply_layer, embed_tokens)
 from rlo_tpu_torch.serving.pages import NULL_PAGE
 
@@ -168,7 +169,7 @@ def paged_decode_step(params: dict, token, pos, pools, table, active,
     it); page 0 stays zero. All on the params' device; nothing is read
     back to the host. Returns (logits (b, vocab) f32, pools), the pools
     updated in place."""
-    _dense_only(cfg)
+    cfg = _decode_cfg(cfg)
     dt = cfg.act_dtype
     dev = params["embed"].device
     posv = _pos_tensor(pos, dev).reshape(-1)
@@ -219,7 +220,7 @@ def paged_prefill_chunk(params: dict, tokens, pos0, n_valid, pools, table,
     Queries attend the table-mapped prefix [0, pos0 + i]: earlier
     chunks' pages (shared prefix pages included) plus this chunk's own
     just-written rows (write-then-attend, the mask of block decode)."""
-    _dense_only(cfg)
+    cfg = _decode_cfg(cfg)
     dt = cfg.act_dtype
     dev = params["embed"].device
     b, T = tokens.shape

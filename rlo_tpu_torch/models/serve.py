@@ -25,7 +25,9 @@ request without restarting the batch. Two modes:
     round. The page table goes to the device once per round.
 
 In both modes the greedy pick runs on the device and the host reads a
-round's tokens once at its end.
+round's tokens once at its end. MoE configs route drop-free everywhere
+(``generate._decode_cfg``): the rounds, the admission prefill (ragged:
+``last_index``), the extension chunks and the paged prefill chunks.
 
 Finished rows keep decoding masked garbage until the round ends;
 outputs are truncated to each request's ``max_new``, and slot reuse is
@@ -59,13 +61,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from rlo_tpu_torch.models.generate import (block_decode, decode_step,
-                                           init_kv_cache, prefill)
+from rlo_tpu_torch.models.generate import (_decode_cfg, block_decode,
+                                           decode_step, init_kv_cache,
+                                           prefill)
 from rlo_tpu_torch.models.paged import (copy_page, init_page_pool,
                                         paged_decode_step,
                                         paged_prefill_chunk)
-from rlo_tpu_torch.models.transformer import (TransformerConfig,
-                                              _dense_only, cast_params)
+from rlo_tpu_torch.models.transformer import TransformerConfig, cast_params
 from rlo_tpu_torch.serving.pages import PageAllocator, PrefixTrie
 from rlo_tpu_torch.utils.metrics import SERVING, Registry, hist_summary
 
@@ -118,11 +120,12 @@ class DecodeServer:
                  prefill_budget: Optional[int] = None,
                  prefix_cache: bool = True,
                  clip_rounds: Optional[bool] = None):
-        _dense_only(cfg)
         self.metrics = SERVING if metrics is None else metrics
         self.params = cast_params(params, cfg.act_dtype)
         self.device = self.params["embed"].device
         self.cfg = cfg
+        # the rounds' config: MoE layers route drop-free
+        self.cfg_d = _decode_cfg(cfg)
         self.n_slots = n_slots
         self.max_len = max_len
         self.round_len = round_len
@@ -171,7 +174,7 @@ class DecodeServer:
         toks = []
         for _ in range(kk):
             logits, _ = decode_step(self.params, tok, pos, self.cache,
-                                    self.cfg)
+                                    self.cfg_d)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             pos = pos + 1
             toks.append(tok)
@@ -237,7 +240,7 @@ class DecodeServer:
         toks = []
         for _ in range(kk):
             logits, _ = paged_decode_step(self.params, tok, pos, self.pools,
-                                          table, active, self.cfg)
+                                          table, active, self.cfg_d)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             tok = torch.where(active, nxt, tok)
             pos = pos + step

@@ -5,7 +5,8 @@ The port of ``rlo_tpu/models/transformer.py``: ``TransformerConfig``,
 ``torch.Generator``), ``_rmsnorm``, ``_sincos``, ``embed_tokens``,
 ``_rope``, ``_local_attention`` (causal attention through the flash
 kernels, batch folded into the head axis) and ``apply_layer`` (attention
-+ dense FFN, with the ``attention=`` hook the KV-cache decode uses); and
++ dense or mixture-of-experts FFN (``models.moe``), with the
+``attention=`` hook the KV-cache decode uses); and
 the single-card training half: ``next_token_targets``, ``nll_sum``,
 ``nll_sum_chunked``, ``forward``, ``loss_fn``, ``grads_and_loss`` (a
 functional gradient), ``train_step`` (SGD) and ``train_step_optim`` (any
@@ -14,15 +15,16 @@ the explicit data-parallel gradient combine over an ``Axis``.
 
 Parameters are a plain dict of tensors in the JAX package's layouts
 (``wqkv`` (d, 3, d), ``wq`` (d, d) + ``wkv`` (d, 2, kv_heads*head_dim),
-``w1`` (d, d_ff), ``w2`` (d_ff, d), ``embed`` (vocab, d) tied with the
-output head), float32 as initialised. Activations run in
-``cfg.act_dtype``; each weight is cast to it where it is used, so a
-tree cast once up front (``cast_params``) gives the same numbers, and
-gradients come back in float32.
+``w1`` (d, d_ff), ``w2`` (d_ff, d), or for MoE configs ``moe`` {``wr``
+(d, E), ``w1`` (E, d, d_ff), ``w2`` (E, d_ff, d)}, ``embed`` (vocab, d)
+tied with the output head), float32 as initialised. Activations run in
+``cfg.act_dtype``; each weight is cast to it where it is used (the MoE
+router ``wr`` stays f32), so a tree cast once up front
+(``cast_params``) gives the same numbers, and gradients come back in
+float32.
 
-Sequence-, tensor- and expert-parallel training and mixture-of-experts
-layers belong to later slices of the port and raise
-``NotImplementedError``.
+Sequence-, tensor- and expert-parallel training belong to later slices
+of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Iterator, Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from rlo_tpu_torch.models.moe import init_moe_params, moe_ffn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -47,8 +51,12 @@ class TransformerConfig:
     n_layers: int = 2
     d_ff: int = 512
     dtype: str = "bfloat16"  # activation dtype; params stay float32
-    # mixture-of-experts FFN (0 = dense); MoE layers are a later slice
+    # mixture-of-experts FFN (0 = dense): top-1 routing with capacity
+    # capacity_factor * tokens / n_experts per expert (models.moe), and
+    # the load-balancing aux term weighted by moe_aux_coef in the loss
     n_experts: int = 0
+    capacity_factor: float = 2.0
+    moe_aux_coef: float = 1e-2
     # grouped-query attention: K/V heads (None = n_heads, MHA)
     n_kv_heads: Optional[int] = None
     # 'sincos' (added at the embedding) or 'rope' (q/k rotated in every
@@ -89,13 +97,6 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts layers are not ported yet: they come "
-            "with the MoE/TP/EP decode slice of the port")
-
-
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device=None) -> dict:
     """Scaled-normal init with the JAX package's tree, shapes and
@@ -104,7 +105,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     own params across with ``convert.params_from_numpy``). ``device``
     None is the card."""
     from rlo_tpu_torch.parallel.mesh import resolve_device
-    _dense_only(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, f = cfg.d_model, cfg.d_ff
@@ -128,17 +128,22 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             layer["wq"] = norm((d, d), d ** -0.5)
             layer["wkv"] = norm((d, 2, cfg.kv_heads * cfg.head_dim),
                                 d ** -0.5)
-        layer["w1"] = norm((d, f), d ** -0.5)
-        layer["w2"] = norm((f, d), (2 * f * cfg.n_layers) ** -0.5)
+        if cfg.n_experts > 0:
+            layer["moe"] = init_moe_params(gen, d, f, cfg.n_experts)
+        else:
+            layer["w1"] = norm((d, f), d ** -0.5)
+            layer["w2"] = norm((f, d), (2 * f * cfg.n_layers) ** -0.5)
         params["layers"].append(layer)
     return params
 
 
 def cast_params(params, dtype: torch.dtype):
-    """The same tree with every tensor cast to ``dtype`` (the per-use
-    casts of the layer math then cost nothing)."""
+    """The same tree with every tensor but the MoE router ``wr`` cast to
+    ``dtype`` (the per-use casts of the layer math then cost nothing;
+    the router computes in f32)."""
     if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
+        return {k: v if k == "wr" else cast_params(v, dtype)
+                for k, v in params.items()}
     if isinstance(params, list):
         return [cast_params(v, dtype) for v in params]
     return params.to(dtype)
@@ -241,8 +246,9 @@ def _local_attention(q, k, v):
 def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
                 sp_axis=None, tp_axis=None, ep_axis=None, attention=None,
                 pos=None):
-    """One layer (attention + dense FFN) on ``x`` (b, blk, d); returns
-    (x, aux) with aux a zero f32 scalar. ``attention(q, k, v)`` gets q
+    """One layer (attention + dense or MoE FFN) on ``x`` (b, blk, d);
+    returns (x, aux), aux the MoE load-balancing term (a zero f32 scalar
+    for dense layers). ``attention(q, k, v)`` gets q
     (b, blk, heads, head_dim) and the compact k/v (b, blk, kv_heads,
     head_dim) and returns the q shape; None is causal attention over
     the block through K2."""
@@ -255,7 +261,6 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
                 f"several cards and come with the multi-card training "
                 f"slice, tensor and expert parallel decode with the "
                 f"MoE/TP/EP slice")
-    _dense_only(cfg)
     b, blk, _ = x.shape
     dt = x.dtype
     hd = cfg.head_dim
@@ -282,6 +287,10 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
     att = att.reshape(b, blk, cfg.n_heads * hd)
     x = x + att @ layer["wo"].to(dt)
     h = _rmsnorm(x, layer["ln2"]["g"])
+    if cfg.n_experts > 0:
+        ffn, aux = moe_ffn(layer["moe"], h, cfg.n_experts,
+                           capacity_factor=cfg.capacity_factor)
+        return x + ffn, aux
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h @ layer["w1"].to(dt), approximate="tanh")
     x = x + h @ layer["w2"].to(dt)
@@ -408,10 +417,11 @@ def forward(params: dict, tokens, cfg: TransformerConfig,
 
 def loss_fn(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
             tp_axis=None, ep_axis=None):
-    """Mean next-token cross-entropy over the valid positions (the dense
-    layers' aux term is 0). ``cfg.loss_vocab_chunk`` streams the head."""
+    """Mean next-token cross-entropy over the valid positions, plus
+    ``cfg.moe_aux_coef`` times the summed aux term for MoE configs.
+    ``cfg.loss_vocab_chunk`` streams the head."""
     _single_card_training(sp_axis, tp_axis, ep_axis)
-    x, _ = _features(params, tokens, cfg)
+    x, aux = _features(params, tokens, cfg)
     targets, valid = next_token_targets(tokens)
     chunk = cfg.loss_vocab_chunk or 0
     if chunk:
@@ -420,7 +430,10 @@ def loss_fn(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
     else:
         logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
         local, count = nll_sum(logits, targets, valid)
-    return local / count
+    loss = local / count
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_coef * aux
+    return loss
 
 
 def grads_and_loss(params: dict, tokens, cfg: TransformerConfig,

@@ -12,6 +12,7 @@ import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -213,3 +214,32 @@ def test_attend_device_ms_counts_launches_on_the_host(stub, launches):
     with pytest.raises(RuntimeError, match=f"took {50 * launches} "
                                            f"launches"):
         cs._attend_device_ms(path, path.counted, False, "K6")
+
+
+def _picks(rows):
+    """One recorded verify call: (picks, gaps) as numpy."""
+    picks, gaps = rows
+    return np.array(picks), np.array(gaps, dtype=np.float32)
+
+
+def test_partings_replays_greedy_acceptance():
+    """Phase 11's self-draft gate: a rejection of a row still short of
+    max_new counts, with the verify's gap at the first rejected
+    proposal; the last proposal's mismatch and a finished row's do not."""
+    gamma, max_new = 3, 5
+    # round 0: row 0's only mismatch is its last proposal (4 tokens
+    # out), row 1 rejects at proposal 1 (3 out); round 1: row 0 rejects
+    # at proposal 0, row 1 again mismatches only its last proposal
+    draft = [([1, 4], None), ([2, 5], None), ([3, 6], None),
+             ([1, 8], None), ([1, 8], None), ([1, 8], None)]
+    verify = [([[1, 2, 9], [4, 7, 6]], [[.5, .5, .5], [.5, .004, .5]]),
+              ([[2, 1, 1], [8, 8, 0]], [[.007, .5, .5], [.5, .5, .5]])]
+    rec = {"draft": [(np.asarray(p), np.zeros(2)) for p, _ in draft],
+           "verify": [_picks(v) for v in verify]}
+    got = cs._partings(rec, gamma, max_new)
+    assert [(r, row) for r, row, _ in got] == [(0, 1), (1, 0)]
+    assert [g for _, _, g in got] == pytest.approx([0.004, 0.007])
+    # with max_new 4 row 0 is done after round 0: its round-1 rejection
+    # no longer counts
+    assert [(r, row) for r, row, _ in cs._partings(rec, gamma, 4)] == \
+        [(0, 1)]

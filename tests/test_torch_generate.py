@@ -25,6 +25,7 @@ from rlo_tpu_torch.convert import (cache_from_numpy, cache_to_numpy,
                                    params_from_numpy, params_to_numpy)
 from rlo_tpu_torch.models import generate as tg
 from rlo_tpu_torch.models import transformer as tt
+from rlo_tpu_torch.models.moe import moe_ffn
 from rlo_tpu_torch.utils.metrics import Registry
 
 BASE = dict(vocab=128, d_model=64, n_heads=4, n_layers=2, d_ff=128,
@@ -258,8 +259,10 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="MoE/TP/EP"):
         tt.apply_layer(torch.zeros(1, 2, 64), tp["layers"][0], tc,
                        tp_axis="tp")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_params(dataclasses.replace(tc, n_experts=2), device="cpu")
+    moe = tt.init_params(dataclasses.replace(tc, n_experts=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="TP/EP"):
+        moe_ffn(moe["layers"][0]["moe"], torch.zeros(1, 2, 64), 2,
+                ep_axis="ep")
     x = torch.zeros(1, 2, 64)
     with pytest.raises(NotImplementedError, match="training slice"):
         tt.apply_layer(x, tp["layers"][0], tc, sp_axis="sp")

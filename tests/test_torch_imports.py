@@ -47,8 +47,10 @@ def test_card_tests_are_scanned():
     assert sorted(gpu) == ["test_torch_gpu_decode.py",
                            "test_torch_gpu_flash.py",
                            "test_torch_gpu_flash_grad.py",
+                           "test_torch_gpu_moe.py",
                            "test_torch_gpu_paged.py",
-                           "test_torch_gpu_reduce.py"]
+                           "test_torch_gpu_reduce.py",
+                           "test_torch_gpu_speculative.py"]
 
 
 def test_importing_every_module_loads_no_reference_module():

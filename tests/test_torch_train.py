@@ -260,15 +260,18 @@ def test_dcn_axis_requires_dp_axis():
 @pytest.mark.parametrize("axis", ["sp_axis", "tp_axis", "ep_axis"])
 def test_model_parallel_training_refused(axis):
     """Sequence-, tensor- and expert-parallel training are a later slice
-    (a collective inside the backward), and so are MoE layers."""
+    (a collective inside the backward), for dense and MoE layers alike;
+    an MoE loss on one card runs."""
     jc, tc = _cfgs(**SMALL)
     _, tp = _params(jc, 9)
     tok = torch.zeros((2, SEQ), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="later slice"):
         tt.train_step(tp, tok, tc, **{axis: object()})
     moe = dataclasses.replace(tc, n_experts=4)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tt.loss_fn(tp, tok, moe)
+    mp = tt.init_params(moe, seed=9, device="cpu")
+    assert torch.isfinite(tt.loss_fn(mp, tok, moe))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tt.loss_fn(mp, tok, moe, **{axis: object()})
 
 
 def test_training_reduces_loss():
