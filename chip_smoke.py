@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one card: the rootless collectives, the
 dense serving path, the paged serving path, the training step,
-speculative decoding and mixture-of-experts layers.
+speculative decoding, mixture-of-experts layers and tensor-, expert- and
+sequence-parallel inference.
 
     python3 chip_smoke.py
 
@@ -134,8 +135,34 @@ Phases, each printing its own lines:
    ``DecodeServer`` against each prompt's own ``generate``, and 16
    teacher-forced ``paged_decode_step``s beside ``decode_step``. K2,
    K4-K10's launch counts are set to 0 before this phase and read after.
-13. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-12), then the last
+13. Tensor-, expert- and sequence-parallel inference at full width,
+   each rank a thread of a ``LocalMesh`` on the one card, the params cut
+   by ``param_pspecs``/``shard_tree``: (a) TP ``generate`` (tp 4, the
+   flagship at batch 32 / plen 1024 / 16 new, bf16) against the one-rank
+   generate by the near-tie rule, and GQA+RoPE ``decode_step`` and T = 4
+   ``block_decode`` at tp 2 with a bf16 and an int8 cache, logits within
+   PAR_REL_BF16 of one rank's; (b) the TP forward (tp 4, ring allreduce:
+   K1) on 4 x 1024, logits within PAR_REL_BF16; (c) EP ``generate`` at
+   phase 12's widths (ep 4, 2 experts and 8 rows a rank, drop-free,
+   plen 1024, 16 new) with the 'xla' and 'direct' all_to_alls, which
+   must give the same tokens bit for bit, each row held against the
+   one-rank generate with both runs' router records (``routes_against``:
+   router log-probabilities within ROUTER_TOL up to the row's first
+   routing difference, which must sit at a router near-tie, and a
+   parting with no routing difference before it at a logit near-tie);
+   in f32 every row equal to the end, in bf16 at least half (a router
+   near-tie sends a token to another expert where two bf16 runs round
+   another way; the partings are printed with their gaps); (d) the SP
+   forward of one 4096-token sequence over sp 4: ring
+   contiguous, ring striped and Ulysses, bf16 within PAR_REL_BF16 and
+   f32 within PAR_REL_F32 of one rank's forward, K2 launched sp steps x
+   layers x ranks times for the ring. Every rank holds the same bits
+   where it must (TP logits and tokens); each path runs once inside a
+   profiled window: its wall time, device time, peak memory and
+   launches of K1, K2 and K6-K8 (set to 0 just before the path and read
+   just after).
+14. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-13), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -158,9 +185,13 @@ likewise times K3 alone at the training shape, causal and not, by
 events and device time, with a digest of its counts (``time_k3``).
 
 Every profiled window (``profiled``: device times, the kernels a call
-runs) idles a few ms inside both of its edges; one that records no
-CUDA kernel at all is taken again with a longer idle, 3 takes in all
-before it fails, and each phase prints how many it took again. Every
+runs) opens with 64 launches of a spin kernel that it leaves out (the
+profiler can lose a window's first few launches) and idles a few ms
+inside both of its edges; one that records no CUDA kernel at all is
+taken again with a longer idle, 3 takes in all before it fails, and
+each phase prints how many it took again and how many opener launches
+went unrecorded (a K6/K9 window short of its launches is taken again
+too, printing where its recorded launches lie in the window). Every
 failure raises, so the exit code is non-zero and no result line is
 printed.
 """
@@ -244,9 +275,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, per: int = 1) -> float:
 #: its launches too: ``_attend_device_ms``).
 WINDOW_IDLE_S = 0.005
 WINDOW_TAKES = 3
+#: In some processes the profiler loses the first few launches of every
+#: window, whatever the idle: 1 of 50 K6 launches in each take on some
+#: machines, 5 after phase 13 (45 of 50 with 5, 50 and 500 ms idles; a
+#: spin kernel launched after the 50 calls was recorded, one launched
+#: before them was not, and the 45 recorded launches ran back to back).
+#: So every window opens with WINDOW_OPENERS launches of
+#: ``torch.cuda._sleep``'s spin kernel (WINDOW_OPENER: nothing else runs
+#: it) and a synchronise, before its idle; they are left out of what the
+#: window recorded, and how many of them went unrecorded is reported
+#: (up to 13 of 32 in a full run's later windows: 64 leaves room).
+WINDOW_OPENERS = 64
+WINDOW_OPENER = "spin_kernel"
 #: profiled windows since the last ``windows_line``, and how many of them
 #: recorded no kernel and were taken again
 windows = {"taken": 0, "empty": 0}
+#: the most opener launches a window since the last ``windows_line`` did
+#: not record
+openers = {"lost": 0}
 
 
 def _device_us(evt) -> float:
@@ -254,25 +300,41 @@ def _device_us(evt) -> float:
                  or getattr(evt, "cuda_time_total", 0))
 
 
+#: where the kernels of the last profiled window lie in it (``_spread``)
+last_window = {}
+
+
 def profiled(fn, reps: int = 1) -> dict:
     """The CUDA kernels (and copies) of ``reps`` calls of ``fn`` by name,
     as {name: (count, device us)} from ``torch.profiler``: one window that
-    starts after a synchronise, idles, runs the calls, synchronises and
-    idles again before it stops; taken again as ``WINDOW_IDLE_S`` says."""
+    starts after a synchronise, launches its openers (``WINDOW_OPENERS``)
+    and synchronises, idles, runs the calls, synchronises and idles again
+    before it stops; taken again as ``WINDOW_IDLE_S`` says."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for take in range(WINDOW_TAKES):
         idle = WINDOW_IDLE_S * 10 ** take
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(WINDOW_OPENERS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             time.sleep(idle)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             time.sleep(idle)
         windows["taken"] += 1
-        ran = {e.key: (e.count, _device_us(e)) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        lost = WINDOW_OPENERS - sum(e.count for e in kernels
+                                    if WINDOW_OPENER in e.key)
+        openers["lost"] = max(openers["lost"], lost)
+        last_window.update(idle_us=idle * 1e6, prof=prof, openers_lost=lost,
+                           host_us=(time.perf_counter() - t0) * 1e6)
+        ran = {e.key: (e.count, _device_us(e)) for e in kernels
+               if WINDOW_OPENER not in e.key}
         if ran:
             return ran
         windows["empty"] += 1
@@ -283,8 +345,11 @@ def profiled(fn, reps: int = 1) -> dict:
 def windows_line(tag: str) -> None:
     """Print and reset the profiled-window counts of a phase."""
     print(f"[{tag}] profiler windows: {windows['taken']}, of which "
-          f"{windows['empty']} recorded no kernel and were taken again")
+          f"{windows['empty']} recorded no kernel and were taken again; "
+          f"at most {openers['lost']} of a window's {WINDOW_OPENERS} opener "
+          f"launches went unrecorded")
     windows.update(taken=0, empty=0)
+    openers.update(lost=0)
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -845,14 +910,39 @@ def _attend_bits(call, q, pos, what) -> None:
                                  f"view differs from its contiguous copy")
 
 
+def _spread(keep) -> str:
+    """Where the last profiled window's kernels whose name passes
+    ``keep`` lie: the first one's start and the last one's end in us
+    from the window's start, the window's host length and idle edges,
+    and the gaps between launches."""
+    import torch
+    events = getattr(last_window.get("prof"), "events", None)
+    ev = sorted((e for e in (events() if callable(events) else ())
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and keep(e.key)), key=lambda e: e.time_range.start)
+    if not ev:
+        return "no event times"
+    starts = [e.time_range.start for e in ev]
+    gaps = [y - x for x, y in zip(starts, starts[1:])] or [0.0]
+    i = max(range(len(gaps)), key=gaps.__getitem__)
+    return (f"{last_window['openers_lost']} of {WINDOW_OPENERS} openers "
+            f"unrecorded; recorded launches from {starts[0]:.0f} to "
+            f"{ev[-1].time_range.end:.0f} us into a "
+            f"{last_window['host_us']:.0f} us window with "
+            f"{last_window['idle_us']:.0f} us idle edges; gaps between "
+            f"launches median {statistics.median(gaps):.1f} us, largest "
+            f"{gaps[i]:.1f} us after launch {i}")
+
+
 def _attend_device_ms(fn, counted, paged, what, reps: int = 50) -> float:
     """Device ms of one K6 (``paged`` False) or K9 call, from one profiled
     window of ``reps`` calls that is also the one-launch gate: the calls
     add exactly ``reps`` to ``counted``'s count (on the host) and the card
     ran ``reps`` launches of that kernel and nothing else (the profiler):
     no copy of q, no second pass. A window that shows fewer launches of
-    the kernel and nothing else lost records (see ``WINDOW_IDLE_S``) and
-    is taken again, ``WINDOW_TAKES`` takes in all before it fails."""
+    the kernel and nothing else lost records (see ``WINDOW_OPENERS``): it
+    prints where its recorded launches lie and is taken again,
+    ``WINDOW_TAKES`` takes in all before it fails."""
     fn()
     for _ in range(WINDOW_TAKES):
         before, taken = counted.launches, windows["taken"]
@@ -871,8 +961,8 @@ def _attend_device_ms(fn, counted, paged, what, reps: int = 50) -> float:
             us = sum(t for _, t in mine.values())
             check(us > 0, f"{what}: the profiler recorded no device time")
             return us / reps / 1e3
-        print(f"[{what}] the profiler recorded {seen} of {reps} launches; "
-              f"window taken again")
+        print(f"[{what}] the profiler recorded {seen} of {reps} launches "
+              f"({_spread(mine.__contains__)}); window taken again")
     raise RuntimeError(f"chip_smoke: FAILED: {what}: the card ran {ran} in "
                        f"{reps} calls, not {reps} launches of its kernel, in "
                        f"{WINDOW_TAKES} windows")
@@ -3430,6 +3520,471 @@ def phase_moe(dev, flash_fns) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor-, expert- and sequence-parallel inference
+# ---------------------------------------------------------------------------
+
+#: phase 13's shapes: TP decode at the flagship serving shape; a GQA+RoPE
+#: decode step and T = 4 block; the TP forward through K1; EP decode at
+#: phase 12's MoE widths; one long sequence split over sp
+TP_DECODE = dict(tp=4, batch=32, plen=1024, max_new=16)
+TP_GQA = dict(tp=2, batch=4, plen=128, block=4)
+TP_FORWARD = dict(tp=4, batch=4, seq=1024, algorithm="ring")
+EP_DECODE = dict(ep=4, batch=32, plen=1024, max_new=16)
+SP_FORWARD = dict(sp=4, seq=4096)
+#: a model-parallel run's logits against one rank's, as the relative L2
+#: norm of their difference: bf16 (the row-parallel sums round each
+#: partial product to bf16, one rank rounds the whole product once) and
+#: f32
+PAR_REL_BF16 = 3e-2
+PAR_REL_F32 = 1e-4
+
+
+def rel_l2(got, want) -> float:
+    """|got - want| / |want| over the whole tensors, in f64."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm())
+
+
+def mesh_shards(dev, name, n, tree, specs):
+    """A LocalMesh of ``n`` ranks named ``name`` on the card, and each
+    rank's slices of ``tree`` (``parallel.sharding.shard_tree``)."""
+    from rlo_tpu_torch.parallel.mesh import LocalMesh
+    from rlo_tpu_torch.parallel.sharding import shard_tree
+    mesh = LocalMesh((n,), (name,), device=dev)
+    return mesh, [shard_tree(tree, specs, mesh.axes(r)) for r in range(n)]
+
+
+def on_ranks(mesh, fn, *per_rank):
+    """``fn(axis, *rank's args)`` on every rank of a 1-D ``mesh``, grad
+    off (the port's model-parallel paths are inference only)."""
+    import torch
+    name = mesh.names[0]
+
+    def body(axes, *args):
+        with torch.no_grad():
+            return fn(axes[name], *args)
+    return mesh.run(body, *per_rank)
+
+
+def measured(counted, fn):
+    """One run of ``fn()`` inside a profiled window, the launch counts of
+    ``counted`` set to 0 just before it and read just after: its wall
+    time (host clock from the call to a synchronise, inside the window),
+    device time (its kernels' times summed), peak device memory and
+    launches. Returns (result, figures)."""
+    import torch
+    runs, walls = [], []
+
+    def run():
+        t0 = time.perf_counter()
+        runs.append(fn())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counted:
+        f.launches = 0
+    ran = profiled(run)
+    # a take that recorded no kernel ran fn as well, with the same launches
+    launches = {f.__name__: f.launches // len(runs) for f in counted}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev_ms = sum(us for _, us in ran.values()) / 1e3
+    copies = sum(us for k, (_, us) in ran.items()
+                 if k.startswith("Memcpy DtoD")) / 1e3
+    return runs[-1], dict(wall_ms=walls[-1], device_ms=dev_ms,
+                          dtod_copy_ms=copies, peak_gib=peak,
+                          launches=launches)
+
+
+def _figures_line(tag, what, st) -> None:
+    print(f"[{tag}] {what}: wall {st['wall_ms']:.1f} ms, device "
+          f"{st['device_ms']:.3f} ms (of it device-to-device copies "
+          f"{st['dtod_copy_ms']:.3f}), peak device memory "
+          f"{st['peak_gib']:.2f} GiB, launches {json.dumps(st['launches'])}")
+
+
+def _tokens_against(got, want, gaps, what, min_full):
+    """Each row of ``got`` against the one-rank ``want`` by the near-tie
+    rule; at least ``min_full`` rows must compare to the end."""
+    compared = [compare_until_near_tie(got[i], want[i], gaps[i])
+                for i in range(len(want))]
+    full = sum(done for _, done in compared)
+    check(full >= min_full, f"{what}: only {full} of {len(want)} rows "
+                            f"compared to the end")
+    return full
+
+
+#: the MoE router's noise between an EP run and the one-rank run: until a
+#: row's first routing difference its router log-probabilities must be
+#: within ROUTER_TOL of the one-rank run's (bf16 roundings of the hidden
+#: state move them by about 1e-3 to 1e-2; a misplaced row moves them by
+#: O(1)), and a token may go to another expert only where the one-rank
+#: run's top-2 router gap is under ROUTER_NEAR_TIE (a flip needs a gap of
+#: at most twice the noise)
+ROUTER_TOL = 5e-2
+ROUTER_NEAR_TIE = 2 * ROUTER_TOL
+
+
+class RouterLog:
+    """While installed (a context), each ``models.moe.route`` call's gate
+    probabilities (T, E) f32, kept by the thread that routed them between
+    its ``start()`` and ``take()`` (the tensor itself: no copy, no
+    launch)."""
+
+    def __init__(self):
+        import threading
+        self.local = threading.local()
+
+    def __enter__(self):
+        from rlo_tpu_torch.models import moe
+        self.route = moe.route
+
+        def route(*args, **kw):
+            out = self.route(*args, **kw)
+            calls = getattr(self.local, "calls", None)
+            if calls is not None:
+                calls.append(out[0])
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from rlo_tpu_torch.models import moe
+        moe.route = self.route
+        return False
+
+    def start(self):
+        self.local.calls = []
+
+    def take(self) -> list:
+        calls, self.local.calls = self.local.calls, None
+        return calls
+
+
+def routes_against(got, want, gaps, rank_calls, want_calls, n_layers,
+                   plen):
+    """An EP generate's greedy tokens ``got`` (b, n) against the one-rank
+    run's ``want`` (its top-2 logit gaps ``gaps``), row by row, with each
+    run's router record (``RouterLog``: ``rank_calls`` a list per rank of
+    its calls' gates, rows split evenly; ``want_calls`` the one-rank
+    run's; a prefill call per layer, then a decode step's per layer).
+    Each row's router log-probabilities are compared call by call, up to
+    the call group that made the row's first differing token (group 0
+    the prefill), until its first routing difference: they must stay
+    within ROUTER_TOL, and every token that changed expert there must sit
+    at a one-rank router gap under ROUTER_NEAR_TIE. A row whose tokens
+    part before any routing difference must part at a logit near-tie
+    (NEAR_TIE). Returns (rows equal to the end, [(row, position, logit
+    gap, (layer, token position, router gap) of the first routing
+    difference or None)] of the rows that part, the largest router
+    difference compared)."""
+    import numpy as np
+    import torch
+    b, n = want.shape
+    rows = b // len(rank_calls)
+    check(len(want_calls) == n_layers * n and all(
+        len(c) == n_layers * n for c in rank_calls),
+        f"router records of {len(want_calls)} / "
+        f"{[len(c) for c in rank_calls]} calls, not {n_layers} x {n}")
+    full, partings, worst = 0, [], 0.0
+    for i in range(b):
+        r, li = divmod(i, rows)
+        bad = np.nonzero(np.asarray(got[i]) != np.asarray(want[i]))[0]
+        last = int(bad[0]) if len(bad) else n - 1
+        flip = None
+        for k in range(n_layers * (last + 1)):
+            g = k // n_layers
+            span = plen if g == 0 else 1
+            lw = want_calls[k][i * span:(i + 1) * span].double().log()
+            lg = rank_calls[r][k][li * span:(li + 1) * span].double().log()
+            noise = float((lg - lw).abs().max())
+            worst = max(worst, noise)
+            check(noise <= ROUTER_TOL,
+                  f"row {i}: router log-probabilities {noise:.3g} from the "
+                  f"one-rank run's at layer {k % n_layers} of call group "
+                  f"{g}, before any routing difference (limit {ROUTER_TOL})")
+            moved = torch.nonzero(lw.argmax(-1) != lg.argmax(-1))[:, 0]
+            if len(moved):
+                top2 = lw.topk(2, dim=-1).values
+                gap = top2[:, 0] - top2[:, 1]
+                t = int(moved[gap[moved].argmax()])
+                flip = (k % n_layers, t if g == 0 else plen + g - 1,
+                        round(float(gap[t]), 4))
+                check(flip[2] < ROUTER_NEAR_TIE,
+                      f"row {i}: a token changed expert at layer {flip[0]}, "
+                      f"position {flip[1]}, where the one-rank router gap "
+                      f"is {flip[2]} (not under {ROUTER_NEAR_TIE})")
+                break
+        if not len(bad):
+            full += 1
+            continue
+        p = int(bad[0])
+        if flip is None:
+            check(gaps[i][p] < NEAR_TIE,
+                  f"row {i}: tokens part at position {p} where the "
+                  f"reference's top-2 gap is {gaps[i][p]:.4g}, with no "
+                  f"routing difference before it")
+        partings.append((i, p, round(float(gaps[i][p]), 4), flip))
+    return full, partings, worst
+
+
+def phase_parallel(dev, counted) -> dict:
+    """Tensor-, expert- and sequence-parallel inference at full width,
+    each rank a thread of a ``LocalMesh`` on the one card (13a-13d).
+    Each path runs once, inside a profiled window, with the launch counts
+    of ``counted`` set to 0 just before and read just after
+    (``measured``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rlo_tpu_torch.models import generate as G
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.ops.ring_attention import (stripe_sequence,
+                                                  unstripe_sequence)
+
+    out, paths = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    # 13a: TP decode at the flagship serving shape, tp = 4
+    cfg = tt.TransformerConfig(**SERVE_CFG)
+    params = tt.init_params(cfg, seed=SEED + 21, device=dev)
+    b, plen, max_new = (TP_DECODE[k] for k in ("batch", "plen", "max_new"))
+    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                           device=dev, dtype=torch.int32)
+    want, gaps = greedy_with_gaps(params, prompt, cfg, max_new)
+    mesh, shards = mesh_shards(dev, "tp", TP_DECODE["tp"], params,
+                               tt.param_pspecs(cfg, "tp"))
+    del params
+    run = lambda: on_ranks(mesh, lambda ax, p: G.generate(  # noqa: E731
+        p, prompt, cfg, max_new=max_new, tp_axis=ax), shards)
+    toks, st = measured(counted, run)
+    check(all(torch.equal(t, toks[0]) for t in toks),
+          "TP generate: the ranks' tokens differ")
+    full = _tokens_against(toks[0].cpu().numpy(), want, gaps,
+                           "TP generate", b * 3 // 4)
+    _figures_line("tp", f"generate tp={TP_DECODE['tp']}, batch {b}, plen "
+                        f"{plen}, {max_new} new, bf16", st)
+    print(f"[tp] tokens equal the one-rank generate's on {full} of {b} rows "
+          f"to the end, the rest up to a parting at a near-tie; every rank "
+          f"the same tokens")
+    out["tp_generate"] = dict(st, rows_compared_to_end=full)
+    paths["tp_generate"] = st["launches"]
+    del shards, mesh, toks
+
+    # GQA+RoPE decode_step and T = 4 block_decode, bf16 and int8 caches
+    gq, res = TP_GQA, {}
+    for kv in (None, "int8"):
+        gcfg = tt.TransformerConfig(**GQA_CFG, kv_cache_dtype=kv)
+        gp = tt.cast_params(tt.init_params(gcfg, seed=SEED + 22, device=dev),
+                            gcfg.act_dtype)
+        gprompt = torch.randint(0, gcfg.vocab, (gq["batch"], gq["plen"]),
+                                generator=gen, device=dev, dtype=torch.int32)
+        tok = torch.randint(0, gcfg.vocab, (gq["batch"],), generator=gen,
+                            device=dev, dtype=torch.int32)
+        blk = torch.randint(0, gcfg.vocab, (gq["batch"], gq["block"]),
+                            generator=gen, device=dev, dtype=torch.int32)
+
+        def chain(p, ax=None):
+            c = G.init_kv_cache(gcfg, gq["batch"],
+                                gq["plen"] + 1 + gq["block"], device=dev,
+                                tp_axis=ax)
+            _, c = G.prefill(p, gprompt, c, gcfg, tp_axis=ax)
+            l1, c = G.decode_step(p, tok, gq["plen"], c, gcfg, tp_axis=ax)
+            l2, _ = G.block_decode(p, blk, gq["plen"] + 1, c, gcfg,
+                                   tp_axis=ax)
+            return l1, l2
+
+        with torch.no_grad():
+            w1, w2 = chain(gp)
+        gmesh, gshards = mesh_shards(dev, "tp", gq["tp"], gp,
+                                     tt.param_pspecs(gcfg, "tp"))
+        got, gst = measured(counted, lambda: on_ranks(
+            gmesh, lambda ax, p: chain(p, ax), gshards))
+        check(all(torch.equal(x, y) for r in got[1:]
+                  for x, y in zip(r, got[0])),
+              "TP decode: the ranks' logits differ")
+        e1, e2 = rel_l2(got[0][0], w1), rel_l2(got[0][1], w2)
+        agree = float((got[0][1].argmax(-1) == w2.argmax(-1)).float().mean())
+        check(max(e1, e2) <= PAR_REL_BF16,
+              f"TP GQA decode ({kv or 'bf16'} cache): logits' relative L2 "
+              f"{e1:.3g} / {e2:.3g} > {PAR_REL_BF16}")
+        name = kv or "bf16"
+        _figures_line("tp", f"GQA+RoPE tp={gq['tp']} prefill + decode_step + "
+                            f"block_decode (T={gq['block']}), {name} cache",
+                      gst)
+        print(f"[tp] GQA {name} cache: logits against one rank's, relative "
+              f"L2 decode_step {e1:.3g}, block_decode {e2:.3g} (limit "
+              f"{PAR_REL_BF16}); block argmax equal at {100 * agree:.1f}%; "
+              f"every rank the same bits")
+        res[name] = dict(gst, rel_l2_step=e1, rel_l2_block=e2,
+                         block_argmax_agree=agree)
+        paths[f"tp_gqa_{name}"] = gst["launches"]
+        del gmesh, gshards, gp
+    out["tp_gqa"] = res
+
+    # 13b: the TP forward through K1 (ring allreduce), tp = 4
+    cfg = tt.TransformerConfig(**SERVE_CFG)
+    params = tt.cast_params(tt.init_params(cfg, seed=SEED + 23, device=dev),
+                            cfg.act_dtype)
+    tokens = torch.randint(0, cfg.vocab, (TP_FORWARD["batch"],
+                                          TP_FORWARD["seq"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        want_l = tt.forward(params, tokens, cfg)
+    mesh, shards = mesh_shards(dev, "tp", TP_FORWARD["tp"], params,
+                               tt.param_pspecs(cfg, "tp"))
+    del params
+    logits, st = measured(counted, lambda: on_ranks(
+        mesh, lambda ax, p: tt.forward(
+            p, tokens, cfg, tp_axis=ax,
+            tp_algorithm=TP_FORWARD["algorithm"]), shards))
+    check(all(torch.equal(lg, logits[0]) for lg in logits[1:]),
+          "TP forward: the ranks' logits differ")
+    e = rel_l2(logits[0], want_l)
+    mx = float((logits[0] - want_l).abs().max())
+    agree = float((logits[0].argmax(-1) == want_l.argmax(-1)).float().mean())
+    check(e <= PAR_REL_BF16, f"TP forward: logits' relative L2 {e:.3g} > "
+                             f"{PAR_REL_BF16}")
+    check(st["launches"].get("fused_combine", 0) > 0,
+          "TP forward: K1 was not launched")
+    _figures_line("tp", f"forward tp={TP_FORWARD['tp']} "
+                        f"({TP_FORWARD['algorithm']} allreduce), "
+                        f"{TP_FORWARD['batch']} x {TP_FORWARD['seq']}, bf16",
+                  st)
+    print(f"[tp] forward logits against one rank's: relative L2 {e:.3g} "
+          f"(limit {PAR_REL_BF16}), max |diff| {mx:.4g}, argmax equal at "
+          f"{100 * agree:.2f}%; every rank the same bits")
+    out["tp_forward"] = dict(st, rel_l2=e, max_abs=mx, argmax_agree=agree)
+    paths["tp_forward"] = st["launches"]
+    del mesh, shards, logits, want_l
+
+    # 13c: EP decode at phase 12's MoE widths, ep = 4, rows split
+    b, plen, max_new = (EP_DECODE[k] for k in ("batch", "plen", "max_new"))
+    mcfg = tt.TransformerConfig(**SERVE_CFG, n_experts=MOE_EXPERTS,
+                                capacity_factor=float(MOE_EXPERTS))
+    f32 = tt.init_params(mcfg, seed=SEED + 24, device=dev)
+    prompt = torch.randint(0, mcfg.vocab, (b, plen), generator=gen,
+                           device=dev, dtype=torch.int32)
+    rows = list(prompt.chunk(EP_DECODE["ep"]))
+    res = {}
+    log = RouterLog()
+
+    def ep_generate(ax, p, t, c, alg):
+        log.start()
+        toks = G.generate(p, t, c, max_new=max_new, ep_axis=ax,
+                          all_to_all_algorithm=alg)
+        return toks, log.take()
+
+    for dtype in ("float32", "bfloat16"):
+        c0 = dataclasses.replace(mcfg, dtype=dtype)
+        params = tt.cast_params(f32, c0.act_dtype)
+        with log:
+            log.start()
+            want, gaps = greedy_with_gaps(params, prompt, c0, max_new)
+            want_calls = log.take()
+        mesh, shards = mesh_shards(dev, "ep", EP_DECODE["ep"], params,
+                                   tt.param_pspecs(c0, ep_axis="ep"))
+        del params
+        by_alg, routed = {}, {}
+        for alg in ("xla", "direct"):
+            with log:
+                ran, st = measured(counted, lambda: on_ranks(
+                    mesh, lambda ax, p, t: ep_generate(ax, p, t, c0, alg),
+                    shards, rows))
+            by_alg[alg] = torch.cat([t for t, _ in ran])
+            routed[alg] = [r for _, r in ran]
+            what = f"generate ep={EP_DECODE['ep']} ({alg} all_to_all), " \
+                   f"{MOE_EXPERTS} experts, batch {b} ({b // EP_DECODE['ep']}" \
+                   f" a rank), plen {plen}, {max_new} new, {dtype}"
+            _figures_line("ep", what, st)
+            res[f"{dtype}_{alg}"] = st
+            paths[f"ep_generate_{dtype}_{alg}"] = st["launches"]
+        # the schedules move the same bytes: the same tokens, bit for bit
+        check(torch.equal(by_alg["xla"], by_alg["direct"]),
+              f"EP generate {dtype}: 'xla' and 'direct' tokens differ")
+        full, partings, noise = routes_against(
+            by_alg["xla"].cpu().numpy(), want, gaps, routed["xla"],
+            want_calls, c0.n_layers, plen)
+        del routed, want_calls
+        need = b if dtype == "float32" else b // 2
+        check(full >= need, f"EP generate {dtype}: only {full} of {b} rows "
+                            f"equal the one-rank generate's to the end")
+        print(f"[ep] {dtype}: tokens equal the one-rank generate's on {full} "
+              f"of {b} rows to the end (both all_to_alls the same bits); "
+              f"router log-probabilities within {noise:.3g} of the one-rank "
+              f"run's up to each row's first routing difference (limit "
+              f"{ROUTER_TOL}); partings (row, position, scaled top-2 logit "
+              f"gap, first routing difference as (layer, token position, "
+              f"one-rank router gap) or None) {partings}")
+        for alg in by_alg:
+            res[f"{dtype}_{alg}"].update(rows_equal_to_end=full,
+                                         router_noise=noise,
+                                         partings=partings)
+        del mesh, shards
+    del f32
+    out["ep_generate"] = res
+
+    # 13d: SP forward, one sequence split over sp = 4
+    sp, seq = SP_FORWARD["sp"], SP_FORWARD["seq"]
+    base = tt.TransformerConfig(**SERVE_CFG)
+    f32 = tt.init_params(base, seed=SEED + 25, device=dev)
+    tokens = torch.randint(0, base.vocab, (1, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        c0 = dataclasses.replace(base, dtype=dtype)
+        params = tt.cast_params(f32, c0.act_dtype)
+        with torch.no_grad():
+            want_l = tt.forward(params, tokens, c0)[0]
+        mesh, shards = mesh_shards(dev, "sp", sp, params,
+                                   tt.param_pspecs(c0))
+        del params
+        limit = PAR_REL_BF16 if dtype == "bfloat16" else PAR_REL_F32
+        for att, layout in (("ring", "contiguous"), ("ring", "striped"),
+                            ("ulysses", "contiguous")):
+            c = dataclasses.replace(c0, sp_attention=att, sp_layout=layout)
+            s = tokens[0]
+            if layout == "striped":
+                s = stripe_sequence(s, sp)
+            blocks = [t[None].contiguous() for t in s.chunk(sp)]
+            logits, st = measured(counted, lambda: on_ranks(
+                mesh, lambda ax, p, t: tt.forward(p, t, c, sp_axis=ax)[0],
+                shards, blocks))
+            got = torch.cat(logits)
+            if layout == "striped":
+                got = unstripe_sequence(got, sp)
+            e = rel_l2(got, want_l)
+            mx = float((got - want_l).abs().max())
+            check(e <= limit, f"SP forward {att} {layout} {dtype}: logits' "
+                              f"relative L2 {e:.3g} > {limit}")
+            steps = sp if att == "ring" else 1
+            k2 = st["launches"].get("flash_block_update_hld", 0)
+            check(k2 == steps * c.n_layers * sp,
+                  f"SP forward {att}: K2 launched {k2} times, not "
+                  f"{steps} x {c.n_layers} layers x {sp} ranks")
+            _figures_line("sp", f"forward sp={sp} {att} {layout}, 1 x {seq} "
+                                f"({seq // sp} a rank), {dtype}", st)
+            kv_mib = 2 * c.kv_heads * (seq // sp) * c.head_dim * \
+                torch.finfo(c.act_dtype).bits / 8 / 2 ** 20
+            extra = (f"; a ring step clones {kv_mib:.2f} MiB of K/V a rank "
+                     f"(the LocalMesh exchange), {sp - 1} steps of {sp} a "
+                     f"layer" if att == "ring" else "")
+            print(f"[sp] logits against one rank's forward: relative L2 "
+                  f"{e:.3g} (limit {limit}), max |diff| {mx:.4g}; K2 "
+                  f"{k2} launches{extra}")
+            res[f"{att}_{layout}_{dtype}"] = dict(st, rel_l2=e, max_abs=mx)
+            if dtype == "bfloat16":
+                paths[f"sp_{att}_{layout}"] = st["launches"]
+        del mesh, shards, want_l
+    del f32
+    out["sp_forward"] = res
+    out["launches_by_path"] = paths
+    return out
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -3695,12 +4250,30 @@ def main() -> int:
         check(moe_launches[fn.__name__] > 0,
               f"{fn.__name__} was not launched on the MoE paths")
     torch.cuda.empty_cache()
+    par_counted = (k1.fused_combine, k2.flash_block_update_hld,
+                   kd.flash_block_decode, kd.write_kv_row, kd.write_kv_block)
+    t0 = time.perf_counter()
+    par = phase_parallel(dev, par_counted)
+    par_paths = par.pop("launches_by_path")
+    print(f"[parallel] phase 13 took {time.perf_counter() - t0:.1f} s, "
+          f"launches by path {json.dumps(par_paths)}")
+    windows_line("phases 8-13")
+    for fn in par_counted:
+        check(any(n.get(fn.__name__, 0) > 0 for n in par_paths.values()),
+              f"{fn.__name__} was not launched on the model-parallel paths")
+    for path in ("tp_generate", "ep_generate_bfloat16_xla"):
+        for name in ("flash_block_decode", "write_kv_row"):
+            check(par_paths[path][name] > 0,
+                  f"{name} was not launched on {path}")
+    check(par_paths["tp_gqa_bf16"]["write_kv_block"] > 0,
+          "write_kv_block was not launched on the TP block decode")
+    torch.cuda.empty_cache()
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
                       "k9_int8": k9_stats["int8"], "vjp": vjp,
                       "training": train["stats"], "dp_combine": dp,
-                      "speculative": spec, "moe": moe}))
+                      "speculative": spec, "moe": moe, "parallel": par}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -3714,12 +4287,16 @@ def main() -> int:
         out = {moe_p: moe_launches[name]} if name in moe_launches else {}
         if name in spec["launches"]:
             out[spec_p] = spec["launches"][name]
+        for path, counts in par_paths.items():
+            if counts.get(name):
+                out[f"{path} (phase 13)"] = counts[name]
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
                      dict(k1_stats["256MB"],
                           max_abs_err=k1_stats["max_abs_err"]), facade_p,
-                     ring_chunk=k1_stats["ring_chunk"]),
+                     ring_chunk=k1_stats["ring_chunk"],
+                     **by_path("fused_combine")),
         kernel_entry("K2 flash_block_update_hld", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:114",
                      served["flash_block_update_hld"], k2_stats["prefill"],

@@ -25,8 +25,21 @@ wrapper takes its plain twin; on the card they launch the kernels.
 
 MoE configs route drop-free in ``decode_step``, ``block_decode`` and a
 ragged ``prefill`` (``_decode_cfg``); a plain ``prefill`` routes with
-the training capacity, as the JAX package's does. Tensor- and
-expert-parallel decode belong to a later slice of the port.
+the training capacity, as the JAX package's does.
+
+Tensor and expert parallelism: every function from ``init_kv_cache`` to
+``generate`` takes ``tp_axis`` and ``ep_axis`` (``Axis`` objects of
+``parallel.mesh``; the ones that run layers also take their schedules,
+``tp_algorithm`` and ``all_to_all_algorithm``, as
+``transformer.apply_layer`` does), runs once per rank, and every rank
+makes the same calls. Under ``tp_axis`` the params are the rank's slices
+(``transformer.param_pspecs``), the cache holds kv_heads/tp heads
+(``kv_cache_pspecs``), the prompt is the same on every rank, and every
+rank ends with the same logits bit for bit: the row-parallel sums leave
+the same bits on every rank and the embedding is replicated. Under
+``ep_axis`` the experts are split and each rank holds its own batch
+rows; every rank must hold as many rows as the others (the dispatch's
+all_to_alls pair equal shapes).
 """
 
 from __future__ import annotations
@@ -47,14 +60,19 @@ from rlo_tpu_torch.models.transformer import (TransformerConfig,
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  device=None):
+                  device=None, tp_axis=None):
     """Zeroed per-layer K/V cache (distinct tensors per entry) on
-    ``device`` (None is the card)."""
+    ``device`` (None is the card); with ``tp_axis`` the rank's
+    kv_heads/tp heads (the column-parallel K/V projections' heads)."""
     from rlo_tpu_torch.parallel.mesh import resolve_device
     dev = resolve_device(device)
-    shape = (batch, cfg.kv_heads, cfg.head_dim, max_len)
+    ntp = tp_axis.size if tp_axis is not None else 1
+    if cfg.kv_heads % ntp:
+        raise ValueError(f"tp={ntp} must divide n_kv_heads {cfg.kv_heads}")
+    kvh = cfg.kv_heads // ntp
+    shape = (batch, kvh, cfg.head_dim, max_len)
     if cfg.kv_cache_dtype == "int8":
-        sshape = (batch, cfg.kv_heads, max_len)
+        sshape = (batch, kvh, max_len)
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                  "v": torch.zeros(shape, dtype=torch.int8, device=dev),
                  "ks": torch.zeros(sshape, dtype=torch.float32, device=dev),
@@ -65,6 +83,19 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
     return [{"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
              "v": torch.zeros(shape, dtype=cfg.act_dtype, device=dev)}
             for _ in range(cfg.n_layers)]
+
+
+def kv_cache_pspecs(cfg: TransformerConfig, tp_axis: Optional[str] = None):
+    """The ``PartitionSpec`` tree of ``init_kv_cache``'s output: the K/V
+    head axis split over ``tp_axis`` (as the ``wkv`` projections are),
+    batch and positions whole."""
+    from rlo_tpu_torch.parallel.sharding import PartitionSpec as P
+    spec = P(None, tp_axis, None, None)
+    if cfg.kv_cache_dtype == "int8":
+        sspec = P(None, tp_axis, None)
+        return [{"k": spec, "v": spec, "ks": sspec, "vs": sspec}
+                for _ in range(cfg.n_layers)]
+    return [{"k": spec, "v": spec} for _ in range(cfg.n_layers)]
 
 
 def _quantize_kv(x):
@@ -130,7 +161,9 @@ def _write_rows(lc, k_row, v_row, posv):
     return lc.get("ks"), lc.get("vs")
 
 
-def decode_step(params: dict, token, pos, cache, cfg: TransformerConfig):
+def decode_step(params: dict, token, pos, cache, cfg: TransformerConfig,
+                tp_axis=None, ep_axis=None, *, tp_algorithm: str = "psum",
+                all_to_all_algorithm: str = "xla"):
     """One token (b,) at position ``pos`` (int, 0-d or (b,) int32 tensor
     on the params' device) through all layers with the cache. Returns
     (logits (b, vocab) f32, cache), the cache updated in place.
@@ -152,7 +185,10 @@ def decode_step(params: dict, token, pos, cache, cfg: TransformerConfig):
             return _attend_cache(q, lc["k"], lc["v"], posv, scale,
                                  k_scale=ks, v_scale=vs).to(dt)
 
-        x, _ = apply_layer(x, layer, cfg, attention=attend, pos=pos_arr)
+        x, _ = apply_layer(x, layer, cfg, tp_axis=tp_axis,
+                           tp_algorithm=tp_algorithm, ep_axis=ep_axis,
+                           all_to_all_algorithm=all_to_all_algorithm,
+                           attention=attend, pos=pos_arr)
     x = _rmsnorm(x, params["ln_f"]["g"])
     logits = (x[:, 0, :] @ params["embed"].t().to(dt)).float()
     return logits, cache
@@ -183,7 +219,9 @@ def _write_block(lc, kt, vt, pos0):
 
 
 def block_decode(params: dict, tokens, pos0, cache,
-                 cfg: TransformerConfig):
+                 cfg: TransformerConfig, tp_axis=None, ep_axis=None, *,
+                 tp_algorithm: str = "psum",
+                 all_to_all_algorithm: str = "xla"):
     """T tokens (b, T) through the cache in one forward, row b's token i
     at pos0_b + i. Returns (logits (b, T, vocab) f32, cache), the cache
     updated in place. Write-then-attend with per-(row, i) masks."""
@@ -203,7 +241,10 @@ def block_decode(params: dict, tokens, pos0, cache,
             return _attend_cache_block(q, lc["k"], lc["v"], pos0, scale,
                                        k_scale=ks, v_scale=vs).to(dt)
 
-        x, _ = apply_layer(x, layer, cfg, attention=attend, pos=pos_arr)
+        x, _ = apply_layer(x, layer, cfg, tp_axis=tp_axis,
+                           tp_algorithm=tp_algorithm, ep_axis=ep_axis,
+                           all_to_all_algorithm=all_to_all_algorithm,
+                           attention=attend, pos=pos_arr)
     x = _rmsnorm(x, params["ln_f"]["g"])
     logits = torch.einsum("btd,vd->btv", x,
                           params["embed"].to(dt)).float()
@@ -211,7 +252,8 @@ def block_decode(params: dict, tokens, pos0, cache,
 
 
 def prefill(params: dict, tokens, cache, cfg: TransformerConfig,
-            last_index=None):
+            tp_axis=None, ep_axis=None, last_index=None, *,
+            tp_algorithm: str = "psum", all_to_all_algorithm: str = "xla"):
     """Fill the cache with the whole prompt in one forward. Returns
     (logits of the last prompt position, or of ``last_index`` (b,) per
     row, cache) with positions [0, plen) of the cache written in place.
@@ -248,7 +290,10 @@ def prefill(params: dict, tokens, cache, cfg: TransformerConfig,
                 lc["v"][..., :plen].copy_(vt.transpose(2, 3))
             return _local_attention(q, k, v).to(dt)
 
-        x, _ = apply_layer(x, layer, cfg, attention=attend, pos=pos)
+        x, _ = apply_layer(x, layer, cfg, tp_axis=tp_axis,
+                           tp_algorithm=tp_algorithm, ep_axis=ep_axis,
+                           all_to_all_algorithm=all_to_all_algorithm,
+                           attention=attend, pos=pos)
     x = _rmsnorm(x, params["ln_f"]["g"])
     if last_index is None:
         xl = x[:, -1, :]
@@ -259,14 +304,19 @@ def prefill(params: dict, tokens, cache, cfg: TransformerConfig,
     return logits, cache
 
 
-def prefill_scan(params: dict, tokens, cache, cfg: TransformerConfig):
+def prefill_scan(params: dict, tokens, cache, cfg: TransformerConfig,
+                 tp_axis=None, ep_axis=None, *, tp_algorithm: str = "psum",
+                 all_to_all_algorithm: str = "xla"):
     """One-token-at-a-time prefill through ``decode_step``: the parity
     oracle for ``prefill``."""
     b, plen = tokens.shape
     logits = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
     for t in range(plen):
-        logits, cache = decode_step(params, tokens[:, t], t, cache, cfg)
+        logits, cache = decode_step(
+            params, tokens[:, t], t, cache, cfg, tp_axis, ep_axis,
+            tp_algorithm=tp_algorithm,
+            all_to_all_algorithm=all_to_all_algorithm)
     return logits, cache
 
 
@@ -280,8 +330,9 @@ def _pick_token(logits, generator: Optional[torch.Generator],
 
 
 def _generate_prefill(params, prompt, cfg, *, max_new, max_len,
-                      temperature, generator, prompt_lengths):
-    """generate()'s checks, cache and prefill: (logits, cache, pos0)."""
+                      temperature, generator, prompt_lengths, **par):
+    """generate()'s checks, cache and prefill: (logits, cache, pos0).
+    ``par``: the axes and schedules of ``prefill``."""
     b, plen = prompt.shape
     max_len = max_len or (plen + max_new)
     if plen + max_new > max_len:
@@ -291,27 +342,29 @@ def _generate_prefill(params, prompt, cfg, *, max_new, max_len,
         raise ValueError("sampling (temperature > 0) needs a generator")
     dev = params["embed"].device
     prompt = prompt.to(dev)
-    cache = init_kv_cache(cfg, b, max_len, device=dev)
+    cache = init_kv_cache(cfg, b, max_len, device=dev,
+                          tp_axis=par.get("tp_axis"))
     if prompt_lengths is None:
-        logits, cache = prefill(params, prompt, cache, cfg)
+        logits, cache = prefill(params, prompt, cache, cfg, **par)
         pos0 = torch.tensor(plen, dtype=torch.int32, device=dev)
     else:
         pos0 = _pos_tensor(prompt_lengths, dev).reshape(b)
         logits, cache = prefill(params, prompt, cache, cfg,
-                                last_index=pos0 - 1)
+                                last_index=pos0 - 1, **par)
     return logits, cache, pos0
 
 
 def _generate_decode(params, logits, cache, pos, cfg, max_new,
-                     temperature, generator):
+                     temperature, generator, **par):
     """generate()'s decode loop; the step after the last picked token
-    is not run (its logits would go unused)."""
+    is not run (its logits would go unused). ``par``: the axes and
+    schedules of ``decode_step``."""
     toks = []
     for i in range(max_new):
         tok = _pick_token(logits, generator, temperature)
         toks.append(tok)
         if i + 1 < max_new:
-            logits, cache = decode_step(params, tok, pos, cache, cfg)
+            logits, cache = decode_step(params, tok, pos, cache, cfg, **par)
             pos = pos + 1
     if not toks:
         return torch.zeros((logits.shape[0], 0), dtype=torch.int32,
@@ -323,19 +376,29 @@ def generate(params: dict, prompt, cfg: TransformerConfig, *,
              max_new: int, max_len: Optional[int] = None,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             prompt_lengths=None):
+             tp_axis=None, ep_axis=None, prompt_lengths=None,
+             tp_algorithm: str = "psum", all_to_all_algorithm: str = "xla"):
     """Continuation of ``prompt`` (b, plen): returns (b, max_new) int32
     new tokens on the params' device. temperature 0 is greedy; > 0
     samples from softmax(logits / T) with ``generator``.
     ``prompt_lengths`` (b,) makes the prompts ragged: row i's prompt is
-    prompt[i, :prompt_lengths[i]] and continues from its own end."""
+    prompt[i, :prompt_lengths[i]] and continues from its own end.
+
+    Under ``tp_axis`` every rank gets the same prompt and returns the
+    same tokens; sampling picks the same token on every rank when each
+    rank's ``generator`` starts from the same state (the logits are the
+    same bits everywhere). Under ``ep_axis`` each rank gets its own
+    rows. ``tp_algorithm`` and ``all_to_all_algorithm`` are the
+    schedules of ``transformer.apply_layer``."""
+    par = dict(tp_axis=tp_axis, tp_algorithm=tp_algorithm, ep_axis=ep_axis,
+               all_to_all_algorithm=all_to_all_algorithm)
     params = cast_params(params, cfg.act_dtype)
     logits, cache, pos0 = _generate_prefill(
         params, prompt, cfg, max_new=max_new, max_len=max_len,
         temperature=temperature, generator=generator,
-        prompt_lengths=prompt_lengths)
+        prompt_lengths=prompt_lengths, **par)
     return _generate_decode(params, logits, cache, pos0, cfg, max_new,
-                            temperature, generator)
+                            temperature, generator, **par)
 
 
 def generate_timed(params: dict, prompt, cfg: TransformerConfig, *,

@@ -1,8 +1,8 @@
-"""Mixture-of-experts FFN on one card.
+"""Mixture-of-experts FFN, on one card or with the experts split over ranks.
 
-The port of ``rlo_tpu/models/moe.py`` without expert parallelism:
-``init_moe_params`` and ``moe_ffn`` (``ep_axis`` raises: the all_to_all
-dispatch over processes comes with the TP/EP slice of the port).
+The port of ``rlo_tpu/models/moe.py``: ``init_moe_params`` and
+``moe_ffn`` (``ep_axis``: expert parallelism over an ``Axis``, forward
+only).
 
 Routing is the JAX package's (switch-style top-1 with a static
 capacity):
@@ -27,8 +27,8 @@ and its einsums (at a 32 x 1024 prefill that tensor holds 8.6 G
 elements). While E * C is at most ``PAD_RATIO`` rows a token or
 ``PAD_ROWS`` in all (training at capacity factor 2, decode steps, verify
 blocks, the servers' prefills) the kept rows are placed at (expert,
-slot) of a padded (E, C + 1, d) block (slot C collects the dropped
-rows, whose results are multiplied by 0) and both products are one
+slot) of a padded (E, C, d) block (the dropped rows go to one scratch
+row past it, their results multiplied by 0) and both products are one
 batched product each, with no host read and the same shapes every
 call. Otherwise (drop-free batch prefills, E * C = E * T) the kept rows
 are sorted by expert and each expert's rows take one ``torch.matmul``
@@ -39,6 +39,19 @@ plain matrix products outside any Pallas kernel in the JAX package, so
 the port runs them through PyTorch's matmul too. Gradients flow
 through the gate probability, the expert weights and the aux term; the
 dispatch carries none.
+
+Expert parallelism (``ep_axis``, the JAX package's dispatch and return):
+each rank holds E/ep experts (``w1``/``w2`` cut by
+``transformer.param_pspecs``) and routes its own tokens, with capacity C
+from its own token count. Its kept rows go to the same padded (E, C,
+d) block, viewed as (ep, E_local, C, d): one ``all_to_all`` sends row
+s to rank s, the local experts run on (E_local, ep * C, d), and a
+second ``all_to_all`` brings each rank's results home. Every rank
+calls both with equal shapes, so every rank must route the same number
+of tokens. The sorted dispatch has variable-length rows that no
+all_to_all carries: it is the single-rank route only. The aux term is
+the rank's own tokens' (as in the JAX package, nothing is summed over
+the axis).
 """
 
 from __future__ import annotations
@@ -91,15 +104,31 @@ def _ffn(x, w1, w2):
     return torch.matmul(F.gelu(torch.matmul(x, w1), approximate="tanh"), w2)
 
 
-def _experts_padded(x, w1, w2, expert, slot, keep, cap):
-    """Each token's expert output (T, d), from a padded (E, C + 1, d)
-    block: kept rows at (expert, slot), dropped ones all at slot C (the
-    last copy there wins; its output is multiplied by 0)."""
-    e, d = w1.shape[0], x.shape[1]
-    at = expert * (cap + 1) + torch.where(keep, slot, cap)
-    block = x.new_zeros((e * (cap + 1), d)).index_copy(0, at, x)
-    y = _ffn(block.view(e, cap + 1, d), w1, w2)
-    return y.view(e * (cap + 1), d).index_select(0, at)
+def _experts_padded(x, w1, w2, expert, slot, keep, cap, ep_axis=None,
+                    algorithm: str = "xla"):
+    """Each kept token's expert output (T, d) from a padded (E * C, d)
+    block: kept rows at (expert, slot), dropped ones at a scratch row
+    past the block; a dropped row reads the block's last output, which
+    ``moe_ffn`` weighs by 0. With ``ep_axis`` ``w1``/``w2`` are this
+    rank's E/ep experts: the block, viewed as (ep, E_local, C, d), goes
+    to its experts' ranks and comes back by two ``all_to_all``s
+    (``algorithm``)."""
+    ep = ep_axis.size if ep_axis is not None else 1
+    e_local, d = w1.shape[0], x.shape[1]
+    rows = ep * e_local * cap
+    at = torch.where(keep, expert * cap + slot, rows)
+    block = x.new_zeros((rows + 1, d)).index_copy(0, at, x)[:rows]
+    if ep_axis is None:
+        y = _ffn(block.view(e_local, cap, d), w1, w2)
+    else:
+        from rlo_tpu_torch.ops.device_collectives import all_to_all
+        blocks = all_to_all(block.view(ep, e_local, cap, d), ep_axis,
+                            algorithm=algorithm)
+        y = _ffn(blocks.transpose(0, 1).reshape(e_local, ep * cap, d), w1,
+                 w2)
+        y = all_to_all(y.view(e_local, ep, cap, d).transpose(0, 1)
+                       .contiguous(), ep_axis, algorithm=algorithm)
+    return y.reshape(rows, d).index_select(0, at.clamp(max=rows - 1))
 
 
 def _experts_sorted(x, w1, w2, expert, onehot, keep):
@@ -117,16 +146,15 @@ def _experts_sorted(x, w1, w2, expert, onehot, keep):
 
 
 def moe_ffn(params: dict, h, n_experts: int, *,
-            capacity_factor: float = 2.0, ep_axis=None):
+            capacity_factor: float = 2.0, ep_axis=None,
+            all_to_all_algorithm: str = "xla"):
     """The MoE FFN on ``h`` (..., d) in its dtype. Returns (out shaped
-    like ``h``, aux f32 scalar)."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is not ported yet: its "
-            "all_to_all dispatch over processes comes with the TP/EP "
-            "slice of the port")
-    if params["w1"].shape[0] != n_experts:
-        raise ValueError(f"{params['w1'].shape[0]} expert weights for "
+    like ``h``, aux f32 scalar). With ``ep_axis`` ``params``' experts are
+    this rank's E/ep and ``h`` its tokens; ``all_to_all_algorithm`` is
+    the dispatch's schedule ('xla', 'direct' or 'ring')."""
+    ep = ep_axis.size if ep_axis is not None else 1
+    if params["w1"].shape[0] * ep != n_experts:
+        raise ValueError(f"expert shards {params['w1'].shape[0]} x {ep} != "
                          f"n_experts {n_experts}")
     dt = h.dtype
     x = h.reshape(-1, h.shape[-1])
@@ -136,8 +164,10 @@ def moe_ffn(params: dict, h, n_experts: int, *,
     frac = onehot.float().mean(dim=0)
     aux = n_experts * (frac * gates.mean(dim=0)).sum()
     w1, w2 = params["w1"].to(dt), params["w2"].to(dt)
-    if n_experts * cap <= max(PAD_ROWS, PAD_RATIO * x.shape[0]):
-        y = _experts_padded(x, w1, w2, expert, slot, keep, cap)
+    if ep_axis is not None or \
+            n_experts * cap <= max(PAD_ROWS, PAD_RATIO * x.shape[0]):
+        y = _experts_padded(x, w1, w2, expert, slot, keep, cap, ep_axis,
+                            all_to_all_algorithm)
     else:
         y = _experts_sorted(x, w1, w2, expert, onehot, keep)
     weight = torch.where(keep, prob, torch.zeros_like(prob)).to(dt)

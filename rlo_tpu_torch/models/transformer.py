@@ -23,8 +23,17 @@ router ``wr`` stays f32), so a tree cast once up front
 (``cast_params``) gives the same numbers, and gradients come back in
 float32.
 
-Sequence-, tensor- and expert-parallel training belong to later slices
-of the port and raise ``NotImplementedError``.
+Model parallelism, forward only (inference): ``tp_axis`` (heads and
+hidden units split per ``param_pspecs``, the row-parallel sums through
+``ops.device_collectives.allreduce``), ``ep_axis`` (experts split, tokens
+crossing ranks in ``models.moe``'s two all_to_alls) and ``sp_axis`` (the
+sequence split, attention through ``ops.ring_attention`` or
+``ops.ulysses``). An axis is an ``Axis`` of ``parallel.mesh``: a
+``LocalMesh`` rank (a thread on the one device) or a ``DistAxis``
+process. Sequence-, tensor- and expert-parallel training (a collective
+inside the backward) belongs to a later slice of the port and raises
+``NotImplementedError``, as does ``forward`` with an axis under grad
+mode.
 """
 
 from __future__ import annotations
@@ -75,6 +84,15 @@ class TransformerConfig:
     # streams the LM head's vocab axis in N-wide chunks through an online
     # logsumexp and never holds the (batch, block, vocab) logits
     loss_vocab_chunk: Optional[int] = None
+    # sequence-parallel attention under sp_axis: 'ring' (K/V rotate over
+    # the ring, ops.ring_attention) or 'ulysses' (all_to_all head
+    # scatter, ops.ulysses)
+    sp_attention: str = "ring"
+    # how the sequence is split over sp_axis: 'contiguous' (rank r holds
+    # tokens [r*blk, (r+1)*blk)) or 'striped' (rank r holds tokens r,
+    # r+sp, ...: ring_attention.stripe_sequence; ring only). The JAX
+    # package's forward is contiguous only
+    sp_layout: str = "contiguous"
 
     @property
     def head_dim(self) -> int:
@@ -135,6 +153,37 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             layer["w2"] = norm((f, d), (2 * f * cfg.n_layers) ** -0.5)
         params["layers"].append(layer)
     return params
+
+
+def param_pspecs(cfg: TransformerConfig, tp_axis: Optional[str] = None,
+                 ep_axis: Optional[str] = None) -> dict:
+    """The ``PartitionSpec`` tree of ``init_params``' output, leaf for
+    leaf the JAX package's: with ``tp_axis`` ``wqkv`` and ``w1`` are
+    column-parallel (split by head and hidden unit), ``wo`` and ``w2``
+    row-parallel; GQA's ``wq``/``wkv`` split by (kv-)head; with
+    ``ep_axis`` the expert axis of ``moe.w1``/``moe.w2`` is split and the
+    router ``wr`` replicated. Everything else is replicated. Give it to
+    ``parallel.sharding.shard_tree`` with the rank's axes."""
+    from rlo_tpu_torch.parallel.sharding import PartitionSpec as P
+    t = tp_axis
+
+    def layer():
+        out = {"ln1": {"g": P()}, "wo": P(t, None), "ln2": {"g": P()}}
+        if cfg.kv_heads == cfg.n_heads:
+            out["wqkv"] = P(None, None, t)
+        else:
+            out["wq"] = P(None, t)
+            out["wkv"] = P(None, None, t)
+        if cfg.n_experts > 0:
+            out["moe"] = {"wr": P(), "w1": P(ep_axis, None, None),
+                          "w2": P(ep_axis, None, None)}
+        else:
+            out["w1"] = P(None, t)
+            out["w2"] = P(t, None)
+        return out
+
+    return {"embed": P(), "ln_f": {"g": P()},
+            "layers": [layer() for _ in range(cfg.n_layers)]}
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -243,57 +292,111 @@ def _local_attention(q, k, v):
     return out.reshape(L, b, nh, hd).transpose(0, 1)
 
 
+def _sp_attention(q, k, v, cfg: TransformerConfig, sp_axis):
+    """Causal attention over the sequence split on ``sp_axis``: q (b,
+    blk, H, D), compact k/v (b, blk, Hkv, D). The batch folds into the
+    head axis (b*H + h -> b*Hkv + h//G keeps the GQA grouping), so one
+    ring or Ulysses call carries every row."""
+    b, blk, nh, hd = q.shape
+
+    def fold(t):
+        return t.transpose(0, 1).reshape(blk, b * t.shape[2], hd)
+
+    if cfg.sp_attention == "ulysses":
+        from rlo_tpu_torch.ops.ulysses import ulysses_attention
+        if cfg.sp_layout != "contiguous":
+            raise ValueError("ulysses attends a contiguous split only")
+        # per row, as the JAX package asks (the batch fold could hide it)
+        if nh % sp_axis.size:
+            raise ValueError(f"ulysses needs the axis size ({sp_axis.size}) "
+                             f"to divide the head count ({nh}); use ring "
+                             f"attention for few-head configs")
+        att = ulysses_attention(fold(q), fold(k), fold(v), sp_axis,
+                                causal=True)
+    elif cfg.sp_attention == "ring":
+        from rlo_tpu_torch.ops.ring_attention import ring_attention
+        att = ring_attention(fold(q), fold(k), fold(v), sp_axis, causal=True,
+                             layout=cfg.sp_layout)
+    else:
+        raise ValueError(f"unknown sp_attention {cfg.sp_attention!r}; "
+                         f"known: 'ring', 'ulysses'")
+    return att.reshape(blk, b, nh, hd).transpose(0, 1)
+
+
 def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
-                sp_axis=None, tp_axis=None, ep_axis=None, attention=None,
-                pos=None):
+                sp_axis=None, tp_axis=None, tp_algorithm: str = "psum",
+                ep_axis=None, all_to_all_algorithm: str = "xla",
+                attention=None, pos=None):
     """One layer (attention + dense or MoE FFN) on ``x`` (b, blk, d);
     returns (x, aux), aux the MoE load-balancing term (a zero f32 scalar
     for dense layers). ``attention(q, k, v)`` gets q
     (b, blk, heads, head_dim) and the compact k/v (b, blk, kv_heads,
     head_dim) and returns the q shape; None is causal attention over
-    the block through K2."""
-    for name, axis in (("sp_axis", sp_axis), ("tp_axis", tp_axis),
-                       ("ep_axis", ep_axis)):
-        if axis is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet: sequence-, tensor- and "
-                f"expert-parallel training need several processes on "
-                f"several cards and come with the multi-card training "
-                f"slice, tensor and expert parallel decode with the "
-                f"MoE/TP/EP slice")
+    the block through K2, or over the sequence split on ``sp_axis``.
+
+    With ``tp_axis`` the weights are this rank's slices (``param_pspecs``):
+    it computes n_heads/tp heads (kv_heads/tp K/V heads; the hook sees
+    these local heads) and d_ff/tp hidden units, and the row-parallel
+    products of ``wo`` and ``w2`` are summed over the axis by
+    ``allreduce(algorithm=tp_algorithm)`` (K1 on the manual schedules)
+    and cast back to the activation dtype. ``ep_axis`` splits the
+    experts (``models.moe``; its two all_to_alls take
+    ``all_to_all_algorithm``: 'xla', 'direct' or 'ring'). Every rank
+    must call this with the same shapes (the collectives pair up across
+    ranks)."""
     b, blk, _ = x.shape
     dt = x.dtype
     hd = cfg.head_dim
+    ntp = tp_axis.size if tp_axis is not None else 1
+    if cfg.n_heads % ntp or cfg.d_ff % ntp:
+        raise ValueError(f"tp={ntp} must divide n_heads {cfg.n_heads} and "
+                         f"d_ff {cfg.d_ff}")
+    if cfg.kv_heads % ntp:
+        raise ValueError(f"tp={ntp} must divide n_kv_heads {cfg.kv_heads}")
+    nh, nkv = cfg.n_heads // ntp, cfg.kv_heads // ntp
+
+    def tp_sum(t):
+        if tp_axis is None:
+            return t
+        from rlo_tpu_torch.ops.device_collectives import allreduce
+        return allreduce(t, tp_axis, algorithm=tp_algorithm).to(t.dtype)
+
     h = _rmsnorm(x, layer["ln1"]["g"])
     if cfg.kv_heads == cfg.n_heads:
-        w = layer["wqkv"].to(dt)
-        q, k, v = torch.split(h @ w.reshape(w.shape[0], -1), cfg.d_model,
+        w = layer["wqkv"].to(dt)           # (d, 3, local heads x hd)
+        q, k, v = torch.split(h @ w.reshape(w.shape[0], -1), nh * hd,
                               dim=-1)
     else:
         q = h @ layer["wq"].to(dt)
         wkv = layer["wkv"].to(dt)
-        k, v = torch.split(h @ wkv.reshape(wkv.shape[0], -1),
-                           cfg.kv_heads * hd, dim=-1)
-    q = q.reshape(b, blk, cfg.n_heads, hd)
-    k = k.reshape(b, blk, cfg.kv_heads, hd)
-    v = v.reshape(b, blk, cfg.kv_heads, hd)
+        k, v = torch.split(h @ wkv.reshape(wkv.shape[0], -1), nkv * hd,
+                           dim=-1)
+    q = q.reshape(b, blk, nh, hd)
+    k = k.reshape(b, blk, nkv, hd)
+    v = v.reshape(b, blk, nkv, hd)
     if cfg.pos_encoding == "rope":
         if pos is None:
             raise ValueError("rope needs per-layer positions")
         q = _rope(q, pos, cfg.rope_scaling, cfg.rope_scale)
         k = _rope(k, pos, cfg.rope_scaling, cfg.rope_scale)
-    att = attention(q, k, v) if attention is not None \
-        else _local_attention(q, k, v)
-    att = att.reshape(b, blk, cfg.n_heads * hd)
-    x = x + att @ layer["wo"].to(dt)
+    if attention is not None:
+        att = attention(q, k, v)
+    elif sp_axis is not None:
+        att = _sp_attention(q, k, v, cfg, sp_axis)
+    else:
+        att = _local_attention(q, k, v)
+    att = att.reshape(b, blk, nh * hd)
+    x = x + tp_sum(att @ layer["wo"].to(dt))
     h = _rmsnorm(x, layer["ln2"]["g"])
     if cfg.n_experts > 0:
         ffn, aux = moe_ffn(layer["moe"], h, cfg.n_experts,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor,
+                           ep_axis=ep_axis,
+                           all_to_all_algorithm=all_to_all_algorithm)
         return x + ffn, aux
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h @ layer["w1"].to(dt), approximate="tanh")
-    x = x + h @ layer["w2"].to(dt)
+    x = x + tp_sum(h @ layer["w2"].to(dt))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -383,17 +486,37 @@ def nll_sum_chunked(x, embed, targets, valid, chunk: int):
     return (nll * valid).sum(), valid.sum()
 
 
-def _features(params: dict, tokens, cfg: TransformerConfig):
+def _positions(blk: int, cfg: TransformerConfig, sp_axis, device):
+    """The global positions of this rank's ``blk`` tokens: 0..blk-1, or
+    under ``sp_axis`` the rank's block of the split sequence
+    (``cfg.sp_layout``)."""
+    ar = torch.arange(blk, device=device)
+    if sp_axis is None:
+        return ar
+    if cfg.sp_layout == "contiguous":
+        return sp_axis.index * blk + ar
+    if cfg.sp_layout == "striped":
+        return sp_axis.index + sp_axis.size * ar
+    raise ValueError(f"unknown sp_layout {cfg.sp_layout!r}; known: "
+                     f"'contiguous', 'striped'")
+
+
+def _features(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
+              tp_axis=None, tp_algorithm: str = "psum", ep_axis=None,
+              all_to_all_algorithm: str = "xla"):
     """The body up to and including the final norm: (b, blk, d) pre-head
     activations and the aux loss (0 for dense layers). ``cfg.remat``
     checkpoints each layer."""
     b, blk = tokens.shape
-    pos = torch.arange(blk, device=tokens.device)
+    pos = _positions(blk, cfg, sp_axis, tokens.device)
     x = embed_tokens(params["embed"], tokens, pos, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(x, layer):
-        return apply_layer(x, layer, cfg, pos=pos)
+        return apply_layer(x, layer, cfg, sp_axis=sp_axis, tp_axis=tp_axis,
+                           tp_algorithm=tp_algorithm, ep_axis=ep_axis,
+                           all_to_all_algorithm=all_to_all_algorithm,
+                           pos=pos)
 
     for layer in params["layers"]:
         if cfg.remat:
@@ -405,12 +528,35 @@ def _features(params: dict, tokens, cfg: TransformerConfig):
 
 
 def forward(params: dict, tokens, cfg: TransformerConfig,
-            sp_axis=None, tp_axis=None, ep_axis=None,
+            sp_axis=None, tp_axis=None, tp_algorithm: str = "psum",
+            ep_axis=None, all_to_all_algorithm: str = "xla",
             with_aux: bool = False):
     """Next-token logits (f32), causal; (logits, aux) with ``with_aux``.
-    ``tokens`` (batch, block) integers."""
-    _single_card_training(sp_axis, tp_axis, ep_axis)
-    x, aux = _features(params, tokens, cfg)
+    ``tokens`` (batch, block) integers: under ``sp_axis`` this rank's
+    block of the sequence (``cfg.sp_layout``), under ``ep_axis`` this
+    rank's rows. With ``tp_axis``/``ep_axis`` the params are this rank's
+    slices (``param_pspecs``); ``tp_algorithm`` picks the row-parallel
+    sum's schedule (psum / ring / bidir_ring / recursive_doubling /
+    halving_doubling) and ``all_to_all_algorithm`` the MoE dispatch's
+    (xla / direct / ring). Every rank ends with the logits of its tokens
+    (under tp the same bits on every rank); aux is the rank's own
+    tokens' term.
+
+    With any axis set it runs only with grad mode off (``torch.no_grad``
+    or ``torch.inference_mode``): the backward of a collective is the
+    multi-card training slice's, and on a ``LocalMesh`` it would wait on
+    the device's one autograd thread."""
+    if torch.is_grad_enabled():
+        for name, axis in (("sp_axis", sp_axis), ("tp_axis", tp_axis),
+                           ("ep_axis", ep_axis)):
+            if axis is not None:
+                raise NotImplementedError(
+                    f"forward with {name} under grad mode: the backward "
+                    f"of its collectives comes with the multi-card "
+                    f"training slice, a later slice of the port; run the "
+                    f"forward under torch.no_grad()")
+    x, aux = _features(params, tokens, cfg, sp_axis, tp_axis, tp_algorithm,
+                       ep_axis, all_to_all_algorithm)
     logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
     return (logits, aux) if with_aux else logits
 

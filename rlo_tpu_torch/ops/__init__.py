@@ -1,1 +1,2 @@
-"""Per-rank collective functions (``device_collectives``)."""
+"""Per-rank collective functions (``device_collectives``) and
+sequence-parallel attention (``ring_attention``, ``ulysses``)."""

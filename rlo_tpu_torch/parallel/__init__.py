@@ -1,2 +1,2 @@
-"""Mesh axes (``mesh``) and the host-side consensus protocol
-(``consensus``)."""
+"""Mesh axes (``mesh``), partition specs and per-rank slices of a tree
+(``sharding``) and the host-side consensus protocol (``consensus``)."""

@@ -153,7 +153,10 @@ class LocalMesh:
             r = r * s + c
         return r
 
-    def _axes(self, rank: int) -> Dict[str, "LocalAxis"]:
+    def axes(self, rank: int) -> Dict[str, "LocalAxis"]:
+        """Each axis name -> rank ``rank``'s ``LocalAxis`` (what ``run``
+        hands a rank; outside ``run`` only its ``size`` and ``index``
+        may be used, e.g. by ``sharding.shard_tree``)."""
         return {name: LocalAxis(self, rank, dim)
                 for dim, name in enumerate(self.names)}
 
@@ -172,7 +175,7 @@ class LocalMesh:
             try:
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
-                results[r] = fn(self._axes(r),
+                results[r] = fn(self.axes(r),
                                 *(a[r] for a in per_rank_args))
             except BaseException as e:  # noqa: BLE001 - re-raised in run
                 errors[r] = e

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s profiled windows on the CPU, with a stub profiler:
-a window idles inside its edges, one that records no CUDA kernel is
+a window opens with its opener kernel and idles inside its edges, one
+that records no CUDA kernel but the opener is
 taken again with a longer idle, three empty takes fail, and the
 pair-write gate
 (``_one_launch``) takes its launch count from the wrapper's own counter
@@ -59,7 +60,10 @@ def stub(monkeypatch):
                         lambda *a: state.log.append("sync"))
     monkeypatch.setattr(cs.time, "sleep",
                         lambda s: state.log.append(("idle", s)))
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: state.log.append("open"))
     monkeypatch.setattr(cs, "windows", {"taken": 0, "empty": 0})
+    monkeypatch.setattr(cs, "openers", {"lost": 0})
     return state
 
 
@@ -70,21 +74,26 @@ def _call(state):
 
 
 def test_empty_windows_are_taken_again(stub):
-    stub.windows = [[], [_evt("Memcpy HtoD", device_type=None)],
+    """A window whose only kernel is its opener recorded none of the
+    calls' kernels: it is empty too."""
+    stub.windows = [[_evt("void at::cuda::(anonymous namespace)::"
+                          "spin_kernel(long)")],
+                    [_evt("Memcpy HtoD", device_type=None)],
                     [_evt(WRITE, 3, 6.0), _evt("aten::copy_", 1, 0.0,
                                                torch.autograd.DeviceType.CPU)]]
     ran = cs.profiled(_call(stub), reps=3)
     assert ran == {WRITE: (3, 6.0)}
     assert cs.windows == {"taken": 3, "empty": 2}
     assert stub.calls == 9          # each take runs all its calls
-    # each take: a synchronise, then inside the window an idle, the
-    # calls, a synchronise and an idle ten times the last take's
-    take = ["sync", "window", ("idle", cs.WINDOW_IDLE_S), "sync",
-            ("idle", cs.WINDOW_IDLE_S)]
-    assert stub.log[:5] == take
-    assert stub.log[-5:] == ["sync", "window",
-                             ("idle", cs.WINDOW_IDLE_S * 100), "sync",
-                             ("idle", cs.WINDOW_IDLE_S * 100)]
+    # each take: a synchronise, then inside the window the openers and a
+    # synchronise, an idle, the calls, a synchronise and an idle ten
+    # times the last take's
+    opened = ["sync", "window"] + ["open"] * cs.WINDOW_OPENERS + ["sync"]
+    n = len(opened) + 3
+    assert stub.log[:n] == opened + [("idle", cs.WINDOW_IDLE_S), "sync",
+                                     ("idle", cs.WINDOW_IDLE_S)]
+    assert stub.log[-n:] == opened + [("idle", cs.WINDOW_IDLE_S * 100),
+                                      "sync", ("idle", cs.WINDOW_IDLE_S * 100)]
 
 
 def test_three_empty_windows_fail(stub):
@@ -105,12 +114,19 @@ def test_a_partial_window_is_not_taken_again(stub):
 
 
 def test_windows_line_reports_and_resets(stub, capsys):
-    stub.windows = [[], [_evt(WRITE)]]
+    """The line counts the windows, the empty ones and the most opener
+    launches a window did not record."""
+    spin = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    stub.windows = [[_evt(spin, cs.WINDOW_OPENERS - 5)],
+                    [_evt(spin, cs.WINDOW_OPENERS), _evt(WRITE)]]
     cs.profiled(_call(stub))
     cs.windows_line("k10/k11")
     assert "[k10/k11] profiler windows: 2, of which 1 recorded no kernel " \
-           "and were taken again" in capsys.readouterr().out
+           f"and were taken again; at most 5 of a window's " \
+           f"{cs.WINDOW_OPENERS} opener launches went unrecorded" in \
+           capsys.readouterr().out
     assert cs.windows == {"taken": 0, "empty": 0}
+    assert cs.openers == {"lost": 0}
 
 
 def test_device_ms_sums_kernels_over_the_calls(stub):
@@ -207,6 +223,30 @@ def test_attend_device_ms_takes_a_short_window_again(stub):
         cs._attend_device_ms(path, path.counted, False, "K6")
 
 
+def test_spread_places_a_window_s_launches(monkeypatch):
+    """A short window prints where its recorded launches lie: the first
+    start, the last end, and the largest gap between launches (a lost
+    record in the middle shows as a gap twice the median)."""
+    def kernel(start, end, key=K6):
+        return SimpleNamespace(key=key, device_type=CUDA,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+    ev = [kernel(5000.0 + 66 * i, 5060.0 + 66 * i) for i in range(6)
+          if i != 3] + [kernel(1.0, 2.0, "Memcpy DtoD")]
+    monkeypatch.setitem(cs.last_window, "prof",
+                        SimpleNamespace(events=lambda: ev))
+    monkeypatch.setitem(cs.last_window, "host_us", 10500.0)
+    monkeypatch.setitem(cs.last_window, "idle_us", 5000.0)
+    monkeypatch.setitem(cs.last_window, "openers_lost", 3)
+    assert cs._spread(lambda k: k == K6) == (
+        f"3 of {cs.WINDOW_OPENERS} openers unrecorded; "
+        "recorded launches from 5000 to 5390 us into a 10500 us window "
+        "with 5000 us idle edges; gaps between launches median 66.0 us, "
+        "largest 132.0 us after launch 2")
+    monkeypatch.setitem(cs.last_window, "prof", object())
+    assert cs._spread(lambda k: True) == "no event times"
+
+
 @pytest.mark.parametrize("launches", [0, 2])
 def test_attend_device_ms_counts_launches_on_the_host(stub, launches):
     stub.windows = [[_evt(K6, 50)]]
@@ -243,3 +283,161 @@ def test_partings_replays_greedy_acceptance():
     # no longer counts
     assert [(r, row) for r, row, _ in cs._partings(rec, gamma, 4)] == \
         [(0, 1)]
+
+
+def _routes(b=4, ranks=2, n=3, layers=2, plen=2, seed=0):
+    """One-rank router records for ``routes_against`` (gates of a
+    prefill call per layer, then each decode step's per layer) with a
+    clear top-2 gap at every token, and each rank's records of its rows
+    one 1e-4 logit off; edits go through the returned logits."""
+    g = torch.Generator().manual_seed(seed)
+    want = []
+    for k in range(layers * n):
+        t = b * plen if k < layers else b
+        want.append(torch.randn(t, 3, generator=g) +
+                    torch.tensor([3.0, 0.0, -3.0])[torch.randperm(3,
+                                                                  generator=g)])
+    rows = b // ranks
+
+    def mine(r):
+        out = []
+        for k, lw in enumerate(want):
+            span = plen if k < layers else 1
+            out.append(lw[r * rows * span:(r + 1) * rows * span] + 1e-4)
+        return out
+    return want, [mine(r) for r in range(ranks)]
+
+
+def _gates(calls):
+    return [torch.softmax(c, dim=-1) for c in calls]
+
+
+def test_rel_l2_and_partings_by_gap():
+    """Phase 13's comparisons: the relative L2 of two tensors, and each
+    EP row's first parting with the reference's logit gap there and the
+    first routing difference before it (``routes_against``)."""
+    w = torch.tensor([[3.0, 4.0]])
+    assert cs.rel_l2(w + torch.tensor([[0.0, 0.5]]), w) == pytest.approx(0.1)
+    assert cs.rel_l2(w, w) == 0.0
+    want_l, rank_l = _routes()
+    want = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 9], [1, 1, 1]])
+    gaps = np.full((4, 3), 0.5)
+    got = want.copy()
+    full, partings, noise = cs.routes_against(
+        got, want, gaps, [_gates(c) for c in rank_l], _gates(want_l), 2, 2)
+    assert (full, partings) == (4, []) and noise < 1e-3
+    # row 1 parts at a logit near-tie; row 2 parts away from one, after a
+    # token of its prompt (position 1, layer 1) changed expert at a
+    # router near-tie (rank 1's local row 0)
+    got[1, 2], gaps[1, 2] = 0, cs.NEAR_TIE / 2
+    got[2, 1] = 0
+    want_l[1][5] = torch.tensor([1.0, 0.99, -1.0])
+    rank_l[1][1][1] = torch.tensor([0.99, 1.0, -1.0])
+    full, partings, noise = cs.routes_against(
+        got, want, gaps, [_gates(c) for c in rank_l], _gates(want_l), 2, 2)
+    assert full == 2 and noise < cs.ROUTER_TOL
+    assert partings == [(1, 2, round(cs.NEAR_TIE / 2, 4), None),
+                        (2, 1, 0.5, (1, 1, 0.01))]
+
+
+def test_routes_against_fails_away_from_near_ties():
+    """A parting with no routing difference before it and a wide logit
+    gap fails, and so do router log-probabilities off by more than
+    ROUTER_TOL (a misplaced row) and records of the wrong length."""
+    want_l, rank_l = _routes()
+    want = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 9], [1, 1, 1]])
+    gaps = np.full((4, 3), 0.5)
+    got = want.copy()
+    got[3, 0] = 0
+    with pytest.raises(RuntimeError, match="no routing difference"):
+        cs.routes_against(got, want, gaps, [_gates(c) for c in rank_l],
+                          _gates(want_l), 2, 2)
+    rank_l[0][3][1, 0] += 1.0       # rank 0's row 1, the first decode step
+    with pytest.raises(RuntimeError, match="router log-probabilities"):
+        cs.routes_against(want, want, gaps, [_gates(c) for c in rank_l],
+                          _gates(want_l), 2, 2)
+    with pytest.raises(RuntimeError, match="router records"):
+        cs.routes_against(want, want, gaps, [_gates(c[:-1]) for c in rank_l],
+                          _gates(want_l), 2, 2)
+
+
+def test_router_log_keeps_each_thread_s_gates():
+    """``RouterLog`` keeps the gates of every route call a thread makes
+    between its start and take, the tensors themselves, and puts
+    ``moe.route`` back when it leaves."""
+    import threading
+    from rlo_tpu_torch.models import moe
+    route = moe.route
+    g = torch.Generator().manual_seed(0)
+    params = moe.init_moe_params(g, 8, 16, 4)
+    h = torch.randn(2, 5, 8, generator=g)
+    out = {}
+    with cs.RouterLog() as log:
+        def rank(i):
+            log.start()
+            moe.moe_ffn(params, h[i], 4)
+            moe.moe_ffn(params, h[i], 4)
+            out[i] = log.take()
+        threads = [threading.Thread(target=rank, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        moe.moe_ffn(params, h[0], 4)       # no start on this thread
+    assert moe.route is route
+    for i in (0, 1):
+        assert len(out[i]) == 2
+        want = moe.route(params["wr"], h[i], 4, 2.0)[0]
+        assert torch.equal(out[i][0], want) and torch.equal(out[i][1], want)
+
+
+def test_tokens_against_holds_rows_by_the_near_tie_rule():
+    """A parting at a near-tie ends that row's comparison; one away from
+    a near-tie fails, and so do too few rows compared to the end."""
+    want = np.array([[1, 2, 3], [4, 5, 6]])
+    gaps = np.full((2, 3), 0.5)
+    gaps[1, 1] = cs.NEAR_TIE / 2
+    got = np.array([[1, 2, 3], [4, 0, 0]])
+    assert cs._tokens_against(got, want, gaps, "t", 1) == 1
+    with pytest.raises(RuntimeError, match="only 1 of 2 rows"):
+        cs._tokens_against(got, want, gaps, "t", 2)
+    with pytest.raises(RuntimeError, match="top-2 gap"):
+        cs._tokens_against(np.array([[1, 0, 3], [4, 5, 6]]), want, gaps,
+                           "t", 1)
+
+
+def test_mesh_shards_and_on_ranks(stub, monkeypatch):
+    """Each rank of phase 13's meshes gets its own slices, and runs with
+    grad mode off; ``measured`` runs the path once inside a profiled
+    window, counting its launches from 0, and a take the profiler
+    recorded nothing of runs it again with the same launches."""
+    tree = {"w": torch.arange(8.0).reshape(2, 4)}
+    from rlo_tpu_torch.parallel.sharding import PartitionSpec as P
+    mesh, shards = cs.mesh_shards("cpu", "tp", 2, tree, {"w": P(None, "tp")})
+    assert [s["w"].tolist() for s in shards] == [[[0, 1], [4, 5]],
+                                                 [[2, 3], [6, 7]]]
+    out = cs.on_ranks(mesh, lambda ax, s: (ax.index, torch.is_grad_enabled(),
+                                           s["w"].sum().item()), shards)
+    assert out == [(0, False, 10.0), (1, False, 18.0)]
+
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 2 ** 30)
+    counter = SimpleNamespace(__name__="k", launches=5)
+
+    def fn():
+        counter.launches += 1
+        return counter.launches
+
+    stub.windows = [[_evt("kern", us=3000.0),
+                     _evt("Memcpy DtoD (Device -> Device)", us=1000.0)]]
+    out, st = cs.measured((counter,), fn)
+    assert out == 1 and st["launches"] == {"k": 1}
+    assert st["wall_ms"] >= 0
+    assert st["device_ms"] == pytest.approx(4.0)
+    assert st["dtod_copy_ms"] == pytest.approx(1.0)
+    assert st["peak_gib"] == 1.0
+    counter.launches = 7
+    stub.windows, stub.opened = [[], [_evt("kern", us=3000.0)]], 0
+    out, st = cs.measured((counter,), fn)
+    assert out == 2 and st["launches"] == {"k": 1}
+    assert st["device_ms"] == pytest.approx(3.0)

@@ -254,18 +254,29 @@ def test_sampling_contract(model):
 
 
 def test_later_slices_raise():
+    """Inference with the sp/tp/ep axes runs (tests/test_torch_{tensor,
+    expert,sequence}_parallel.py); what stays for the multi-card training
+    slice raises: the loss and grads with any axis, and forward with an
+    axis under grad mode."""
     _, tc = _cfgs("mha_sincos")
-    tp = tt.init_params(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE/TP/EP"):
-        tt.apply_layer(torch.zeros(1, 2, 64), tp["layers"][0], tc,
-                       tp_axis="tp")
-    moe = tt.init_params(dataclasses.replace(tc, n_experts=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="TP/EP"):
-        moe_ffn(moe["layers"][0]["moe"], torch.zeros(1, 2, 64), 2,
-                ep_axis="ep")
+    moe = dataclasses.replace(tc, n_experts=2)
+    params = {False: tt.init_params(tc, device="cpu"),
+              True: tt.init_params(moe, device="cpu")}
+    tok = torch.zeros((1, 4), dtype=torch.int32)
+    for axis in ("sp_axis", "tp_axis", "ep_axis"):
+        cfg = moe if axis == "ep_axis" else tc
+        p = params[axis == "ep_axis"]
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tt.loss_fn(p, tok, cfg, **{axis: object()})
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tt.grads_and_loss(p, tok, cfg, **{axis: object()})
+        with pytest.raises(NotImplementedError, match="training slice"):
+            tt.forward(p, tok, cfg, **{axis: object()})
     x = torch.zeros(1, 2, 64)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tt.apply_layer(x, tp["layers"][0], tc, sp_axis="sp")
+    layer = params[True]["layers"][0]
+    with torch.no_grad():
+        out, aux = moe_ffn(layer["moe"], x, 2)
+        assert out.shape == x.shape and torch.isfinite(aux)
 
 
 def test_default_device_is_the_card():

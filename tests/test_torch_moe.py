@@ -139,9 +139,15 @@ def test_seeds_have_no_router_near_ties():
 
 
 def test_ep_axis_raises():
+    """Expert parallelism runs (tests/test_torch_expert_parallel.py);
+    under an ep axis, weights that are not the rank's E/ep experts
+    raise."""
+    from rlo_tpu_torch.parallel.mesh import LocalMesh
     jp, h = _moe_case(1)
-    with pytest.raises(NotImplementedError, match="TP/EP"):
-        tm.moe_ffn(_to_torch(jp), torch.from_numpy(h), E, ep_axis="ep")
+    mesh = LocalMesh((2,), ("ep",), device="cpu")
+    with pytest.raises(ValueError, match="expert shards"):
+        mesh.run(lambda axes: tm.moe_ffn(_to_torch(jp), torch.from_numpy(h),
+                                         E, ep_axis=axes["ep"]))
 
 
 def test_init_moe_params_shapes():
