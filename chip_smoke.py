@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one card: the rootless collectives, the
 dense serving path, the paged serving path, the training step,
-speculative decoding, mixture-of-experts layers and tensor-, expert- and
-sequence-parallel inference.
+speculative decoding, mixture-of-experts layers, tensor-, expert- and
+sequence-parallel inference, and pipeline-parallel training with a
+resume from a checkpoint.
 
     python3 chip_smoke.py
 
@@ -161,8 +162,27 @@ Phases, each printing its own lines:
    profiled window: its wall time, device time, peak memory and
    launches of K1, K2 and K6-K8 (set to 0 just before the path and read
    just after).
-14. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-13), then the last
+14. Pipeline-parallel training at full width: the flagship config,
+   one batch of 8 x 1024 from the seed, the stages threads of a
+   ``LocalMesh`` on the one card cut by ``pipeline_pspecs``/
+   ``shard_tree``: (a) the GPipe step at pp 4 (2 layers a stage) in 8
+   microbatches and (b) the 1F1B step on the same mesh, each against
+   the single-card ``train_step`` on the same batch (loss within
+   PIPE_LOSS_RTOL, the update new - old within DP_REL_LIMIT per tensor)
+   and 1F1B against GPipe; (c) each rank's ``ppermute`` calls equal
+   ``pipeline_cost``'s (GPipe 2 x 11 x 1, 1F1B 14 x 2), the 1F1B ring
+   holds ``peak_boundary_blocks`` (7) saved inputs, GPipe's most stage
+   graphs held at once, each schedule's peak device memory; (d) both
+   schedules at (dp 2, pp 2) in 4 microbatches against the single card;
+   (e) three 1F1B steps at pp 2 straight, and the first step saved
+   (gathered) by ``CheckpointManager``, restored onto the card into a
+   fresh pp-2 layout and the last two run again: losses and params
+   bit-identical; (f) K2, K4 and K5's launch counts set to 0 before the
+   phase and read after, and per pipelined step; (g) the median wall
+   per step of each schedule beside the single-card step (rank threads
+   on one card: not a figure for pipelining across cards).
+15. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-14), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -3985,6 +4005,276 @@ def phase_parallel(dev, counted) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: pipeline-parallel training at full width
+# ---------------------------------------------------------------------------
+
+#: phase 14: one batch of batch x seq at the flagship's widths; (a)-(c)
+#: at pp 4 (2 layers a stage) in n_micro microbatches; (d) at (dp, pp)
+#: in dp_micro; (e) resume_steps 1F1B steps at pp resume_pp; each
+#: schedule's step timed reps times
+PIPE = dict(batch=8, seq=1024, pp=4, n_micro=8, dp=2, dp_pp=2, dp_micro=4,
+            resume_pp=2, resume_steps=3, reps=3)
+#: the pipelined loss against the single-card step's, relative
+PIPE_LOSS_RTOL = 1e-3
+
+
+class CountingAxis:
+    """An ``Axis`` that counts its ``ppermute`` calls and hands every
+    call on to the axis it wraps."""
+
+    def __init__(self, axis):
+        self.axis, self.size, self.index = axis, axis.size, axis.index
+        self.device, self.leader = axis.device, axis.leader
+        self.permutes = 0
+
+    def ppermute(self, x, pairs):
+        self.permutes += 1
+        return self.axis.ppermute(x, pairs)
+
+    def all_reduce(self, x, op):
+        return self.axis.all_reduce(x, op)
+
+
+def pipe_mesh(dev, cfg, stacked, dp, pp):
+    """A (dp, pp) ``LocalMesh`` on the card (1-D when dp is None) and
+    each rank's slices of the stacked params."""
+    from rlo_tpu_torch.models.pipeline import pipeline_pspecs
+    from rlo_tpu_torch.parallel.mesh import LocalMesh
+    from rlo_tpu_torch.parallel.sharding import shard_tree
+    mesh = LocalMesh((pp,) if dp is None else (dp, pp),
+                     ("pp",) if dp is None else ("dp", "pp"), device=dev)
+    specs = pipeline_pspecs("pp", cfg)
+    return mesh, specs, [shard_tree(stacked, specs, mesh.axes(r))
+                         for r in range(mesh.world_size)]
+
+
+def pipe_steps(mesh, cfg, fn, shards, batches, n_micro):
+    """``fn`` (a pipelined step) over ``batches`` in turn on every rank
+    of ``mesh``, each dp rank on its rows. Returns, per rank, (stage
+    params, the losses, its ppermute calls, the last step's stats)."""
+    def body(axes, p):
+        pp_axis = CountingAxis(axes["pp"])
+        dp_axis = axes.get("dp")
+        losses, st = [], {}
+        for tok in batches:
+            if dp_axis is not None:
+                rows = tok.shape[0] // dp_axis.size
+                tok = tok[dp_axis.index * rows:(dp_axis.index + 1) * rows]
+            p, loss = fn(p, tok, cfg, pp_axis, n_micro, lr=SGD_LR,
+                         dp_axis=dp_axis, stats=st)
+            losses.append(loss)
+        return p, losses, pp_axis.permutes, st
+    return mesh.run(body, shards)
+
+
+def _same_on_ranks(values, what) -> None:
+    import torch
+    check(all(torch.equal(v, values[0]) for v in values),
+          f"{what}: the ranks hold different values")
+
+
+def _pipe_update(mesh, specs, outs, cfg, params):
+    """The gathered, unstacked new params' update (new - old) per leaf."""
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.models.pipeline import unstack_layers
+    from rlo_tpu_torch.parallel.sharding import gather_tree
+    new = unstack_layers(gather_tree([o[0] for o in outs], specs, mesh),
+                         cfg.n_layers)
+    return [n - o for n, o in zip(tt.tree_leaves(new),
+                                  tt.tree_leaves(params))]
+
+
+def _against(tag, loss, update, want_loss, want_update, what) -> dict:
+    """Loss within PIPE_LOSS_RTOL and each tensor of the update within
+    DP_REL_LIMIT (relative L2) of ``want``'s."""
+    lrel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    rel = [rel_l2(g, w) for g, w in zip(update, want_update)]
+    check(math.isfinite(float(loss)) and lrel <= PIPE_LOSS_RTOL,
+          f"{tag}: loss {float(loss)} against {what}'s {float(want_loss)} "
+          f"(relative {lrel:.3g} > {PIPE_LOSS_RTOL})")
+    check(max(rel) <= DP_REL_LIMIT,
+          f"{tag}: update differs from {what}'s: max relative L2 "
+          f"{max(rel):.3g} > {DP_REL_LIMIT}")
+    print(f"[pipeline] {tag} against {what}: loss {float(loss):.6f} vs "
+          f"{float(want_loss):.6f} (relative {lrel:.3g}); update relative "
+          f"L2 per tensor max {max(rel):.3g}, median "
+          f"{statistics.median(rel):.3g} (limit {DP_REL_LIMIT})")
+    return {"loss": float(loss), "loss_rel": lrel, "update_rel_l2_max":
+            max(rel), "update_rel_l2_median": statistics.median(rel)}
+
+
+def phase_pipeline(dev, counted) -> dict:
+    """Pipeline-parallel training at the flagship's widths (14a-14g):
+    the stages are threads of a ``LocalMesh`` on the one card, cut by
+    ``pipeline_pspecs``/``shard_tree``. ``counted`` are K2, K4 and K5's
+    wrappers; their launches are read around each pipelined step."""
+    import tempfile
+
+    import torch
+    from rlo_tpu_torch.models import pipeline as pl
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.parallel.sharding import gather_tree
+    from rlo_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = tt.TransformerConfig(**SERVE_CFG)
+    params = tt.init_params(cfg, seed=SEED, device=dev)
+    stacked = pl.stack_layers(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    batches = [torch.randint(0, cfg.vocab, (PIPE["batch"], PIPE["seq"]),
+                             generator=gen, device=dev, dtype=torch.int32)
+               for _ in range(PIPE["resume_steps"])]
+    tokens = batches[0]
+    out, walls = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def resident():
+        """GiB allocated now; the peak counter starts again from here."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 2 ** 30
+
+    # the single-card step on the same batch (phase 9's path)
+    single_base = resident()
+    runs = [timed(lambda: tt.train_step(params, tokens, cfg, lr=SGD_LR))
+            for _ in range(PIPE["reps"])]
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (single_new, single_loss), _ = runs[0]
+    walls["single"] = [ms for _, ms in runs]
+    want = [n - o for n, o in zip(tt.tree_leaves(single_new),
+                                  tt.tree_leaves(params))]
+    del single_new, runs
+
+    # (a)-(c), (f), (g): GPipe and 1F1B at pp 4
+    pp, M = PIPE["pp"], PIPE["n_micro"]
+    mesh, specs, shards = pipe_mesh(dev, cfg, stacked, None, pp)
+    updates, per_step = {}, {}
+    for name, fn in (("gpipe", pl.pipeline_train_step),
+                     ("1f1b", pl.pipeline_1f1b_train_step)):
+        cost = pl.pipeline_cost(name, pp, M)
+        base = resident()
+        before = {f.__name__: f.launches for f in counted}
+        outs, ms = timed(lambda: pipe_steps(mesh, cfg, fn, shards, [tokens],
+                                            M))
+        per_step[name] = {f.__name__: f.launches - before[f.__name__]
+                          for f in counted}
+        runs = [ms] + [timed(lambda: pipe_steps(mesh, cfg, fn, shards,
+                                                [tokens], M))[1]
+                       for _ in range(PIPE["reps"] - 1)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        walls[name] = runs
+        _same_on_ranks([o[1][0] for o in outs], f"{name} loss")
+        permutes = [o[2] for o in outs]
+        st = outs[0][3]
+        want_permutes = cost["total_ticks"] * cost["permutes_per_tick"]
+        check(permutes == [want_permutes] * pp and
+              st["ticks"] == cost["total_ticks"],
+              f"{name}: ppermute calls per rank {permutes}, ticks "
+              f"{st['ticks']}; pipeline_cost gives {want_permutes} in "
+              f"{cost['total_ticks']} ticks")
+        if name == "1f1b":
+            check(st["ring_slots"] == st["ring_written"]
+                  == cost["peak_boundary_blocks"],
+                  f"1F1B ring of {st['ring_slots']} slots "
+                  f"({st['ring_written']} written); pipeline_cost's "
+                  f"peak_boundary_blocks is "
+                  f"{cost['peak_boundary_blocks']}")
+        updates[name] = _pipe_update(mesh, specs, outs, cfg, params)
+        out[name] = _against(f"14{'a' if name == 'gpipe' else 'b'} {name} "
+                             f"(pp {pp}, {M} microbatches)",
+                             outs[0][1][0], updates[name], single_loss, want,
+                             "the single-card step")
+        out[name].update(
+            permutes_per_rank=permutes[0], ticks=st["ticks"],
+            peak_stage_graphs=st["peak_live_graphs"],
+            ring_slots=st.get("ring_slots"), peak_gib=peak,
+            resident_gib=base,
+            launches_per_step=per_step[name],
+            cost={k: cost[k] for k in ("total_ticks", "permutes_per_tick",
+                                       "peak_boundary_blocks")})
+        del outs
+        print(f"[pipeline] 14c {name}: {permutes[0]} ppermute calls a rank "
+              f"= {cost['total_ticks']} ticks x {cost['permutes_per_tick']} "
+              f"(pipeline_cost); "
+              + (f"ring of {st['ring_slots']} saved stage inputs "
+                 f"(peak_boundary_blocks {cost['peak_boundary_blocks']})"
+                 if name == "1f1b" else
+                 f"at most {st['peak_live_graphs']} stage graphs held a "
+                 f"stage (the JAX package's carry history: "
+                 f"{cost['peak_boundary_blocks']} blocks)")
+              + f"; peak device memory {peak:.2f} GiB, {base:.2f} of it "
+              f"held by the phase before the steps (single card "
+              f"{single_peak:.2f} and {single_base:.2f}); K2/K4/K5 launches "
+              f"per step "
+              f"{json.dumps(per_step[name])}")
+    out["1f1b_vs_gpipe"] = _against("14b 1f1b", out["1f1b"]["loss"],
+                                    updates["1f1b"], out["gpipe"]["loss"],
+                                    updates["gpipe"], "GPipe")
+    del updates, shards, mesh
+
+    # (d) dp x pp
+    for name, fn in (("gpipe", pl.pipeline_train_step),
+                     ("1f1b", pl.pipeline_1f1b_train_step)):
+        mesh, specs, shards = pipe_mesh(dev, cfg, stacked, PIPE["dp"],
+                                        PIPE["dp_pp"])
+        outs = pipe_steps(mesh, cfg, fn, shards, [tokens], PIPE["dp_micro"])
+        _same_on_ranks([o[1][0] for o in outs], f"dp x pp {name} loss")
+        out[f"dp_{name}"] = _against(
+            f"14d {name} (dp {PIPE['dp']} x pp {PIPE['dp_pp']}, "
+            f"{PIPE['dp_micro']} microbatches)", outs[0][1][0],
+            _pipe_update(mesh, specs, outs, cfg, params), single_loss, want,
+            "the single-card step")
+        del outs, shards, mesh
+
+    # (e) resume: 1F1B steps at pp 2, straight and through a checkpoint
+    rp, steps = PIPE["resume_pp"], PIPE["resume_steps"]
+    fn = pl.pipeline_1f1b_train_step
+    mesh, specs, shards = pipe_mesh(dev, cfg, stacked, None, rp)
+    straight = pipe_steps(mesh, cfg, fn, shards, batches, M)
+    first = pipe_steps(mesh, cfg, fn, shards, batches[:1], M)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(1, {"params": gather_tree([o[0] for o in first], specs,
+                                           mesh), "step": 1})
+        like = {"params": _tree_map(torch.zeros_like, stacked), "step": 0}
+        restored = mgr.restore(like=like)
+    check(int(restored["step"]) == 1, "the checkpoint's step")
+    mesh2, specs2, shards2 = pipe_mesh(dev, cfg, restored["params"], None,
+                                       rp)
+    resumed = pipe_steps(mesh2, cfg, fn, shards2, batches[1:], M)
+    got_l = [float(x) for x in first[0][1] + resumed[0][1]]
+    want_l = [float(x) for x in straight[0][1]]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tt.tree_leaves(gather_tree([o[0] for o in resumed], specs2, mesh2)),
+        tt.tree_leaves(gather_tree([o[0] for o in straight], specs, mesh))))
+    check(got_l == want_l and same,
+          f"14e: the resumed run parted from the uninterrupted one: losses "
+          f"{got_l} vs {want_l}, params equal: {same}")
+    print(f"[pipeline] 14e resume: {steps} 1F1B steps at pp {rp} straight "
+          f"and through a CheckpointManager save after step 1, restored "
+          f"onto the card into a fresh pp {rp} layout: losses "
+          f"{' '.join(f'{x:.6f}' for x in want_l)} and params bit-identical")
+    out["resume"] = {"losses": want_l, "bit_identical": True}
+    del straight, first, resumed, shards, shards2, restored
+
+    # (g) wall time per step
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"[pipeline] 14g median wall per step (of {PIPE['reps']}; stages "
+          f"as LocalMesh threads on one card, not a figure for pipelining "
+          f"across cards): single card {med['single']:.1f} ms, GPipe "
+          f"{med['gpipe']:.1f} ms, 1F1B {med['1f1b']:.1f} ms")
+    out["wall_ms_median"] = med
+    out["single_peak_gib"] = single_peak
+    out["single_resident_gib"] = single_base
+    return out
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -4268,12 +4558,28 @@ def main() -> int:
     check(par_paths["tp_gqa_bf16"]["write_kv_block"] > 0,
           "write_kv_block was not launched on the TP block decode")
     torch.cuda.empty_cache()
+    pipe_counted = (k2.flash_block_update_hld, k2.bwd_dq, k2.bwd_dkv)
+    for fn in pipe_counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(dev, pipe_counted)
+    pipe_launches = {fn.__name__: fn.launches for fn in pipe_counted}
+    print(f"[pipeline] phase 14 took {time.perf_counter() - t0:.1f} s, "
+          f"launches {json.dumps(pipe_launches)}")
+    for fn in pipe_counted:
+        check(pipe_launches[fn.__name__] > 0,
+              f"{fn.__name__} was not launched on the pipelined paths")
+        for name in ("gpipe", "1f1b"):
+            check(pipe[name]["launches_per_step"][fn.__name__] > 0,
+                  f"{fn.__name__} was not launched in a {name} step")
+    torch.cuda.empty_cache()
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
                       "k9_int8": k9_stats["int8"], "vjp": vjp,
                       "training": train["stats"], "dp_combine": dp,
-                      "speculative": spec, "moe": moe, "parallel": par}))
+                      "speculative": spec, "moe": moe, "parallel": par,
+                      "pipeline": pipe}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -4290,6 +4596,10 @@ def main() -> int:
         for path, counts in par_paths.items():
             if counts.get(name):
                 out[f"{path} (phase 13)"] = counts[name]
+        for sched in ("gpipe", "1f1b"):
+            n = pipe[sched]["launches_per_step"].get(name)
+            if n:
+                out[f"pipeline {sched} step, pp 4 (phase 14)"] = n
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,

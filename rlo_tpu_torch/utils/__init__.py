@@ -1,1 +1,2 @@
-"""Host-side utilities of the port (``metrics``: the serving registry)."""
+"""Host-side utilities of the port (``metrics``: the serving registry;
+``checkpoint``: pytree checkpoints and stepped retention)."""

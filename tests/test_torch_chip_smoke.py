@@ -6,8 +6,9 @@ pair-write gate
 (``_one_launch``) takes its launch count from the wrapper's own counter
 and fails on any kernel other than the write kernel (a copy of its
 source) or on no launch; K6/K9's device-time window (``_attend_device_ms``)
-is also their one-launch gate. The windows' real behaviour on the card
-is ``chip_smoke.py``'s own run."""
+is also their one-launch gate; phase 14 (pipeline training) runs at a
+tiny size with the plain versions counting the launches. The windows'
+real behaviour on the card is ``chip_smoke.py``'s own run."""
 
 import importlib.util
 from pathlib import Path
@@ -441,3 +442,44 @@ def test_mesh_shards_and_on_ranks(stub, monkeypatch):
     out, st = cs.measured((counter,), fn)
     assert out == 2 and st["launches"] == {"k": 1}
     assert st["device_ms"] == pytest.approx(3.0)
+
+
+def test_phase_pipeline_rehearsal(monkeypatch):
+    """Phase 14 at a tiny f32 size on the CPU (the launches counted where
+    the plain versions stand in for K2, K4 and K5): both schedules hold
+    against the single-card step, each rank's ppermute calls and the
+    1F1B ring equal pipeline_cost's, the launches per step are GPipe's
+    64/64/64 and 1F1B's 112/64/64 (its recompute; the last stage skips
+    its forward sub-step), and the resumed run is bit-identical."""
+    from rlo_tpu_torch.kernels import flash as kf
+    counted = (kf.flash_block_update_hld, kf.bwd_dq, kf.bwd_dkv)
+    for plain, wrapper in zip(("flash_block_update_hld_plain",
+                               "bwd_dq_plain", "bwd_dkv_plain"), counted):
+        def bump(*a, _orig=getattr(kf, plain), _w=wrapper, **kw):
+            _w.launches += 1
+            return _orig(*a, **kw)
+        monkeypatch.setattr(kf, plain, bump)
+        monkeypatch.setattr(wrapper, "launches", 0)
+    for name, value in (("synchronize", None), ("reset_peak_memory_stats",
+                                                None),
+                        ("max_memory_allocated", 0),
+                        ("memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name,
+                            lambda *a, _v=value: _v)
+    monkeypatch.setattr(cs, "SERVE_CFG", dict(
+        vocab=64, d_model=32, n_heads=4, n_layers=8, d_ff=64,
+        dtype="float32"))
+    monkeypatch.setattr(cs, "PIPE", dict(cs.PIPE, batch=8, seq=16, reps=1))
+    out = cs.phase_pipeline(torch.device("cpu"), counted)
+    names = [f.__name__ for f in counted]
+    assert out["gpipe"]["launches_per_step"] == dict.fromkeys(names, 64)
+    assert out["1f1b"]["launches_per_step"] == dict(zip(names,
+                                                        (112, 64, 64)))
+    assert (out["gpipe"]["permutes_per_rank"],
+            out["1f1b"]["permutes_per_rank"]) == (22, 28)
+    assert (out["gpipe"]["peak_stage_graphs"], out["1f1b"]["ring_slots"]) \
+        == (8, 7)
+    assert out["resume"]["bit_identical"]
+    for k in ("gpipe", "1f1b", "1f1b_vs_gpipe", "dp_gpipe", "dp_1f1b"):
+        assert out[k]["loss_rel"] <= 1e-5
+        assert out[k]["update_rel_l2_max"] <= 1e-3

@@ -50,6 +50,7 @@ def test_card_tests_are_scanned():
                            "test_torch_gpu_moe.py",
                            "test_torch_gpu_paged.py",
                            "test_torch_gpu_parallel.py",
+                           "test_torch_gpu_pipeline.py",
                            "test_torch_gpu_reduce.py",
                            "test_torch_gpu_speculative.py"]
 
