@@ -2,8 +2,9 @@
 """Drive the PyTorch/H100 port on one card: the rootless collectives, the
 dense serving path, the paged serving path, the training step,
 speculative decoding, mixture-of-experts layers, tensor-, expert- and
-sequence-parallel inference, and pipeline-parallel training with a
-resume from a checkpoint.
+sequence-parallel inference, pipeline-parallel training with a resume
+from a checkpoint, and the consensus-gated bridge with its
+multi-process deployment and engine tracing.
 
     python3 chip_smoke.py
 
@@ -181,8 +182,24 @@ Phases, each printing its own lines:
    phase and read after, and per pipelined step; (g) the median wall
    per step of each schedule beside the single-card step (rank threads
    on one card: not a figure for pipelining across cards).
-15. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-14), then the last
+15. The consensus-gated bridge and several processes on the card:
+   (a) ``rlo_tpu_torch.init(backend="hybrid", world_size=8)`` with 256
+   MB fp32 a rank: gated allreduce (ring), reduce_scatter and all_gather
+   from proposer 5, bit-identical to the ungated ``TorchBackend`` calls;
+   a shape and a dtype veto (decision 0, and their profiled windows hold
+   no kernel at all); ``device_judge`` vetoes from a NaN in rank 6's
+   tensor and in the proposer's own; the wall time of a gated and an
+   ungated allreduce and the host time of one consensus round at ws 8;
+   K1's launch count set to 0 before the phase and read after it. (b)
+   four processes on the one card, each a ``MultiHostContext`` (engine
+   over the TCP transport, data group gloo, local tensors and judges on
+   the card), run the multihost demo's rounds 1-4 and each prints
+   ``MULTIHOST-OK``. (c) The gated rounds of (a) run inside
+   ``utils.tracing.annotate``: the profiler window records the range with
+   every K1 kernel inside it; one gated round's ``TRACER`` events equal
+   the same round's on the CPU.
+16. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-15), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -4275,6 +4292,331 @@ def phase_pipeline(dev, counted) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the consensus-gated bridge, several processes on the card, and
+# engine tracing
+# ---------------------------------------------------------------------------
+
+#: the rootless proposer of the bridge's rounds (not rank 0)
+BRIDGE_PROPOSER = 5
+#: K1's kernels (csrc/reduce.cu: combine_vec_kernel, combine_scalar_kernel)
+K1_KERNEL_KEY = "combine_"
+#: the multi-process phase: processes on the one card, and each
+#: process's own time limit (the parent fails the phase past it)
+MULTIHOST = dict(procs=4, timeout_s=240.0)
+#: the annotation around the gated rounds
+BRIDGE_RANGE = "rlo-bridge-gated-rounds"
+
+
+def _window(on_card: bool, fn):
+    """One ``rlo_tpu_torch.utils.tracing.profile`` window (CPU and CUDA
+    activities, a Chrome trace into a scratch directory) around ``fn()``:
+    on the card it opens with ``WINDOW_OPENERS`` spin kernels and a
+    synchronise, and idles inside both edges. Returns (profiler, what
+    ``fn`` returned, openers recorded)."""
+    import tempfile
+    import torch
+    from rlo_tpu_torch.utils.tracing import profile
+    with tempfile.TemporaryDirectory() as logdir:
+        if on_card:
+            torch.cuda.synchronize()
+        with profile(logdir) as prof:
+            if on_card:
+                for _ in range(WINDOW_OPENERS):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+            time.sleep(WINDOW_IDLE_S)
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            time.sleep(WINDOW_IDLE_S)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    opened = sum(WINDOW_OPENER in e.name for e in kernels)
+    return prof, out, opened
+
+
+def _device_kernels(prof):
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and WINDOW_OPENER not in e.name]
+
+
+def phase_bridge(dev, n: int) -> dict:
+    """(a) the hybrid facade's gated collectives at ``n`` fp32 a rank
+    against the ungated ``TorchBackend`` calls, the vetoes, the times;
+    (c) the gated rounds inside an annotation, and one round's engine
+    events on the device against the CPU's."""
+    import torch
+    import rlo_tpu_torch
+    from rlo_tpu_torch.bridge import HybridBackend, run_judged_proposal
+    from rlo_tpu_torch.kernels import reduce as k1
+    from rlo_tpu_torch.utils.tracing import TRACER, annotate
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    h = rlo_tpu_torch.init(backend="hybrid", world_size=WS,
+                           device=None if on_card else dev)
+    b = rlo_tpu_torch.init(backend="cuda", world_size=WS,
+                           device=None if on_card else dev)
+    p = BRIDGE_PROPOSER
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    xs = [torch.randn(n, generator=gen, device=dev) for _ in range(WS)]
+    finite = lambda v: torch.isfinite(v).all().to(torch.int32)  # noqa: E731
+    stats = {"k1_gated_launches": 0}
+
+    def gated_call(fn):
+        """``fn()`` with K1's launches in it added to the gated path's
+        count (the ungated calls it is held against do not count)."""
+        before = k1.fused_combine.launches
+        out = fn()
+        stats["k1_gated_launches"] += k1.fused_combine.launches - before
+        return out
+
+    # (a)+(c): the approved gated rounds, inside one annotation in one
+    # profiled window, then held bit for bit against the ungated calls
+    before = k1.fused_combine.launches
+
+    def gated():
+        with annotate(BRIDGE_RANGE):
+            out = {"allreduce": h.propose_collective(
+                       "allreduce", xs, proposer=p, algorithm="ring"),
+                   "reduce_scatter": h.propose_collective(
+                       "reduce_scatter", xs, proposer=p),
+                   "all_gather": h.propose_collective(
+                       "all_gather", xs, proposer=p)}
+            sync()
+        return out
+    prof, got, opened = gated_call(lambda: _window(on_card, gated))
+    gated_launches = k1.fused_combine.launches - before
+    check(gated_launches > 0, "K1 was not launched by the gated rounds")
+    for op, (d, _) in got.items():
+        check(d == 1, f"gated {op} from proposer {p} was not approved")
+    ungated = {"allreduce": lambda: b.allreduce(xs, algorithm="ring"),
+               "reduce_scatter": lambda: b.reduce_scatter(xs),
+               "all_gather": lambda: b.all_gather(xs)}
+    for op, call in ungated.items():
+        want = call()
+        sync()
+        check(all(same_bits(g, w) for g, w in zip(got[op][1], want)),
+              f"gated {op} differs from the ungated TorchBackend call")
+        del want
+    del got
+    ann = [e for e in prof.events() if e.name == BRIDGE_RANGE]
+    check(len(ann) == 1, f"the profiler recorded {len(ann)} "
+          f"'{BRIDGE_RANGE}' ranges, not 1")
+    k1_evts = [e for e in _device_kernels(prof) if K1_KERNEL_KEY in e.name]
+    a0, a1 = ann[0].time_range.start, ann[0].time_range.end
+    if on_card:
+        check(len(k1_evts) > 0, "the profiled window recorded no K1 kernel")
+        inside = [e for e in k1_evts
+                  if a0 <= e.time_range.start and e.time_range.end <= a1]
+        check(len(inside) == len(k1_evts),
+              f"{len(k1_evts) - len(inside)} of {len(k1_evts)} K1 kernels "
+              f"lie outside the annotation's range")
+        stats["annotation"] = dict(
+            range_ms=(a1 - a0) / 1e3, k1_kernels_in_range=len(inside),
+            k1_launches_counted=gated_launches, openers_recorded=opened,
+            first_k1_after_start_us=min(e.time_range.start
+                                        for e in k1_evts) - a0,
+            last_k1_before_end_us=a1 - max(e.time_range.end
+                                           for e in k1_evts))
+        print(f"[bridge] annotation '{BRIDGE_RANGE}' {(a1 - a0) / 1e3:.3f} "
+              f"ms holds all {len(inside)} K1 kernels the profiler "
+              f"recorded ({gated_launches} launches counted; "
+              f"{opened}/{WINDOW_OPENERS} openers recorded)")
+    print(f"[bridge] gated allreduce (ring), reduce_scatter and all_gather "
+          f"from proposer {p}, {n * 4 // 2 ** 20} MiB fp32 a rank x {WS} "
+          f"ranks: approved, bit-identical to the ungated TorchBackend "
+          f"calls")
+
+    # (a) vetoes: shape and dtype before any device work
+    bad_shape = list(xs)
+    bad_shape[3] = xs[3][: n // 2]
+    bad_dtype = list(xs)
+    bad_dtype[1] = xs[1].to(torch.bfloat16)
+    sync()
+    for what, ys in (("shape", bad_shape), ("dtype", bad_dtype)):
+        before = k1.fused_combine.launches
+        prof, (d, out), opened = _window(on_card, lambda ys=ys: (
+            h.propose_collective("allreduce", ys, proposer=p,
+                                 algorithm="ring")))
+        ran = _device_kernels(prof)
+        check(d == 0 and out is None, f"the {what} mismatch was not vetoed")
+        check(k1.fused_combine.launches == before,
+              f"K1 launched in the {what}-vetoed round")
+        check(not ran, f"the {what}-vetoed round ran device work: "
+              f"{sorted({e.name for e in ran})}")
+        if on_card:
+            check(opened > 0, "the veto window recorded no opener: the "
+                  "profiler was not recording")
+        stats[f"{what}_veto"] = dict(decision=d, kernels=len(ran),
+                                     openers_recorded=opened)
+        print(f"[bridge] {what} mismatch on one rank: decision 0, no K1 "
+              f"and no kernel at all in its profiled window ({opened}/"
+              f"{WINDOW_OPENERS} openers recorded)")
+    del bad_shape, bad_dtype
+
+    # (a) device-judge votes, each rank's from its own tensor on the card
+    d, out = gated_call(lambda: h.propose_collective(
+        "allreduce", xs, proposer=p, device_judge=finite, algorithm="ring"))
+    check(d == 1, "a clean device-judged round was vetoed")
+    del out
+    for who, rank in (("non-proposer rank 6", 6), ("the proposer", p)):
+        ys = list(xs)
+        ys[rank] = xs[rank].clone()
+        ys[rank][n // 3] = float("nan")
+        before = k1.fused_combine.launches
+        d, out = h.propose_collective("allreduce", ys, proposer=p,
+                                      device_judge=finite, algorithm="ring")
+        check(d == 0 and out is None,
+              f"a NaN in {who}'s device tensor was not vetoed")
+        check(k1.fused_combine.launches == before,
+              f"K1 launched in the round {who} vetoed")
+        del ys
+    print(f"[bridge] device_judge: clean -> 1; a NaN in rank 6's tensor "
+          f"-> 0; a NaN in proposer {p}'s own tensor -> 0 (no K1)")
+
+    # (a) times: gated and ungated allreduce, one consensus round
+    stats["gated_allreduce_ms"] = gated_call(lambda: wall_ms(
+        lambda: h.propose_collective("allreduce", xs, proposer=p,
+                                     algorithm="ring")))
+    stats["ungated_allreduce_ms"] = wall_ms(
+        lambda: b.allreduce(xs, algorithm="ring"))
+    stats["consensus_round_host_us"] = host_us(
+        lambda: h.consensus([1] * WS, proposer=p), n=50)
+    stats["judged_round_host_us"] = host_us(
+        lambda: run_judged_proposal(WS, b"{}", p), n=50)
+    print(f"[bridge] 256 MB allreduce (ring) wall: gated "
+          f"{stats['gated_allreduce_ms']:.3f} ms, ungated "
+          f"{stats['ungated_allreduce_ms']:.3f} ms; one consensus round "
+          f"at ws {WS} (the facade's engines) "
+          f"{stats['consensus_round_host_us']:.1f} host us, one judged "
+          f"round on a fresh engine world "
+          f"{stats['judged_round_host_us']:.1f} host us")
+    del xs
+
+    # (c) one gated round's engine events on the device and on the CPU
+    small = [torch.randn(1024, generator=gen, device=dev)
+             for _ in range(WS)]
+
+    def events(backend, ys):
+        TRACER.clear()
+        with TRACER.enable():
+            d, _ = backend.propose_collective(
+                "allreduce", ys, proposer=p, device_judge=finite,
+                algorithm="ring")
+        evs = [(e.kind.name, e.rank, e.a, e.b, e.c, e.d)
+               for e in TRACER.events()]
+        TRACER.clear()
+        check(d == 1, "the traced round was vetoed")
+        return evs
+    on_dev = gated_call(lambda: events(h, small))
+    on_cpu = events(HybridBackend(world_size=WS, device="cpu"),
+                    [t.cpu() for t in small])
+    check(on_dev == on_cpu and len(on_dev) > 0,
+          f"the round's TRACER events on {dev} differ from the CPU's")
+    check(stats["k1_gated_launches"] > 0,
+          "K1 was not launched on the gated path")
+    stats["trace_events"] = len(on_dev)
+    print(f"[bridge] one gated ws-{WS} round's TRACER events (kind, rank, "
+          f"a, b, c, d): {len(on_dev)} on {dev}, equal to the CPU's")
+    h.close()
+    b.close()
+    return stats
+
+
+def phase_multihost(dev) -> dict:
+    """(b) ``MULTIHOST['procs']`` processes, each a ``MultiHostContext``
+    (engine over the TCP transport, gloo data group) on ``dev``, run the
+    multihost demo's rounds 1-4; every process must print its
+    ``MULTIHOST-OK`` line within its time limit."""
+    import os
+    import shutil
+    import tempfile
+
+    nproc = MULTIHOST["procs"]
+    tmp = tempfile.mkdtemp(prefix="rlo_multihost_")
+    store = os.path.join(tmp, "store")
+    cmd = [sys.executable, os.path.abspath(__file__), "--multihost-worker"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + [str(r), str(nproc), store, dev.type],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(nproc)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=max(
+                    1.0, MULTIHOST["timeout_s"] - (time.perf_counter()
+                                                   - t0)))
+            except subprocess.TimeoutExpired:
+                check(False, f"multihost process {r} hung past "
+                      f"{MULTIHOST['timeout_s']} s")
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"multihost process {r} exited {rc}: "
+              f"{err.strip()[-2000:]}")
+    lines = [ln for _, out, _ in outs for ln in out.splitlines()
+             if ln.startswith("MULTIHOST-OK")]
+    check(len(lines) == nproc, f"{len(lines)} of {nproc} processes printed "
+          f"MULTIHOST-OK")
+    want = float(sum(range(1, nproc + 1)))
+    rounds = {}
+    for ln in lines:
+        check(f"sum={want}" in ln and f"device={dev.type}" in ln,
+              f"wrong multihost line: {ln}")
+        for item in ln.split("round_ms=")[1].split()[0].split(","):
+            k, v = item.split(":")
+            rounds.setdefault(k, []).append(float(v))
+        print(f"[multihost] {ln}")
+    stats = {"procs": nproc, "wall_s": wall,
+             "round_ms_max": {k: max(v) for k, v in rounds.items()},
+             "round_ms_min": {k: min(v) for k, v in rounds.items()}}
+    print(f"[multihost] {nproc} processes on one {dev.type} device, each "
+          f"a MultiHostContext: engine over the TCP transport, data group "
+          f"gloo (NCCL puts no two ranks on one card; gloo's all-reduce "
+          f"takes a host copy of the card's tensor), local tensors and "
+          f"judges on the card; rounds 1-4 passed on every process in "
+          f"{wall:.1f} s; round ms (slowest process) "
+          f"{json.dumps(stats['round_ms_max'])}")
+    return stats
+
+
+def multihost_worker(argv) -> int:
+    """One process of ``phase_multihost``: rank, world size, store path,
+    device type."""
+    rank, ws, store, devtype = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    import torch
+    if devtype == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device in a multihost process",
+              file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+    from rlo_tpu_torch.parallel.multihost import MultiHostContext
+    from rlo_tpu_torch.tools.multihost_demo import ok_line, run
+    ctx = MultiHostContext(store=dist.FileStore(store, ws), rank=rank,
+                           world_size=ws, data_backend="gloo",
+                           device=None if devtype == "cuda" else devtype,
+                           timeout=MULTIHOST["timeout_s"] / 2)
+    try:
+        res = run(ctx)
+        check(ctx.device.type == devtype, f"context on {ctx.device}")
+        print(f"{ok_line(ctx, res)} device={ctx.device}", flush=True)
+    finally:
+        ctx.close()
+    return 0
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -4393,6 +4735,8 @@ def kernel_entry(name, source, replaces, launches, st, path,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(sys.argv[2:])
     print(cards_line())
     pin_one_card()
     import torch
@@ -4574,12 +4918,28 @@ def main() -> int:
                   f"{fn.__name__} was not launched in a {name} step")
     torch.cuda.empty_cache()
 
+    k1.fused_combine.launches = 0
+    t0 = time.perf_counter()
+    bridge = phase_bridge(dev, N_FULL)
+    bridge_launches = bridge["k1_gated_launches"]
+    print(f"[bridge] phase 15a/c took {time.perf_counter() - t0:.1f} s, "
+          f"K1 launches {k1.fused_combine.launches} over the phase, "
+          f"{bridge_launches} of them on the gated path (the rest by the "
+          f"ungated calls it is held against)")
+    check(k1.fused_combine.launches >= bridge_launches > 0,
+          "K1 was not launched on the bridge path")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multihost = phase_multihost(dev)
+    print(f"[multihost] phase 15b took {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
                       "k9_int8": k9_stats["int8"], "vjp": vjp,
                       "training": train["stats"], "dp_combine": dp,
                       "speculative": spec, "moe": moe, "parallel": par,
-                      "pipeline": pipe}))
+                      "pipeline": pipe, "bridge": bridge,
+                      "multihost": multihost}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -4600,6 +4960,8 @@ def main() -> int:
             n = pipe[sched]["launches_per_step"].get(name)
             if n:
                 out[f"pipeline {sched} step, pp 4 (phase 14)"] = n
+        if name == "fused_combine":
+            out["bridge"] = bridge_launches
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,

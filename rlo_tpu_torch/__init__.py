@@ -10,6 +10,8 @@ kernels are CUDA (``kernels/csrc``), built with ``nvcc`` at first use.
     import rlo_tpu_torch
     with rlo_tpu_torch.init(backend="cuda", world_size=8) as b:
         outs = b.allreduce(xs, algorithm="ring")
+    with rlo_tpu_torch.init(backend="hybrid", world_size=8) as h:
+        decision, outs = h.propose_collective("allreduce", xs, proposer=3)
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise. Importing the package touches no GPU.
@@ -35,9 +37,15 @@ torch.exp(torch.zeros(1))
 def init(backend: str = "cuda", world_size: int = 8,
          device: Optional[str] = None):
     """Create the collective facade: ``world_size`` ranks on one device
-    (``device=None`` is the card; ``"cpu"`` runs the plain versions)."""
-    if backend != "cuda":
-        raise ValueError(f"unknown backend {backend!r}; the port has "
-                         f"'cuda'")
-    from rlo_tpu_torch.backend import TorchBackend
-    return TorchBackend(world_size=world_size, device=device)
+    (``device=None`` is the card; ``"cpu"`` runs the plain versions).
+    ``backend="cuda"`` runs every op on the device; ``"hybrid"`` runs
+    bcast and consensus on the port's progress engines and gates device
+    collectives on an IAR round (``bridge.HybridBackend``)."""
+    if backend == "cuda":
+        from rlo_tpu_torch.backend import TorchBackend
+        return TorchBackend(world_size=world_size, device=device)
+    if backend == "hybrid":
+        from rlo_tpu_torch.bridge import HybridBackend
+        return HybridBackend(world_size=world_size, device=device)
+    raise ValueError(f"unknown backend {backend!r}; the port has 'cuda' "
+                     f"and 'hybrid'")

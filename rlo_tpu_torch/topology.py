@@ -1,10 +1,10 @@
 """Skip-ring overlay math and the static schedules the collectives run.
 
 The port's own copy of the part of ``rlo_tpu/topology.py`` that the
-device collectives use (the port imports nothing of ``rlo_tpu``). Pure
-functions, no transport, no state; ``tests/test_torch_topology.py``
-holds every schedule equal to the reference's for ws 1..16 and every
-origin.
+device collectives and the progress engine use (the port imports
+nothing of ``rlo_tpu``). Pure functions, no transport, no state;
+``tests/test_torch_topology.py`` holds every schedule equal to the
+reference's for ws 1..16 and every origin.
 
 Each schedule round is a list of (src, dst) edges in which every src and
 every dst appears at most once, so a round is one ``Axis.ppermute``.
@@ -15,7 +15,7 @@ from __future__ import annotations
 import functools
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 
 def is_power_of_2(n: int) -> bool:
@@ -94,10 +94,83 @@ def fwd_targets(world_size: int, rank: int, origin: int,
                  if not check_passed_origin(world_size, rank, origin, t))
 
 
+def fwd_send_cnt(world_size: int, rank: int, origin: int,
+                 from_rank: int) -> int:
+    """Number of forwards `rank` performs for a broadcast — equivalently the
+    number of child votes an IAR consensus participant must collect before
+    voting back to its parent (rootless_ops.c:1559-1579)."""
+    return len(fwd_targets(world_size, rank, origin, from_rank))
+
+
 def initiator_targets(world_size: int, rank: int) -> Tuple[int, ...]:
     """Destinations the origin of a broadcast sends to, furthest-first."""
     targets, _ = send_list(world_size, rank)
     return tuple(reversed(targets))
+
+
+# Membership-view helpers the progress engine uses, copied from the
+# JAX package's topology.
+
+def virtual_map(alive: Sequence[int]) -> dict:
+    """real rank -> virtual rank over a sorted alive list — the
+    translation the elastic overlay runs the skip-ring math through
+    (identity while nothing has failed). One definition shared by the
+    failure re-form and the rejoin admission paths, so both always
+    rebuild the same view."""
+    return {r: v for v, r in enumerate(alive)}
+
+
+class _IdentityVMap:
+    """Subscript-compatible identity rank->virtual map: the value
+    every engine's ``_v`` holds until its first view change. A 10k-rank
+    simulated fleet would otherwise materialize 10k copies of a
+    10k-entry dict (gigabytes, tens of seconds) just to map r -> r;
+    real dicts from ``virtual_map`` replace it the moment the view
+    actually deviates from identity."""
+    __slots__ = ()
+
+    def __getitem__(self, rank: int) -> int:
+        return rank
+
+    def __repr__(self) -> str:
+        return "IDENTITY_VMAP"
+
+
+#: shared singleton — stateless, so one instance serves every engine
+IDENTITY_VMAP = _IdentityVMap()
+
+
+@functools.lru_cache(maxsize=1024)
+def shared_view(alive: Tuple[int, ...]) -> Tuple[List[int], dict]:
+    """``(member list, virtual map)`` for a sorted member tuple,
+    cached and SHARED across engines. During a view change every
+    surviving engine re-forms the same overlay over the same member
+    set; building a private n-entry dict per engine is the O(n^2)
+    fleet cost that dominates 10k-rank membership sims. Both returned
+    objects must be treated as immutable (engines rebind, never
+    mutate). Bounded cache: an evicted view is simply rebuilt — the
+    engines only ever compare these by value."""
+    members = list(alive)
+    return members, virtual_map(members)
+
+
+@functools.lru_cache(maxsize=None)
+def identity_members(world_size: int) -> List[int]:
+    """The full-world member list ``[0..world_size)``, cached and
+    SHARED across engines (every engine of a big simulated world holds
+    the same pre-failure view; per-engine copies are the construction
+    bottleneck at n >= 10k ranks). Callers must treat it as immutable
+    — the engine only ever REBINDS its ``_alive``/``group`` on view
+    changes, never mutates them in place."""
+    return list(range(world_size))
+
+
+def ring_neighbors(alive: Sequence[int], rank: int) -> Tuple[int, int]:
+    """(successor, predecessor) of ``rank`` on the alive ring — the
+    heartbeat monitoring edges of the failure detector."""
+    i = alive.index(rank)
+    n = len(alive)
+    return alive[(i + 1) % n], alive[(i - 1) % n]
 
 
 @dataclass(frozen=True)

@@ -29,13 +29,16 @@ the card by handing it a template on the card). A checkpoint holds the
 whole tree: save the gathered params (``parallel.sharding.gather_tree``)
 and cut the restored tree for any layout with ``shard_tree``.
 
-The JAX module's engine-state helpers (``engine_state_dict``,
-``load_engine_state`` and the JSON file pair) belong with the engine and
-are not ported here.
+The engine-state helpers (``engine_state_dict``, ``load_engine_state``,
+``save_engine_state``, ``load_engine_state_file``) are copies of the JAX
+module's, on the port's ``ProgressEngine``: the JSON schema is the same,
+so a snapshot of either package's engine loads onto the other's.
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import os
 import re
 import shutil
@@ -43,6 +46,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from rlo_tpu_torch.wire import Tag
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 BACKENDS = ("npz",)
@@ -249,3 +254,146 @@ class CheckpointManager:
                 raise FileNotFoundError(
                     f"no checkpoints under {self.directory}")
         return restore_pytree(self._step_dir(step), like)
+
+
+# ---------------------------------------------------------------------------
+# Progress-engine snapshot/restore (host-side, quiesced engines only)
+# ---------------------------------------------------------------------------
+
+def engine_state_dict(engine) -> dict:
+    """Snapshot a quiesced ProgressEngine's durable state.
+
+    Requires the engine to be idle (no outbound work in flight) and not
+    mid-consensus — an own proposal awaiting votes or a relayed proposal
+    awaiting subtree votes cannot be checkpointed, because the votes
+    would arrive at a process that no longer exists; complete or drain
+    the round first (the reference's quiesce-then-teardown contract,
+    rootless_ops.c:1606-1647). Delivered-but-unpicked messages ARE
+    captured (and restored), so applications resume with their pickup
+    queue intact.
+    """
+    from rlo_tpu_torch.engine import ReqState
+
+    if not engine.idle():
+        raise RuntimeError(
+            "engine has in-flight messages; drain before checkpointing")
+    p = engine.my_own_proposal
+    if p.state == ReqState.IN_PROGRESS or engine.queue_iar_pending:
+        raise RuntimeError(
+            "engine is mid-consensus (own proposal awaiting votes or "
+            "relayed proposals pending); complete the round before "
+            "checkpointing")
+    pickup = [{"tag": m.tag, "origin": m.frame.origin, "pid": m.frame.pid,
+               "vote": m.frame.vote,
+               "data": base64.b64encode(m.frame.payload).decode()}
+              for m in engine.queue_pickup]
+    return {
+        "rank": engine.rank,
+        "world_size": engine.world_size,
+        "sent_bcast_cnt": engine.sent_bcast_cnt,
+        "recved_bcast_cnt": engine.recved_bcast_cnt,
+        "total_pickup": engine.total_pickup,
+        "proposal": {"pid": p.pid, "state": int(p.state), "vote": p.vote,
+                     "votes_needed": p.votes_needed,
+                     "votes_recved": p.votes_recved},
+        # generation counter: a restored engine must never reissue a
+        # pre-snapshot round generation (stale in-flight votes could
+        # otherwise match a post-restore round)
+        "gen_next": engine._gen_next,
+        # exactly-once broadcast state: the seq counter (a restored
+        # engine must never reissue a pre-snapshot seq — peers
+        # remembering it as seen would silently drop the fresh
+        # broadcast), the per-origin seen map (so a restored engine
+        # cannot re-deliver a pre-snapshot broadcast a survivor
+        # re-floods at it), and the recent-frame log (so it can still
+        # plug holes for traffic it forwarded pre-snapshot)
+        "bcast_seq": engine._bcast_seq,
+        "seen_bcast": {str(o): [ent[0], sorted(ent[1])]
+                       for o, ent in engine._seen_bcast.items()},
+        "recent_bcasts": [[tag, base64.b64encode(raw).decode()]
+                          for tag, raw in engine._recent_bcasts],
+        # ARQ link state: a restored engine must never reissue a
+        # pre-snapshot link seq (peers remembering it as seen would
+        # silently drop the fresh frame), and must keep its receive
+        # windows so a peer's retransmit of a pre-snapshot frame is
+        # still recognized as a duplicate. The retransmit queue itself
+        # is empty by construction (idle() requires arq_unacked()==0).
+        "arq_tx_seq": {str(d): s for d, s in engine._tx_seq.items()},
+        "arq_rx_seen": {str(s): [ent[0], sorted(ent[1])]
+                        for s, ent in engine._rx_seen.items()},
+        "pickup": pickup,
+    }
+
+
+def load_engine_state(engine, state: dict) -> None:
+    """Re-apply a snapshot onto a freshly constructed engine of the same
+    rank/world shape."""
+    if (state["rank"], state["world_size"]) != (engine.rank,
+                                               engine.world_size):
+        raise ValueError(
+            f"snapshot is for rank {state['rank']}/{state['world_size']}, "
+            f"engine is rank {engine.rank}/{engine.world_size}")
+    from rlo_tpu_torch.engine import ReqState, _Msg
+    from rlo_tpu_torch.wire import Frame
+
+    engine.sent_bcast_cnt = state["sent_bcast_cnt"]
+    engine.recved_bcast_cnt = state["recved_bcast_cnt"]
+    engine.total_pickup = state["total_pickup"]
+    p = engine.my_own_proposal
+    snap = state["proposal"]
+    if ReqState(snap["state"]) == ReqState.IN_PROGRESS:
+        # engine_state_dict can only emit settled states — an
+        # IN_PROGRESS snapshot is corrupt and would wedge the engine
+        raise ValueError(
+            "corrupt snapshot: proposal state IN_PROGRESS cannot have "
+            "been captured from a quiesced engine")
+    p.pid, p.vote = snap["pid"], snap["vote"]
+    p.state = type(p.state)(snap["state"])
+    p.votes_needed, p.votes_recved = snap["votes_needed"], snap["votes_recved"]
+    # never rewind below the incarnation base: a restarted process
+    # that bumped its incarnation BEFORE restoring a pre-crash
+    # snapshot would otherwise reissue its dead life's (pid, gen)
+    # and bcast seqs, which peers' dedup windows silently swallow
+    from rlo_tpu_torch.engine import INCARNATION_SHIFT
+    inc_base = engine.incarnation << INCARNATION_SHIFT
+    engine._gen_next = max(state.get("gen_next", engine._gen_next),
+                           inc_base + 1)
+    engine._bcast_seq = max(state.get("bcast_seq", engine._bcast_seq),
+                            inc_base)
+    if "seen_bcast" in state:  # pre-feature snapshots: preserve current
+        engine._seen_bcast = {int(o): [ent[0], set(ent[1])]
+                              for o, ent in state["seen_bcast"].items()}
+    if "recent_bcasts" in state:  # replace, not merge (rollback must not
+        engine._recent_bcasts.clear()  # leave post-snapshot frames behind)
+        for ent in state["recent_bcasts"]:
+            if isinstance(ent, str):  # pre-round-3 snapshot: BCAST-only
+                engine._recent_bcasts.append(
+                    (int(Tag.BCAST), base64.b64decode(ent)))
+            else:
+                tag, s = ent
+                engine._recent_bcasts.append((int(tag),
+                                              base64.b64decode(s)))
+    if "arq_tx_seq" in state:  # pre-ARQ snapshots: preserve current
+        engine._tx_seq = {int(d): int(s)
+                          for d, s in state["arq_tx_seq"].items()}
+    if "arq_rx_seen" in state:
+        engine._rx_seen = {int(s): [ent[0], set(ent[1])]
+                           for s, ent in state["arq_rx_seen"].items()}
+    for m in state.get("pickup", []):
+        frame = Frame(origin=m["origin"], pid=m["pid"], vote=m["vote"],
+                      payload=base64.b64decode(m["data"]))
+        engine.queue_pickup.append(
+            _Msg(frame=frame, tag=m["tag"], fwd_done=True))
+
+
+def save_engine_state(path: str, engines) -> None:
+    """Write every rank's engine snapshot as one JSON file."""
+    snaps = [engine_state_dict(e) for e in engines]
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(snaps, f)
+
+
+def load_engine_state_file(path: str) -> List[dict]:
+    with open(path) as f:
+        return json.load(f)

@@ -4,8 +4,9 @@ The port's own copy of the serving face of ``rlo_tpu/utils/metrics.py``
 (``Counter``, ``Gauge``, ``Histogram``, ``Registry``, ``SERVING``,
 ``hist_quantile``, ``hist_summary``), with the same histogram layout and
 snapshot schema, so a snapshot of the port's ``DecodeServer`` compares
-key for key with the JAX package's. The engine-counter schemas of that
-module belong to the engines and are not copied.
+key for key with the JAX package's, and of its engine face
+(``ENGINE_COUNTER_KEYS``, ``ENGINE_PHASE_KEYS``, ``LinkStats``), so the
+port's progress engine snapshots its metrics in the same schema.
 
   - ``Counter``: monotone int, ``inc()``;
   - ``Gauge``: last-written value, ``set()``;
@@ -21,6 +22,78 @@ from typing import Dict, List, Optional
 
 #: number of histogram buckets (the JAX package's HIST_BUCKETS)
 HIST_BUCKETS = 28
+
+#: The engine-counter schema, in snapshot order — the single source of
+#: truth for the ``metrics()["counters"]`` keys both engines emit
+#: (ProgressEngine.metrics() and bindings.NativeEngine.metrics() build
+#: from this tuple; the parity test asserts the dicts are identical).
+#: ``epoch`` is the current membership epoch (monotone view counter),
+#: ``epoch_quarantined`` counts frames dropped by the stale-epoch /
+#: failed-sender quarantine, and ``rejoins`` counts membership
+#: admissions executed (or adopted, on the joiner side) —
+#: docs/DESIGN.md §8.
+#:
+#: The heal-cost block (docs/DESIGN.md §17 — the signals the
+#: rejoin-cascade work of ROADMAP item 4 steers by):
+#:   ``view_changes``       membership-view rebinds (failure adoptions
+#:                          + admissions + welcome adoptions)
+#:   ``reflood_frames``     frames re-sent by the view-change re-flood
+#:                          (the O(n²·ring) heal cost, per frame×dst)
+#:   ``epoch_lag_max``      high-water mark of (my epoch − the link
+#:                          epoch stamped in an ACCEPTED frame): how
+#:                          far this rank's view has outrun the edges
+#:                          it still hears from (laggard pressure)
+#:   ``quar_mid_rejoin`` / ``quar_failed_sender`` / ``quar_below_floor``
+#:                          the per-reason breakdown of
+#:                          ``epoch_quarantined`` (they sum to it)
+#:   ``admission_rounds``   IAR admission rounds LAUNCHED here (the
+#:                          designated-admitter's proposer-side count)
+#:   ``epoch_syncs``        view-state catch-up adoptions executed via
+#:                          Tag.MSYNC (an epoch-lagging but alive
+#:                          member healed WITHOUT a full rejoin)
+#:   ``reflood_skipped``    view-change re-flood advert entries the
+#:                          receiving side already held — the work the
+#:                          digest-scoped re-flood avoided (each would
+#:                          have been one blast frame pre-PR-16)
+#:   ``batched_admits``     joiners admitted through a MULTI-joiner
+#:                          admission record (one IAR round admitting
+#:                          k queued petitions at once)
+ENGINE_COUNTER_KEYS = (
+    "sent_bcast", "recved_bcast", "total_pickup", "ops_failed",
+    "arq_retransmits", "arq_dup_drops", "arq_gave_up", "arq_unacked",
+    "epoch", "epoch_quarantined", "rejoins",
+    "view_changes", "reflood_frames", "epoch_lag_max",
+    "quar_mid_rejoin", "quar_failed_sender", "quar_below_floor",
+    "admission_rounds",
+    "epoch_syncs", "reflood_skipped", "batched_admits",
+)
+
+#: The in-engine phase-profiler schema, in snapshot order — the single
+#: source of truth for the ``metrics()["phases"]`` keys both engines
+#: emit (ProgressEngine.metrics() and bindings.NativeEngine.metrics()
+#: build from this tuple; rlo-lint R2 pins it to the field order of the
+#: C core's ``struct rlo_phase_stats`` and to the literal keys the
+#: Python engine assembles, and the profiler parity test asserts the
+#: snapshots are structurally identical). Each key names one log2
+#: histogram of stage durations in usec (docs/DESIGN.md §10):
+#:
+#:   hot-path stages —
+#:     ``frame_encode``   wire-frame encode (header pack + payload)
+#:     ``frame_decode``   wire-frame decode on receipt
+#:     ``send``           one transport isend call (the syscall slot)
+#:     ``arq_scan``       one ARQ retransmit-window sweep
+#:     ``tag_dispatch``   tag dispatch + handler for one protocol frame
+#:     ``pickup_drain``   one pickup_next delivery
+#:   per-op protocol phases (local observation points) —
+#:     ``bcast_first_fwd``        bcast init -> FIRST fan-out send done
+#:     ``bcast_all_delivered``    bcast init -> every fan-out send done
+#:     ``prop_votes_aggregated``  proposal submit -> all votes merged
+#:     ``prop_decision``          proposal submit -> decision fan-out done
+ENGINE_PHASE_KEYS = (
+    "frame_encode", "frame_decode", "send", "arq_scan", "tag_dispatch",
+    "pickup_drain", "bcast_first_fwd", "bcast_all_delivered",
+    "prop_votes_aggregated", "prop_decision",
+)
 
 
 class Counter:
@@ -82,6 +155,42 @@ class Histogram:
         return {"count": self.count, "sum": self.sum,
                 "min": self.min, "max": self.max,
                 "buckets": list(self.buckets)}
+
+
+class LinkStats:
+    """Per-peer link accounting (one per (this rank, peer) edge):
+    frames/bytes both ways, retransmits, duplicate drops, and an RTT
+    EWMA measured from ARQ ack timing (first-transmission frames only —
+    Karn's rule — smoothed 1/8 like TCP's SRTT). Mirror of the C
+    core's rlo_link_stats."""
+    __slots__ = ("tx_frames", "tx_bytes", "rx_frames", "rx_bytes",
+                 "retransmits", "dup_drops", "rtt_ewma_usec")
+
+    def __init__(self):
+        self.tx_frames = 0
+        self.tx_bytes = 0
+        self.rx_frames = 0
+        self.rx_bytes = 0
+        self.retransmits = 0
+        self.dup_drops = 0
+        self.rtt_ewma_usec = 0.0
+
+    def rtt_sample(self, usec: float) -> None:
+        if usec < 1.0:
+            # below clock resolution; clamp so a real sample can never
+            # collide with the 0.0 "unmeasured" sentinel
+            usec = 1.0
+        if self.rtt_ewma_usec == 0.0:
+            self.rtt_ewma_usec = usec
+        else:
+            self.rtt_ewma_usec += (usec - self.rtt_ewma_usec) / 8.0
+
+    def snapshot(self) -> Dict:
+        return {"tx_frames": self.tx_frames, "tx_bytes": self.tx_bytes,
+                "rx_frames": self.rx_frames, "rx_bytes": self.rx_bytes,
+                "retransmits": self.retransmits,
+                "dup_drops": self.dup_drops,
+                "rtt_ewma_usec": self.rtt_ewma_usec}
 
 
 class Registry:

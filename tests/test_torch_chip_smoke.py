@@ -483,3 +483,35 @@ def test_phase_pipeline_rehearsal(monkeypatch):
     for k in ("gpipe", "1f1b", "1f1b_vs_gpipe", "dp_gpipe", "dp_1f1b"):
         assert out[k]["loss_rel"] <= 1e-5
         assert out[k]["update_rel_l2_max"] <= 1e-3
+
+
+def test_phase_bridge_rehearsal(monkeypatch):
+    """Phase 15a/c at a tiny size on the CPU, the plain K1 counting its
+    launches: the gated rounds approve and equal the ungated calls bit
+    for bit, the shape and dtype vetoes launch nothing, the device-judge
+    vetoes hold, and the round's engine events equal the CPU's."""
+    from rlo_tpu_torch.kernels import reduce as k1
+
+    def bump(*a, _orig=k1.fused_combine_plain, **kw):
+        k1.fused_combine.launches += 1
+        return _orig(*a, **kw)
+    monkeypatch.setattr(k1, "fused_combine_plain", bump)
+    monkeypatch.setattr(k1.fused_combine, "launches", 0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    out = cs.phase_bridge(torch.device("cpu"), 4096)
+    assert k1.fused_combine.launches > out["k1_gated_launches"] > 0
+    assert out["shape_veto"] == out["dtype_veto"] == dict(
+        decision=0, kernels=0, openers_recorded=0)
+    assert out["trace_events"] > 0
+    for key in ("gated_allreduce_ms", "ungated_allreduce_ms",
+                "consensus_round_host_us", "judged_round_host_us"):
+        assert out[key] > 0
+
+
+def test_phase_multihost_rehearsal():
+    """Phase 15b on the CPU: four ``chip_smoke.py --multihost-worker``
+    processes run the demo's rounds 1-4 and each prints MULTIHOST-OK."""
+    out = cs.phase_multihost(torch.device("cpu"))
+    assert out["procs"] == 4
+    assert sorted(out["round_ms_max"]) == ["round1", "round2", "round3",
+                                           "round4"]

@@ -44,7 +44,8 @@ def test_no_jax_and_no_reference_imports(path):
 def test_card_tests_are_scanned():
     """Every card-only test file is jax-free and in SOURCES."""
     gpu = [p.name for p in SOURCES if p.name.startswith("test_torch_gpu_")]
-    assert sorted(gpu) == ["test_torch_gpu_decode.py",
+    assert sorted(gpu) == ["test_torch_gpu_bridge.py",
+                           "test_torch_gpu_decode.py",
                            "test_torch_gpu_flash.py",
                            "test_torch_gpu_flash_grad.py",
                            "test_torch_gpu_moe.py",
