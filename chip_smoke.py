@@ -3,8 +3,9 @@
 dense serving path, the paged serving path, the training step,
 speculative decoding, mixture-of-experts layers, tensor-, expert- and
 sequence-parallel inference, pipeline-parallel training with a resume
-from a checkpoint, and the consensus-gated bridge with its
-multi-process deployment and engine tracing.
+from a checkpoint, the consensus-gated bridge with its
+multi-process deployment and engine tracing, and sequence-, tensor- and
+expert-parallel training as processes on the card.
 
     python3 chip_smoke.py
 
@@ -198,8 +199,26 @@ Phases, each printing its own lines:
    ``utils.tracing.annotate``: the profiler window records the range with
    every K1 kernel inside it; one gated round's ``TRACER`` events equal
    the same round's on the CPU.
-16. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-15), then the last
+16. Sequence-, tensor- and expert-parallel training at full width as
+   four processes on the one card (``chip_smoke.py
+   --train-parallel-worker``), each one rank over gloo (``DistAxis`` on
+   ``dist_mesh_axes``: params, activations and kernels on the card, the
+   collectives staged through host buffers), one SGD step on phase 9's
+   4 x 1024 batch: (a) sp 4 ring, (b) sp 4 Ulysses, (c) tp 4, (d) sp 2 x
+   tp 2 ring, (e) ep 4 with phase 12's 8 experts in f32, drop-free. Each
+   against the single-card ``train_step`` on the same batch run here
+   first: the loss within PIPE_LOSS_RTOL on every process (the same
+   bits everywhere), the update within DP_REL_LIMIT per tensor, every
+   replicated slice the same bits on every process holding it, and K2,
+   K4 and K5 launched layers x ring steps times a step on every process
+   (set to 0 before the step, read after); the median wall a step, peak
+   memory a process and bytes staged through the host a step. (f) K4
+   and K5 at a ring step's shapes (64 folded heads x 256 x 64 bf16)
+   against their plain versions, for a fully visible earlier shard's
+   block and a fully masked later one (dk = dv = 0 exactly, dq its plain
+   version's, K2's carried state unchanged).
+17. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-16), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -4617,6 +4636,406 @@ def multihost_worker(argv) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: sequence-, tensor- and expert-parallel training, four processes
+# on the card
+# ---------------------------------------------------------------------------
+
+#: phase 16's processes (ranks over gloo on the one card), its time limit
+#: and the steps each sub-phase times (all from the same params)
+TRAIN_PARALLEL = dict(procs=4, timeout_s=300.0, reps=3)
+#: (tag, mesh shape, axis names, changes to the flagship config)
+TRAIN_PARALLEL_RUNS = (
+    ("16a sp 4 ring", (4,), ("sp",), {}),
+    ("16b sp 4 Ulysses", (4,), ("sp",), {"sp_attention": "ulysses"}),
+    ("16c tp 4", (4,), ("tp",), {}),
+    ("16d sp 2 x tp 2 ring", (2, 2), ("sp", "tp"), {}),
+    ("16e ep 4 MoE", (4,), ("ep",), {"dtype": "float32"}),
+)
+#: the ring step's operands for K4/K5: 64 folded heads x 256 x 64 bf16
+RING_STEP = dict(heads=64, blk=256, shard=1)
+
+
+def ring_step_bwd(dev) -> dict:
+    """K2, K4 and K5 at a ring step's shapes: 64 folded heads x 256 x 64
+    bf16, causal, the queries of shard 1 (positions 256..511), the state
+    carried from their own block; then a block from an earlier shard
+    (0..255: every key visible) and one from a later shard (512..767:
+    every key masked). K4/K5 against their plain versions on the same
+    operands (each side on its own forward's m', rtol 1e-4 per unit of
+    the largest |value|, as phase 7); for the masked block K2 must leave
+    (m, l, o) as they were, dk and dv must be exactly zero and dq equal
+    to its plain version (zero too)."""
+    import torch
+    from rlo_tpu_torch.kernels import flash as kf
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    h, n, d, scale = RING_STEP["heads"], RING_STEP["blk"], 64, 0.125
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def pos(shard):
+        return (shard * n + torch.arange(n, dtype=torch.int32,
+                                         device=dev)).reshape(1, n)
+
+    q = rand(h, n, d, dtype=torch.bfloat16)
+    qp = pos(RING_STEP["shard"])
+    m0 = torch.full((h, 1, n), kf.NEG, device=dev)
+    l0, o0 = torch.zeros(h, 1, n, device=dev), torch.zeros(h, n, d,
+                                                           device=dev)
+    kw = dict(causal=True, scale=scale)
+    with torch.no_grad():
+        own = (rand(h, n, d, dtype=torch.bfloat16),
+               rand(h, n, d, dtype=torch.bfloat16))
+        state = kf.flash_block_update_hld(q, *own, m0, l0, o0, qp, qp, **kw)
+        state_p = kf.flash_block_update_hld_plain(q, *own, m0, l0, o0, qp,
+                                                  qp, **kw)
+    out = {}
+    for name, shard in (("earlier shard", 0), ("later shard", 2)):
+        k, v = (rand(h, n, d, dtype=torch.bfloat16) for _ in range(2))
+        kp = pos(shard)
+        with torch.no_grad():
+            nxt = kf.flash_block_update_hld(q, k, v, *state, qp, kp, **kw)
+            m2p = kf.flash_block_update_hld_plain(q, k, v, *state_p, qp, kp,
+                                                  **kw)[0]
+        dl2, do2 = rand(h, 1, n), rand(h, n, d)
+        route = torch.zeros(h, 1, n, device=dev)   # 'pallas_fast'
+        dq = kf.bwd_dq(q, k, v, nxt[0], dl2, do2, route, qp, kp, **kw)
+        dk, dv = kf.bwd_dkv(q, k, v, nxt[0], dl2, do2, route, qp, kp, **kw)
+        pops = (q, k, v, m2p, dl2, do2, route, qp, kp)
+        pdq, (pdk, pdv) = kf.bwd_dq_plain(*pops, **kw), \
+            kf.bwd_dkv_plain(*pops, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, g, w in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+            check(bool(torch.isfinite(g).all()) and _close(g, w, 1e-4, 1e-4),
+                  f"ring step, {name}: {what} differs from its plain "
+                  f"version")
+            errs[what] = abs_err(g, w)
+        if shard > RING_STEP["shard"]:
+            nonzero = {w: int(torch.count_nonzero(t)) for w, t in
+                       (("dq", dq), ("dk", dk), ("dv", dv))}
+            check(nonzero["dk"] == nonzero["dv"] == 0,
+                  f"ring step, {name}: K5 left {nonzero['dk']} nonzero dk "
+                  f"and {nonzero['dv']} nonzero dv in a fully masked block")
+            check(torch.equal(dq, pdq), f"ring step, {name}: K4's dq is not "
+                                        f"its plain version's")
+            check(all(torch.equal(a, b) for a, b in zip(nxt, state)),
+                  f"ring step, {name}: K2 changed the carried state")
+            errs["nonzero"] = nonzero
+        out[name] = errs
+        print(f"[train-parallel] 16f ring step, {name} ({h} folded heads x "
+              f"{n} x {d} bf16, queries at {int(qp[0, 0])}..., keys at "
+              f"{int(kp[0, 0])}...): K4/K5 within rtol 1e-4 of their plain "
+              f"versions, max |err| dq {errs['dq']:.3g}, dk "
+              f"{errs['dk']:.3g}, dv {errs['dv']:.3g}"
+              + (f"; dk and dv exactly zero, dq equal to its plain version "
+                 f"({nonzero['dq']} nonzero), K2's state unchanged"
+                 if "nonzero" in errs else ""))
+    return out
+
+
+def _train_parallel_plan(dev, tmp) -> dict:
+    """The single-card step of each config on the card (phase 9's path,
+    one SGD step at SGD_LR on the global batch) and the plan the worker
+    processes read: each sub-phase's config, mesh, seeds and the path of
+    its reference update (new - old per leaf, f32, saved on the host)."""
+    import os
+    import torch
+    from rlo_tpu_torch.models import transformer as tt
+
+    plan = {"lr": SGD_LR, "reps": TRAIN_PARALLEL["reps"],
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "runs": []}
+    refs = {}
+    for tag, shape, names, change in TRAIN_PARALLEL_RUNS:
+        moe = "ep" in names
+        cfg = dict(SERVE_CFG, **change)
+        if moe:   # phase 12's widths, drop-free
+            cfg.update(n_experts=MOE_EXPERTS,
+                       capacity_factor=float(MOE_EXPERTS))
+        seed = SEED + 15 if moe else SEED
+        key = "moe" if moe else "dense"
+        if key not in refs:   # sp_attention changes nothing on one card
+            c = tt.TransformerConfig(**cfg)
+            params = tt.init_params(c, seed=seed, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+            tokens = torch.randint(0, c.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            new, loss = tt.train_step(params, tokens, c, lr=SGD_LR)
+            path = os.path.join(tmp, f"ref_{key}.pt")
+            torch.save([(n - o).cpu() for n, o in zip(
+                tt.tree_leaves(new), tt.tree_leaves(params))], path)
+            refs[key] = (path, float(loss))
+            del params, new
+            torch.cuda.empty_cache()
+        plan["runs"].append(dict(tag=tag, shape=list(shape),
+                                 names=list(names), cfg=cfg, seed=seed,
+                                 token_seed=SEED + 18, ref=refs[key][0],
+                                 ref_loss=refs[key][1]))
+    plan["count_plain"] = dev.type == "cpu"
+    return plan
+
+
+def _digest(t) -> list:
+    """Two integer sums of a tensor's bits (plain and position-weighted):
+    equal for equal bits, apart on any one element's change."""
+    import torch
+    b = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def train_parallel_worker(argv) -> int:
+    """One process of phase 16: rank, world size, store path, device
+    type, plan path. Runs every sub-phase of the plan as one rank over
+    gloo on ``dist_mesh_axes``, and prints a ``TRAIN-PARALLEL`` JSON
+    line for each."""
+    rank, ws, store, devtype, plan_path = (int(argv[0]), int(argv[1]),
+                                           argv[2], argv[3], argv[4])
+    import torch
+    if devtype == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device in a phase-16 process",
+              file=sys.stderr)
+        return 2
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from rlo_tpu_torch.kernels import flash as kf
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.parallel.mesh import dist_mesh_axes
+    from rlo_tpu_torch.parallel.sharding import leaf_specs, shard_tree
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    with open(plan_path) as f:
+        plan = json.load(f)
+    counted = (kf.flash_block_update_hld, kf.bwd_dq, kf.bwd_dkv)
+    if plan["count_plain"]:
+        # a rehearsal on the CPU: the plain versions count in their
+        # wrappers' place
+        for plain, wrapper in zip(("flash_block_update_hld_plain",
+                                   "bwd_dq_plain", "bwd_dkv_plain"),
+                                  counted):
+            def bump(*a, _orig=getattr(kf, plain), _w=wrapper, **kw):
+                _w.launches += 1
+                return _orig(*a, **kw)
+            setattr(kf, plain, bump)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if devtype == "cuda" else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, ws), rank=rank, world_size=ws,
+        timeout=timedelta(seconds=TRAIN_PARALLEL["timeout_s"] / 2))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        for run in plan["runs"]:
+            axes = dist_mesh_axes(run["shape"], run["names"], device=dev)
+            cfg = tt.TransformerConfig(**run["cfg"])
+            specs = tt.param_pspecs(cfg, "tp" if "tp" in axes else None,
+                                    "ep" if "ep" in axes else None)
+            full = tt.init_params(cfg, seed=run["seed"], device=dev)
+            params = shard_tree(full, specs, axes)
+            gen = torch.Generator(device=dev).manual_seed(run["token_seed"])
+            tokens = torch.randint(0, cfg.vocab, (plan["batch"],
+                                                  plan["seq"]),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            del full
+            if "ep" in axes:
+                rows = plan["batch"] // axes["ep"].size
+                tokens = tokens[axes["ep"].index * rows:
+                                (axes["ep"].index + 1) * rows]
+            if "sp" in axes:
+                blk = plan["seq"] // axes["sp"].size
+                tokens = tokens[:, axes["sp"].index * blk:
+                                (axes["sp"].index + 1) * blk]
+            tokens = tokens.contiguous()
+            kw = {f"{n}_axis": a for n, a in axes.items()}
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for i in range(plan["reps"]):
+                staged0 = sum(a.staged_bytes for a in axes.values())
+                for fn in counted:
+                    fn.launches = 0
+                sync()
+                t0 = time.perf_counter()
+                new, loss = tt.train_step(params, tokens, cfg, lr=plan["lr"],
+                                          **kw)
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    first = (new, loss)
+                    launches = {fn.__name__: fn.launches for fn in counted}
+                    staged = sum(a.staged_bytes
+                                 for a in axes.values()) - staged0
+                del new
+            new, loss = first
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+                if dev.type == "cuda" else 0.0
+            ref = torch.load(run["ref"], mmap=True)
+            ref = shard_tree(tt._rebuild(params, iter(ref)), specs, axes)
+            leaves = []
+            for n, o, r, spec in zip(tt.tree_leaves(new),
+                                     tt.tree_leaves(params),
+                                     tt.tree_leaves(ref),
+                                     leaf_specs(params, specs)):
+                r = r.to(dev)
+                u = (n - o).double()
+                leaves.append(dict(
+                    key=[axes[a].index for a in spec if a is not None],
+                    diff=float((u - r.double()).square().sum()),
+                    ref=float(r.double().square().sum()),
+                    digest=_digest(n)))
+            print("TRAIN-PARALLEL " + json.dumps(dict(
+                tag=run["tag"], rank=rank, loss=float(loss), walls=walls,
+                peak_gib=peak, staged_bytes=staged, launches=launches,
+                leaves=leaves)), flush=True)
+            del params, new, first, ref, leaves
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_parallel(dev) -> dict:
+    """Sequence-, tensor- and expert-parallel training at full width (16a
+    -16e), each rank a process over gloo on the one card (a backward
+    collective needs each rank's backward on a thread of its own, which
+    one card's ``LocalMesh`` cannot give, and NCCL puts no two ranks on
+    one card): ``TRAIN_PARALLEL['procs']`` processes ``chip_smoke.py
+    --train-parallel-worker``, their params, activations and kernels on
+    the card, their collectives through host buffers. Each sub-phase
+    takes one SGD step at SGD_LR (timed ``reps`` times from the same
+    params) on phase 9's global batch, each process its block, held
+    against the single-card ``train_step`` on the same batch run here:
+    the loss within PIPE_LOSS_RTOL, the update (new - old) within
+    DP_REL_LIMIT relative L2 per tensor, every process's loss the same
+    bits, every replicated leaf the same bits on every process holding
+    it, and K2, K4 and K5 launched the path's own count a step on every
+    process (layers x ring steps). Then 16f: K4/K5 at a ring step's
+    shapes (``ring_step_bwd``)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    nproc = TRAIN_PARALLEL["procs"]
+    tmp = tempfile.mkdtemp(prefix="rlo_train_parallel_")
+    t0 = time.perf_counter()
+    try:
+        plan = _train_parallel_plan(dev, tmp)
+        t_ref = time.perf_counter() - t0
+        plan_path = os.path.join(tmp, "plan.json")
+        with open(plan_path, "w") as f:
+            json.dump(plan, f)
+        cmd = [sys.executable, os.path.abspath(__file__),
+               "--train-parallel-worker"]
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + [str(r), str(nproc),
+                                         os.path.join(tmp, "store"),
+                                         dev.type, plan_path],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(nproc)]
+        outs = []
+        try:
+            for r, proc in enumerate(procs):
+                try:
+                    out, err = proc.communicate(timeout=max(
+                        1.0, TRAIN_PARALLEL["timeout_s"]
+                        - (time.perf_counter() - t1)))
+                except subprocess.TimeoutExpired:
+                    check(False, f"phase-16 process {r} hung past "
+                          f"{TRAIN_PARALLEL['timeout_s']} s")
+                outs.append((proc.returncode, out, err))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        t_procs = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"phase-16 process {r} exited {rc}: "
+              f"{err.strip()[-3000:]}")
+    lines = [json.loads(ln.split(" ", 1)[1]) for _, out, _ in outs
+             for ln in out.splitlines() if ln.startswith("TRAIN-PARALLEL ")]
+    stats = {}
+    for run in plan["runs"]:
+        tag, names, cfg = run["tag"], run["names"], run["cfg"]
+        got = sorted((x for x in lines if x["tag"] == tag),
+                     key=lambda x: x["rank"])
+        check(len(got) == nproc, f"{tag}: {len(got)} of {nproc} processes "
+                                 f"reported")
+        losses = [x["loss"] for x in got]
+        check(len(set(losses)) == 1, f"{tag}: the processes' losses differ: "
+                                     f"{losses}")
+        lrel = abs(losses[0] - run["ref_loss"]) / abs(run["ref_loss"])
+        check(math.isfinite(losses[0]) and lrel <= PIPE_LOSS_RTOL,
+              f"{tag}: loss {losses[0]} against the single card's "
+              f"{run['ref_loss']} (relative {lrel:.3g} > {PIPE_LOSS_RTOL})")
+        rel, copies = [], 0
+        for i in range(len(got[0]["leaves"])):
+            slices = {}
+            for x in got:
+                leaf = x["leaves"][i]
+                slices.setdefault(tuple(leaf["key"]), []).append(leaf)
+            for key, held in slices.items():
+                check(all(h["digest"] == held[0]["digest"] for h in held),
+                      f"{tag}: leaf {i} slice {key} differs between the "
+                      f"processes that hold it")
+                copies += len(held) - 1
+            diff = sum(h[0]["diff"] for h in slices.values())
+            ref = sum(h[0]["ref"] for h in slices.values())
+            rel.append(math.sqrt(diff / max(ref, 1e-300)))
+        check(max(rel) <= DP_REL_LIMIT,
+              f"{tag}: update differs from the single card's: max relative "
+              f"L2 {max(rel):.3g} > {DP_REL_LIMIT}")
+        ring = cfg.get("sp_attention", "ring") == "ring" and "sp" in names
+        steps = run["shape"][names.index("sp")] if ring else 1
+        want = cfg["n_layers"] * steps
+        for x in got:
+            check(x["launches"] == dict.fromkeys(x["launches"], want),
+                  f"{tag}: process {x['rank']} launched {x['launches']} in "
+                  f"a step, not {want} each")
+        walls = [statistics.median(x["walls"]) for x in got]
+        st = dict(loss=losses[0], loss_rel=lrel, update_rel_l2_max=max(rel),
+                  update_rel_l2_median=statistics.median(rel),
+                  replicated_copies_equal=copies,
+                  wall_ms_median=max(walls), wall_ms_min=min(walls),
+                  peak_gib_max=max(x["peak_gib"] for x in got),
+                  staged_bytes_per_step=max(x["staged_bytes"] for x in got),
+                  launches_per_step=got[0]["launches"])
+        stats[tag] = st
+        print(f"[train-parallel] {tag} ({nproc} processes, mesh "
+              f"{dict(zip(names, run['shape']))}, {cfg['dtype']}): loss "
+              f"{losses[0]:.6f} on every process vs the single card's "
+              f"{run['ref_loss']:.6f} (relative {lrel:.3g}); update "
+              f"relative L2 per tensor max {max(rel):.3g}, median "
+              f"{st['update_rel_l2_median']:.3g} (limit {DP_REL_LIMIT}); "
+              f"{copies} replicated copies bit-identical; median wall a step "
+              f"{st['wall_ms_median']:.1f} ms (slowest process; fastest "
+              f"{st['wall_ms_min']:.1f}); peak device memory a process "
+              f"{st['peak_gib_max']:.2f} GiB; bytes staged through the host "
+              f"a step {st['staged_bytes_per_step']} a process; K2/K4/K5 "
+              f"launches a step on every process "
+              f"{json.dumps(st['launches_per_step'])}")
+    stats["ring_step"] = ring_step_bwd(dev)
+    stats["reference_s"] = t_ref
+    stats["processes_s"] = t_procs
+    print(f"[train-parallel] references on the card {t_ref:.1f} s, the "
+          f"{nproc} processes {t_procs:.1f} s (start included)")
+    return stats
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -4737,6 +5156,8 @@ def kernel_entry(name, source, replaces, launches, st, path,
 def main() -> int:
     if sys.argv[1:2] == ["--multihost-worker"]:
         return multihost_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--train-parallel-worker"]:
+        return train_parallel_worker(sys.argv[2:])
     print(cards_line())
     pin_one_card()
     import torch
@@ -4932,6 +5353,10 @@ def main() -> int:
     t0 = time.perf_counter()
     multihost = phase_multihost(dev)
     print(f"[multihost] phase 15b took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_par = phase_train_parallel(dev)
+    print(f"[train-parallel] phase 16 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
@@ -4939,7 +5364,8 @@ def main() -> int:
                       "training": train["stats"], "dp_combine": dp,
                       "speculative": spec, "moe": moe, "parallel": par,
                       "pipeline": pipe, "bridge": bridge,
-                      "multihost": multihost}))
+                      "multihost": multihost,
+                      "train_parallel": train_par}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -4962,6 +5388,10 @@ def main() -> int:
                 out[f"pipeline {sched} step, pp 4 (phase 14)"] = n
         if name == "fused_combine":
             out["bridge"] = bridge_launches
+        for tag, _, _, _ in TRAIN_PARALLEL_RUNS:
+            n = train_par[tag]["launches_per_step"].get(name)
+            if n:
+                out[f"{tag} step, each process (phase 16)"] = n
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,

@@ -1,8 +1,7 @@
 """Mixture-of-experts FFN, on one card or with the experts split over ranks.
 
 The port of ``rlo_tpu/models/moe.py``: ``init_moe_params`` and
-``moe_ffn`` (``ep_axis``: expert parallelism over an ``Axis``, forward
-only).
+``moe_ffn`` (``ep_axis``: expert parallelism over an ``Axis``).
 
 Routing is the JAX package's (switch-style top-1 with a static
 capacity):
@@ -51,7 +50,9 @@ calls both with equal shapes, so every rank must route the same number
 of tokens. The sorted dispatch has variable-length rows that no
 all_to_all carries: it is the single-rank route only. The aux term is
 the rank's own tokens' (as in the JAX package, nothing is summed over
-the axis).
+the axis). Under autograd both ``all_to_all``s carry the cotangents
+back (``ops.device_collectives``), so an expert's weight gradient
+gathers every rank's tokens routed to it.
 """
 
 from __future__ import annotations

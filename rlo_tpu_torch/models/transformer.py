@@ -23,17 +23,23 @@ router ``wr`` stays f32), so a tree cast once up front
 (``cast_params``) gives the same numbers, and gradients come back in
 float32.
 
-Model parallelism, forward only (inference): ``tp_axis`` (heads and
-hidden units split per ``param_pspecs``, the row-parallel sums through
-``ops.device_collectives.allreduce``), ``ep_axis`` (experts split, tokens
-crossing ranks in ``models.moe``'s two all_to_alls) and ``sp_axis`` (the
-sequence split, attention through ``ops.ring_attention`` or
-``ops.ulysses``). An axis is an ``Axis`` of ``parallel.mesh``: a
-``LocalMesh`` rank (a thread on the one device) or a ``DistAxis``
-process. Sequence-, tensor- and expert-parallel training (a collective
-inside the backward) belongs to a later slice of the port and raises
-``NotImplementedError``, as does ``forward`` with an axis under grad
-mode.
+Model parallelism: ``tp_axis`` (heads and hidden units split per
+``param_pspecs``, the row-parallel sums through
+``ops.device_collectives.allreduce``), ``ep_axis`` (experts split,
+tokens crossing ranks in ``models.moe``'s two all_to_alls) and
+``sp_axis`` (the sequence split, attention through
+``ops.ring_attention`` or ``ops.ulysses``), for inference and training.
+An axis is an ``Axis`` of ``parallel.mesh``: a ``LocalMesh`` rank (a
+thread) or a ``DistAxis`` process. Training puts collectives inside the
+backward, which JAX's autodiff transposes under ``shard_map``'s vma
+typing; here ``parallel.autodiff`` gives each its transpose: the
+row-parallel psum passes the cotangent on, the tp-invariant activation
+entering a tp-split product sums its cotangent over tp, ppermutes and
+all_to_alls send theirs back, and ``grads_and_loss`` sums each
+parameter's gradient over every data-carrying axis (sp, ep, dp, dcn)
+that its spec does not split it over. A collective inside a backward
+runs on a CPU ``LocalMesh`` (each rank's backward on its own thread);
+on a card the ranks are processes.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from rlo_tpu_torch.models.moe import init_moe_params, moe_ffn
+from rlo_tpu_torch.parallel.autodiff import psum_invariant, pvary
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -339,9 +346,12 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
     these local heads) and d_ff/tp hidden units, and the row-parallel
     products of ``wo`` and ``w2`` are summed over the axis by
     ``allreduce(algorithm=tp_algorithm)`` (K1 on the manual schedules)
-    and cast back to the activation dtype. ``ep_axis`` splits the
-    experts (``models.moe``; its two all_to_alls take
-    ``all_to_all_algorithm``: 'xla', 'direct' or 'ring'). Every rank
+    and cast back to the activation dtype. Under autograd the normed
+    activation enters the column-parallel products through
+    ``autodiff.pvary`` (its cotangent summed over tp, where JAX's vma
+    typing inserts the same sum) and only 'psum' differentiates.
+    ``ep_axis`` splits the experts (``models.moe``; its two all_to_alls
+    take ``all_to_all_algorithm``: 'xla', 'direct' or 'ring'). Every rank
     must call this with the same shapes (the collectives pair up across
     ranks)."""
     b, blk, _ = x.shape
@@ -361,7 +371,7 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
         from rlo_tpu_torch.ops.device_collectives import allreduce
         return allreduce(t, tp_axis, algorithm=tp_algorithm).to(t.dtype)
 
-    h = _rmsnorm(x, layer["ln1"]["g"])
+    h = pvary(_rmsnorm(x, layer["ln1"]["g"]), tp_axis)
     if cfg.kv_heads == cfg.n_heads:
         w = layer["wqkv"].to(dt)           # (d, 3, local heads x hd)
         q, k, v = torch.split(h @ w.reshape(w.shape[0], -1), nh * hd,
@@ -395,7 +405,7 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
                            all_to_all_algorithm=all_to_all_algorithm)
         return x + ffn, aux
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(h @ layer["w1"].to(dt), approximate="tanh")
+    h = F.gelu(pvary(h, tp_axis) @ layer["w1"].to(dt), approximate="tanh")
     x = x + tp_sum(h @ layer["w2"].to(dt))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -423,19 +433,6 @@ def _rebuild(tree, leaves: Iterator):
     if isinstance(tree, (list, tuple)):
         return [_rebuild(v, leaves) for v in tree]
     return next(leaves)
-
-
-def _single_card_training(sp_axis, tp_axis, ep_axis) -> None:
-    for name, axis in (("sp_axis", sp_axis), ("tp_axis", tp_axis),
-                       ("ep_axis", ep_axis)):
-        if axis is not None:
-            raise NotImplementedError(
-                f"{name} training is not ported yet: sequence-, tensor- "
-                f"and expert-parallel training put a collective inside "
-                f"the backward, which needs several processes on several "
-                f"cards (on one card's LocalMesh it would wait on the "
-                f"autograd thread); it comes with a later slice of the "
-                f"port")
 
 
 def next_token_targets(tokens):
@@ -542,33 +539,50 @@ def forward(params: dict, tokens, cfg: TransformerConfig,
     (under tp the same bits on every rank); aux is the rank's own
     tokens' term.
 
-    With any axis set it runs only with grad mode off (``torch.no_grad``
-    or ``torch.inference_mode``): the backward of a collective is the
-    multi-card training slice's, and on a ``LocalMesh`` it would wait on
-    the device's one autograd thread."""
-    if torch.is_grad_enabled():
-        for name, axis in (("sp_axis", sp_axis), ("tp_axis", tp_axis),
-                           ("ep_axis", ep_axis)):
-            if axis is not None:
-                raise NotImplementedError(
-                    f"forward with {name} under grad mode: the backward "
-                    f"of its collectives comes with the multi-card "
-                    f"training slice, a later slice of the port; run the "
-                    f"forward under torch.no_grad()")
+    Differentiable under every axis (the JAX package's transposes,
+    ``parallel.autodiff``), with ``tp_algorithm='psum'``: the manual
+    schedules have no backward and raise under autograd."""
     x, aux = _features(params, tokens, cfg, sp_axis, tp_axis, tp_algorithm,
                        ep_axis, all_to_all_algorithm)
     logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
     return (logits, aux) if with_aux else logits
 
 
+def _sp_targets(tokens, sp_axis):
+    """Next-token labels of this rank's contiguous block: shard r takes
+    shard r+1's first token by one ppermute, and the last shard masks
+    its final position (the sequence's last)."""
+    from rlo_tpu_torch import topology
+    ws = sp_axis.size
+    nxt = sp_axis.ppermute(tokens[:, :1].contiguous(),
+                           topology.ring_perm(ws, -1))
+    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+    valid = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+    if sp_axis.index == ws - 1:
+        valid[:, -1] = 0.0
+    return targets, valid
+
+
 def loss_fn(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
             tp_axis=None, ep_axis=None):
     """Mean next-token cross-entropy over the valid positions, plus
     ``cfg.moe_aux_coef`` times the summed aux term for MoE configs.
-    ``cfg.loss_vocab_chunk`` streams the head."""
-    _single_card_training(sp_axis, tp_axis, ep_axis)
-    x, aux = _features(params, tokens, cfg)
-    targets, valid = next_token_targets(tokens)
+    ``cfg.loss_vocab_chunk`` streams the head. Under ``sp_axis`` (a
+    contiguous split only, as in the JAX package) the masked NLL and the
+    count are summed over the axis and the aux term averaged over it, so
+    every rank holds the loss of the whole sequence; under ``ep_axis``
+    each rank's loss is its own rows'."""
+    if sp_axis is not None and cfg.sp_layout != "contiguous":
+        raise ValueError(f"the sequence-parallel loss takes a contiguous "
+                         f"split, as the JAX package's does; got "
+                         f"sp_layout={cfg.sp_layout!r}")
+    x, aux = _features(params, tokens, cfg, sp_axis, tp_axis,
+                       ep_axis=ep_axis)
+    if sp_axis is None:
+        targets, valid = next_token_targets(tokens)
+    else:
+        targets, valid = _sp_targets(tokens, sp_axis)
     chunk = cfg.loss_vocab_chunk or 0
     if chunk:
         local, count = nll_sum_chunked(x, params["embed"], targets, valid,
@@ -576,10 +590,41 @@ def loss_fn(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
     else:
         logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
         local, count = nll_sum(logits, targets, valid)
+    if sp_axis is not None:
+        local = psum_invariant(local, sp_axis)
+        count = sp_axis.all_reduce(count, "sum")
     loss = local / count
     if cfg.n_experts > 0:
+        if sp_axis is not None:
+            aux = psum_invariant(aux, sp_axis) / sp_axis.size
         loss = loss + cfg.moe_aux_coef * aux
     return loss
+
+
+def _model_parallel_combine(grads, loss, params, cfg, sp_axis, ep_axis,
+                            dp_axis, dcn_axis):
+    """The gradient sums JAX's vma typing inserts, after the backward:
+    each leaf's gradient summed over sp, over ep unless its spec splits
+    it there (the experts), and over dp and dcn; then divided by the dp
+    x dcn size and, under ep, by the ep size (ep carries rows, a second
+    data axis). tp-replicated leaves need no sum over tp: every tp rank
+    computed the same gradient. The loss is averaged over dp, dcn and
+    ep."""
+    from rlo_tpu_torch.parallel.sharding import leaf_specs
+    specs = leaf_specs(params, param_pspecs(
+        cfg, ep_axis="ep" if ep_axis is not None else None))
+    out = []
+    for g, spec in zip(grads, specs):
+        for axis in (sp_axis, None if "ep" in spec else ep_axis, dp_axis,
+                     dcn_axis):
+            if axis is not None:
+                g = axis.all_reduce(g, "sum")
+        out.append(g)
+    for axis in (dp_axis, dcn_axis, ep_axis):
+        if axis is not None:
+            out = [g / axis.size for g in out]
+            loss = axis.all_reduce(loss, "sum") / axis.size
+    return loss, out
 
 
 def grads_and_loss(params: dict, tokens, cfg: TransformerConfig,
@@ -597,16 +642,33 @@ def grads_and_loss(params: dict, tokens, cfg: TransformerConfig,
     ``dcn_axis`` (a second, slower data-parallel tier)
     ``hierarchical_allreduce(g, dp_axis, dcn_axis,
     dcn_algorithm=dcn_algorithm) / n``, n the product of the sizes; the
-    loss is averaged over the same axes."""
-    _single_card_training(sp_axis, tp_axis, ep_axis)
+    loss is averaged over the same axes.
+
+    With ``sp_axis``, ``tp_axis`` or ``ep_axis`` (``params`` this rank's
+    slices per ``param_pspecs``) the sums are those of the JAX package's
+    vma path (``_model_parallel_combine``): dp and dcn are plain sums
+    whatever ``grad_algorithm`` says, and ``dcn_algorithm`` other than
+    'psum' raises, as there."""
     if dcn_axis is not None and dp_axis is None:
         raise ValueError("dcn_axis requires dp_axis (it is the second, "
                          "cross-slice tier of data parallelism)")
+    model_parallel = any(a is not None for a in (sp_axis, tp_axis, ep_axis))
+    if model_parallel and dcn_axis is not None and dcn_algorithm != "psum":
+        raise ValueError(
+            f"dcn_algorithm={dcn_algorithm!r} needs the explicit combine of "
+            f"pure data parallelism; with an sp, tp or ep axis the dp and "
+            f"dcn sums are plain sums (the JAX package's vma path), which "
+            f"cannot be compressed")
     live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-    loss = loss_fn(_rebuild(params, iter(live)), tokens, cfg)
+    loss = loss_fn(_rebuild(params, iter(live)), tokens, cfg, sp_axis,
+                   tp_axis, ep_axis)
     grads = list(torch.autograd.grad(loss, live))
     loss = loss.detach()
-    if dp_axis is not None:
+    if model_parallel:
+        loss, grads = _model_parallel_combine(grads, loss, params, cfg,
+                                              sp_axis, ep_axis, dp_axis,
+                                              dcn_axis)
+    elif dp_axis is not None:
         from rlo_tpu_torch.ops import device_collectives as dc
         n = dp_axis.size * (1 if dcn_axis is None else dcn_axis.size)
         if dcn_axis is not None:
@@ -628,7 +690,7 @@ def train_step(params: dict, tokens, cfg: TransformerConfig,
                ep_axis=None, grad_algorithm: str = "psum", dcn_axis=None,
                dcn_algorithm: str = "psum"):
     """One SGD step; returns (new_params, loss). ``params`` is left as
-    it was."""
+    it was (this rank's slices under tp/ep)."""
     loss, grads = grads_and_loss(params, tokens, cfg, sp_axis=sp_axis,
                                  dp_axis=dp_axis, tp_axis=tp_axis,
                                  ep_axis=ep_axis,
@@ -665,3 +727,34 @@ def train_step_optim(params: dict, optimizer, tokens,
     for p in leaves:
         p.grad = None
     return params, loss
+
+
+def opt_state_pspecs(optimizer_or_state, params: dict, param_specs) -> dict:
+    """The ``PartitionSpec`` trees of a ``torch.optim`` optimizer's state
+    over ``params`` (the optimizer, or its ``state`` mapping from each
+    parameter tensor to its state dict): one tree shaped like ``params``
+    per state name. A state tensor shaped like its parameter (Adam's
+    ``exp_avg``, ``exp_avg_sq``) takes the parameter's spec from
+    ``param_specs``, so tp/ep-split weights get split moments; anything
+    else (``step``) is ``PartitionSpec()``. The counterpart of the JAX
+    package's ``opt_state_pspecs`` over an optax state (its ``mu``,
+    ``nu`` and ``count``); give a tree to ``parallel.sharding.shard_tree``
+    with the rank's axes."""
+    from rlo_tpu_torch.parallel.sharding import PartitionSpec, leaf_specs
+    state = getattr(optimizer_or_state, "state", optimizer_or_state)
+    leaves = tree_leaves(params)
+    specs = leaf_specs(params, param_specs)
+    names: list = []
+    for p in leaves:
+        for name in state.get(p, {}):
+            if name not in names:
+                names.append(name)
+    out = {}
+    for name in names:
+        per = []
+        for p, spec in zip(leaves, specs):
+            t = state.get(p, {}).get(name)
+            like = torch.is_tensor(t) and tuple(t.shape) == tuple(p.shape)
+            per.append(spec if like else PartitionSpec())
+        out[name] = _rebuild(params, iter(per))
+    return out

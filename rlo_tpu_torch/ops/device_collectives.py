@@ -15,6 +15,14 @@ plain version everywhere (the counterpart of the JAX package's ``jnp``
 path).
 Accumulating steps write into a buffer the op owns (``out=``), never
 into the caller's tensor.
+
+Under autograd (grad mode on and an input that needs a gradient) the
+ops of a training path differentiate as JAX's transpose rules do
+(``parallel.autodiff``): ``allreduce(algorithm='psum')`` is a sum into a
+value every rank holds alike (its backward the identity), and
+``all_to_all`` of every schedule moves the cotangent back the way it
+came. The manual allreduce schedules and ``hierarchical_allreduce``
+accumulate in place and have no backward: under autograd they raise.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from rlo_tpu_torch import topology
 from rlo_tpu_torch.kernels.reduce import (OPS, fused_combine,
                                           fused_combine_plain)
+from rlo_tpu_torch.parallel import autodiff
 
 
 def _combiner(op: str, use_kernel: bool) -> Callable:
@@ -250,7 +259,7 @@ def allreduce(x: torch.Tensor, axis, *, op: str = "sum",
     ring directions carry half the payload, each row cut into
     ``pipeline_chunks`` sub-chunks; None -> 2 on CUDA, 1 on the CPU),
     'recursive_doubling' and 'halving_doubling' (power-of-2 only).
-    'auto' is psum."""
+    'auto' is psum. Under autograd only psum's sum differentiates."""
     if pipeline_chunks is None:
         pipeline_chunks = _default_pipeline_chunks(x.device)
     if algorithm == "auto":
@@ -258,7 +267,11 @@ def allreduce(x: torch.Tensor, axis, *, op: str = "sum",
     if algorithm == "psum":
         if op not in OPS:
             raise ValueError(f"unknown op {op!r}")
+        if op == "sum":
+            return autodiff.psum_invariant(x, axis)
+        _no_backward(x, f"allreduce(op={op!r})")
         return axis.all_reduce(x, op)
+    _no_backward(x, f"allreduce(algorithm={algorithm!r})")
     if algorithm == "recursive_doubling":
         return _allreduce_rd(x, axis, op, use_kernel)
     if algorithm == "bidir_ring":
@@ -273,6 +286,14 @@ def allreduce(x: torch.Tensor, axis, *, op: str = "sum",
         reduced = _halving_reduce_scatter(chunks, axis, op, use_kernel)
         return _unchunk_shard(_doubling_all_gather(reduced, axis), meta)
     raise ValueError(f"unknown algorithm {algorithm!r}")
+
+
+def _no_backward(x, what: str) -> None:
+    if autodiff.needs_grad(x):
+        raise NotImplementedError(
+            f"{what} has no backward (its steps accumulate in place): "
+            f"under autograd sum with algorithm='psum', the JAX package's "
+            f"training path")
 
 
 def _allreduce_rd(x, axis, op: str, use_kernel):
@@ -451,6 +472,7 @@ def hierarchical_allreduce(x, ici_axis, dcn_axis, *, op: str = "sum",
     a manual schedule, or 'int8'), all-gather over ``ici_axis``."""
     if dcn_algorithm == "int8" and op != "sum":
         raise ValueError("dcn_algorithm='int8' supports op='sum' only")
+    _no_backward(x, "hierarchical_allreduce")
     wi = ici_axis.size
     chunks, meta = _chunk_shard(x, wi)
     pow2 = topology.is_power_of_2(wi)
@@ -513,26 +535,27 @@ def all_to_all(x, axis, *, algorithm: str = "xla"):
     """Rank r's row s (leading axis = axis size) goes to rank s at
     position r. 'xla' is the transport's own exchange; 'direct' ws-1
     shifted ppermutes of one chunk each; 'ring' rotates the whole buffer
-    ws-1 steps (twice the link bytes of 'direct')."""
+    ws-1 steps (twice the link bytes of 'direct'). Differentiable under
+    every schedule: the cotangent takes the inverse exchange."""
     ws = axis.size
     if x.shape[0] != ws:
         raise ValueError(f"leading axis {x.shape[0]} != axis size {ws}")
     if algorithm not in ("xla", "ring", "direct"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if algorithm == "xla":
-        return axis.all_to_all(x)
+        return autodiff.all_to_all(x, axis)
     idx = axis.index
     out = torch.zeros_like(x)
     out[idx] = x[idx]
     if algorithm == "direct":
         for o in range(1, ws):
-            out[(idx - o) % ws] = axis.ppermute(
-                x[(idx + o) % ws], topology.ring_perm(ws, o))
+            out[(idx - o) % ws] = autodiff.ppermute(
+                x[(idx + o) % ws], axis, topology.ring_perm(ws, o))
         return out
     rolling = x
     perm = topology.ring_perm(ws)
     for s in range(ws - 1):
-        rolling = axis.ppermute(rolling, perm)
+        rolling = autodiff.ppermute(rolling, axis, perm)
         out[(idx - s - 1) % ws] = rolling[idx]
     return out
 

@@ -1,6 +1,6 @@
 """Ring attention: sequence-parallel attention over the ppermute ring.
 
-The port of ``rlo_tpu/ops/ring_attention.py``, forward only. The
+The port of ``rlo_tpu/ops/ring_attention.py``. The
 sequence is split over an ``Axis``; each rank keeps its q block, and the
 compact K/V blocks rotate rank -> rank+1 (``topology.ring_perm``, the
 ring allreduce's schedule) through ``axis.ppermute``. Each of the ws
@@ -11,6 +11,14 @@ with the GQA group folded into the query axis once, before the loop (one
 transpose in, one out), as the JAX package's fused path does. The JAX
 package's ``block_q``/``block_k`` are Pallas tile sizes: K2 picks its
 own, so they are not taken.
+
+Differentiable end to end: each step's ``FlashBlockUpdate`` gives its
+backward (K4 and K5, 'pallas_fast' as in the JAX package), and the
+rotations are ``parallel.autodiff.ppermute``, so the cotangents of K and
+V travel the ring backwards to the ranks that own them. Under a causal
+contiguous split the blocks from later shards are masked whole: K2
+leaves the state as it was, and K4/K5 give them zero dk/dv and add
+nothing to dq.
 
 On a ``LocalMesh`` a ppermute clones what it receives, so each step
 copies the K/V blocks once.
@@ -24,6 +32,7 @@ import torch
 
 from rlo_tpu_torch import topology
 from rlo_tpu_torch.kernels.flash import NEG, flash_block_update_hld
+from rlo_tpu_torch.parallel.autodiff import ppermute
 
 
 def stripe_sequence(x, ws: int):
@@ -97,8 +106,8 @@ def ring_attention(q, k, v, axis, *, causal: bool = False,
             q_hld, kc, vc, m, l, o, qp, positions((idx - s) % ws),
             causal=causal, scale=scale, bwd="pallas_fast")
         if s + 1 < ws:
-            kc = axis.ppermute(kc, perm)
-            vc = axis.ppermute(vc, perm)
+            kc = ppermute(kc, axis, perm)
+            vc = ppermute(vc, axis, perm)
     lt = l.transpose(1, 2)
     denom = torch.where(lt > 0, lt, torch.ones_like(lt))
     return (o / denom).reshape(h, blk, d).transpose(0, 1).to(q.dtype)

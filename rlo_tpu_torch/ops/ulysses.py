@@ -1,6 +1,6 @@
 """Ulysses sequence parallelism: all_to_all head-scatter attention.
 
-The port of ``rlo_tpu/ops/ulysses.py``, forward only. Each rank holds its
+The port of ``rlo_tpu/ops/ulysses.py``. Each rank holds its
 sequence block of every head, (blk, H, D); one ``all_to_all`` per tensor
 (``ops.device_collectives.all_to_all``, any of its schedules) re-splits
 to the whole sequence of H/ws heads, (seq, H/ws, D); the attention of
@@ -8,6 +8,8 @@ those heads runs with no communication through the port's
 ``flash_attention`` (K2, one launch); one more ``all_to_all`` puts the
 output back to (blk, H, D). Needs ws to divide H; the causal mask uses
 global positions, which hold because every rank sees whole sequences.
+Differentiable: the ``all_to_all``s move the cotangents back the way
+they came, and ``flash_attention``'s backward is K4 and K5.
 """
 
 from __future__ import annotations

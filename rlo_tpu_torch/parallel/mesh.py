@@ -7,11 +7,23 @@ Two transports implement ``Axis``:
 
   - ``LocalMesh(shape, names, device)`` runs ``prod(shape)`` ranks as
     threads of one process on one device and runs a per-rank function in
-    lockstep (the counterpart of ``shard_jit`` over a mesh; 1-D meshes
-    and 2-D ``(dcn, ici)`` meshes). A transfer is an on-device copy.
-  - ``DistAxis(group)`` sits over a ``torch.distributed`` process group:
-    gloo on the CPU, NCCL on GPUs; ``ppermute`` is
-    ``dist.batch_isend_irecv``.
+    lockstep (the counterpart of ``shard_jit`` over a mesh; 1-D to 3-D
+    meshes, e.g. ``(dcn, ici)`` or ``(dp, sp, tp)``). A transfer is an
+    on-device copy.
+  - ``DistAxis(group, device)`` sits over a ``torch.distributed`` process
+    group: gloo on the CPU, NCCL on GPUs, or gloo carrying a card's
+    tensors through host buffers (below); ``ppermute`` is
+    ``dist.batch_isend_irecv``. ``dist_mesh_axes(shape, names)`` gives
+    this process its ``DistAxis`` on every axis of a process mesh (the
+    counterpart of ``make_mesh``).
+
+A collective inside a backward (``parallel.autodiff``) needs each rank's
+backward on a thread of its own. On the CPU the autograd engine runs the
+backward on the thread that asks for it, so a CPU ``LocalMesh`` runs it;
+the backward of CUDA tensors runs on one autograd thread per device, so
+on a card's ``LocalMesh`` the first rank's backward collective would
+wait for ranks queued behind it on that thread: there the ranks are
+processes (``DistAxis``).
 
 ``vary_like`` (vma typing) has no counterpart and is not ported.
 """
@@ -88,6 +100,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def mesh_coords(shape: Sequence[int], rank: int) -> Tuple[int, ...]:
+    """Coordinates of a row-major ``rank`` on a mesh of ``shape``."""
+    out = []
+    for s in reversed(shape):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
 _REDUCE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
            "and": torch.minimum, "or": torch.maximum}
 
@@ -122,8 +143,8 @@ class LocalMesh:
                  device=None, timeout: float = 300.0):
         shape = tuple(int(s) for s in shape)
         names = tuple(names)
-        if len(shape) != len(names) or len(shape) not in (1, 2):
-            raise ValueError("LocalMesh takes a 1-D or 2-D shape with one "
+        if len(shape) != len(names) or len(shape) not in (1, 2, 3):
+            raise ValueError("LocalMesh takes a 1-D to 3-D shape with one "
                              "name per dimension")
         if any(s < 1 for s in shape) or len(set(names)) != len(names):
             raise ValueError(f"bad mesh {shape} / {names}")
@@ -141,11 +162,7 @@ class LocalMesh:
 
     def coords(self, rank: int) -> Tuple[int, ...]:
         """Mesh coordinates of a global (row-major) rank."""
-        out = []
-        for s in reversed(self.shape):
-            out.append(rank % s)
-            rank //= s
-        return tuple(reversed(out))
+        return mesh_coords(self.shape, rank)
 
     def rank_of(self, coords: Sequence[int]) -> int:
         r = 0
@@ -272,26 +289,62 @@ class LocalAxis:
 
 class DistAxis:
     """An axis over a ``torch.distributed`` group (this process is one
-    rank). Tensors lie where the backend wants them: on the CPU for
-    gloo, on this process's current GPU for NCCL."""
+    rank). ``device`` is where the rank's tensors live: None is the
+    backend's own (this process's current GPU for NCCL, the CPU for
+    gloo).
+
+    gloo with a CUDA ``device`` carries a card's tensors. gloo's
+    all-reduce and all-gather take them itself (copying them to host
+    memory and back inside the call); its point-to-point ops take host
+    tensors only (``python3 -m rlo_tpu_torch.tools.gloo_cuda_probe``
+    shows which calls take a card's tensor), so ``ppermute`` and
+    ``all_to_all`` copy a CUDA tensor into a host buffer, exchange it and
+    copy the result back to the card. ``staged_bytes`` counts every byte
+    that crosses between the card and the host either way, gloo's own
+    copies included. The computation stays on the card. A CUDA tensor
+    on a gloo axis made for the CPU raises in the staged calls rather
+    than moving to the host unasked."""
 
     leader = True
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, device=None):
         import torch.distributed as dist
         self._dist = dist
         self.group = group
-        self.device = torch.device(
-            "cuda" if dist.get_backend(group) == "nccl" else "cpu")
+        backend = dist.get_backend(group)
+        if device is None:
+            device = "cuda" if backend == "nccl" else "cpu"
+        self.device = resolve_device(device)
+        self._gloo = backend == "gloo"
+        #: bytes copied between the card and host buffers so far
+        self.staged_bytes = 0
         self.size = dist.get_world_size(group)
         self.index = dist.get_rank(group)
         self._globals = [dist.get_global_rank(group, i) if group is not None
                          else i for i in range(self.size)]
 
-    def ppermute(self, x: torch.Tensor, pairs: Pairs) -> torch.Tensor:
-        _check_pairs(pairs, self.size)
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the backend's point-to-point ops take it: contiguous,
+        and for gloo on the host (a card's tensor copied there and
+        counted)."""
+        if not self._gloo or x.device.type == "cpu":
+            return x.contiguous()
+        if self.device.type != "cuda":
+            raise ValueError(f"a {x.device} tensor on a gloo axis made for "
+                             f"the CPU: give DistAxis the card as its "
+                             f"device to stage it through the host")
+        self.staged_bytes += x.numel() * x.element_size()
+        return x.to("cpu", memory_format=torch.contiguous_format)
+
+    def _unstage(self, out: torch.Tensor, like: torch.Tensor):
+        """``out`` back on ``like``'s device (counted when it moves)."""
+        if out.device == like.device:
+            return out
+        self.staged_bytes += out.numel() * out.element_size()
+        return out.to(like.device)
+
+    def _ppermute(self, x: torch.Tensor, pairs: Pairs) -> torch.Tensor:
         dist = self._dist
-        x = x.contiguous()
         dst = next((d for s, d in pairs if s == self.index), None)
         src = _src_of(pairs, self.index)
         # no source: zeros, as lax.ppermute gives
@@ -310,9 +363,19 @@ class DistAxis:
                 req.wait()
         return out
 
+    def ppermute(self, x: torch.Tensor, pairs: Pairs) -> torch.Tensor:
+        _check_pairs(pairs, self.size)
+        return self._unstage(self._ppermute(self._stage(x), pairs), x)
+
+    def _count_gloo_copies(self, nbytes: int, x: torch.Tensor) -> None:
+        if self._gloo and x.device.type == "cuda":
+            self.staged_bytes += nbytes
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
+        self._count_gloo_copies((1 + self.size) * x.numel()
+                                * x.element_size(), x)
         self._dist.all_gather(parts, x, group=self.group)
         return torch.stack(parts)
 
@@ -321,22 +384,55 @@ class DistAxis:
         red = {"sum": R.SUM, "min": R.MIN, "max": R.MAX, "and": R.MIN,
                "or": R.MAX}[op]
         out = x.clone().contiguous()
+        self._count_gloo_copies(2 * out.numel() * out.element_size(), out)
         self._dist.all_reduce(out, op=red, group=self.group)
         return out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        # ws-1 shifted exchanges (gloo has no all-to-all on every build)
+        # ws-1 shifted exchanges (gloo has no all-to-all on every build);
+        # a staged tensor crosses to the host and back once
         if x.shape[0] != self.size:
             raise ValueError(f"leading axis {x.shape[0]} != axis size "
                              f"{self.size}")
-        out = torch.empty_like(x)
-        out[self.index] = x[self.index]
+        h = self._stage(x)
+        out = torch.empty_like(h)
+        out[self.index] = h[self.index]
         ws = self.size
         for o in range(1, ws):
             pairs = [(i, (i + o) % ws) for i in range(ws)]
-            out[(self.index - o) % ws] = self.ppermute(
-                x[(self.index + o) % ws], pairs)
-        return out
+            out[(self.index - o) % ws] = self._ppermute(
+                h[(self.index + o) % ws].contiguous(), pairs)
+        return self._unstage(out, x)
 
     def barrier(self) -> None:
         self._dist.barrier(group=self.group)
+
+
+def dist_mesh_axes(shape: Sequence[int], names: Sequence[str],
+                   device=None) -> Dict[str, DistAxis]:
+    """This process's ``DistAxis`` on each axis of a row-major process
+    mesh of ``shape`` over the default group's ranks (the counterpart of
+    ``make_mesh``): every line of the mesh along an axis gets its own
+    group, and this process keeps the group of its own line. Every
+    process must call this with the same arguments: ``dist.new_group``
+    is collective, and the groups are made in one order everywhere."""
+    import torch.distributed as dist
+    shape = tuple(int(s) for s in shape)
+    names = tuple(names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"bad mesh {shape} / {names}")
+    ws, me = dist.get_world_size(), dist.get_rank()
+    if math.prod(shape) != ws:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} processes; "
+                         f"the group has {ws}")
+    coords = [mesh_coords(shape, r) for r in range(ws)]
+    out = {}
+    for dim, name in enumerate(names):
+        lines: Dict[tuple, List[int]] = {}
+        for r, c in enumerate(coords):
+            lines.setdefault(c[:dim] + c[dim + 1:], []).append(r)
+        for key in sorted(lines):
+            group = dist.new_group(lines[key])
+            if me in lines[key]:
+                out[name] = DistAxis(group, device=device)
+    return out

@@ -71,6 +71,29 @@ def _map(fn, tree, specs):
     raise TypeError(f"not a spec tree node: {specs!r}")
 
 
+def leaf_specs(tree, specs) -> list:
+    """The ``PartitionSpec`` of each tensor of ``tree``, in the order of
+    ``models.transformer.tree_leaves(tree)`` (dicts by the tree's own key
+    order, lists in order), matched to ``specs`` by key."""
+    out = []
+
+    def walk(t, s):
+        if isinstance(s, PartitionSpec):
+            out.append(s)
+        elif isinstance(t, dict):
+            for k in t:
+                walk(t[k], s[k])
+        elif isinstance(t, (list, tuple)):
+            if len(s) != len(t):
+                raise ValueError(f"{len(s)} specs for {len(t)} entries")
+            for a, b in zip(t, s):
+                walk(a, b)
+        else:
+            raise TypeError(f"no spec for a tensor: {s!r}")
+    walk(tree, specs)
+    return out
+
+
 def shard_tree(tree, specs, axes: Mapping[str, Any]):
     """This rank's slices of the full ``tree``: each tensor cut along its
     spec's named dimensions at the rank's index on those axes (``axes``:

@@ -515,3 +515,39 @@ def test_phase_multihost_rehearsal():
     assert out["procs"] == 4
     assert sorted(out["round_ms_max"]) == ["round1", "round2", "round3",
                                            "round4"]
+
+
+def test_phase_train_parallel_rehearsal(monkeypatch):
+    """Phase 16 at a tiny f32 size on the CPU: four ``chip_smoke.py
+    --train-parallel-worker`` processes (gloo, device type cpu, the plain
+    versions counting their wrappers' launches) take each sub-phase's
+    step; every one holds against the single-card step, every process
+    the same loss, the replicated slices the same bits, the launches a
+    step layers x ring steps; and the ring-step K4/K5 check holds with
+    the masked block's exact zeros."""
+    for name, value in (("synchronize", None), ("empty_cache", None),
+                        ("reset_peak_memory_stats", None),
+                        ("max_memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value: _v)
+    monkeypatch.setattr(cs, "SERVE_CFG", dict(
+        vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+        dtype="float32"))
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 4)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 32)
+    monkeypatch.setattr(cs, "TRAIN_PARALLEL", dict(cs.TRAIN_PARALLEL,
+                                                   reps=2))
+    monkeypatch.setattr(cs, "RING_STEP", dict(heads=4, blk=32, shard=1))
+    out = cs.phase_train_parallel(torch.device("cpu"))
+    want = {"16a sp 4 ring": 8, "16b sp 4 Ulysses": 2, "16c tp 4": 2,
+            "16d sp 2 x tp 2 ring": 4, "16e ep 4 MoE": 2}
+    for tag, n in want.items():
+        st = out[tag]
+        assert st["launches_per_step"] == {"flash_block_update_hld": n,
+                                           "bwd_dq": n, "bwd_dkv": n}
+        assert st["update_rel_l2_max"] <= 1e-4, tag
+        assert st["loss_rel"] <= 1e-5, tag
+        assert st["staged_bytes_per_step"] == 0      # CPU tensors
+    # sp 4: each of the 14 leaves held whole by 4 processes
+    assert out["16a sp 4 ring"]["replicated_copies_equal"] == 3 * 14
+    assert out["ring_step"]["later shard"]["nonzero"] == dict(dq=0, dk=0,
+                                                              dv=0)

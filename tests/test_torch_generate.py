@@ -26,6 +26,7 @@ from rlo_tpu_torch.convert import (cache_from_numpy, cache_to_numpy,
 from rlo_tpu_torch.models import generate as tg
 from rlo_tpu_torch.models import transformer as tt
 from rlo_tpu_torch.models.moe import moe_ffn
+from rlo_tpu_torch.parallel.mesh import LocalMesh
 from rlo_tpu_torch.utils.metrics import Registry
 
 BASE = dict(vocab=128, d_model=64, n_heads=4, n_layers=2, d_ff=128,
@@ -254,10 +255,12 @@ def test_sampling_contract(model):
 
 
 def test_later_slices_raise():
-    """Inference with the sp/tp/ep axes runs (tests/test_torch_{tensor,
-    expert,sequence}_parallel.py); what stays for the multi-card training
-    slice raises: the loss and grads with any axis, and forward with an
-    axis under grad mode."""
+    """Inference and training run with the sp/tp/ep axes
+    (tests/test_torch_{tensor,expert,sequence}_parallel.py,
+    tests/test_torch_model_parallel_train.py); what the port still
+    refuses, as the JAX package does, raises: the loss of a striped
+    sequence split, an int8 ``dcn_algorithm`` beside any of the axes,
+    and ``forward`` under autograd with a manual ``tp_algorithm``."""
     _, tc = _cfgs("mha_sincos")
     moe = dataclasses.replace(tc, n_experts=2)
     params = {False: tt.init_params(tc, device="cpu"),
@@ -266,12 +269,21 @@ def test_later_slices_raise():
     for axis in ("sp_axis", "tp_axis", "ep_axis"):
         cfg = moe if axis == "ep_axis" else tc
         p = params[axis == "ep_axis"]
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tt.loss_fn(p, tok, cfg, **{axis: object()})
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tt.grads_and_loss(p, tok, cfg, **{axis: object()})
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tt.forward(p, tok, cfg, **{axis: object()})
+        with pytest.raises(ValueError, match="contiguous split"):
+            tt.loss_fn(p, tok, dataclasses.replace(cfg, sp_layout="striped"),
+                       sp_axis=object())
+        with pytest.raises(ValueError, match="cannot be compressed"):
+            tt.grads_and_loss(p, tok, cfg, dp_axis=object(),
+                              dcn_axis=object(), dcn_algorithm="int8",
+                              **{axis: object()})
+
+        def ring_forward(axes, p=p, cfg=cfg):
+            live = tt._rebuild(p, iter(t.detach().requires_grad_(True)
+                                       for t in tt.tree_leaves(p)))
+            return tt.forward(live, tok, cfg, tp_axis=axes["tp"],
+                              tp_algorithm="ring")
+        with pytest.raises(NotImplementedError, match="no backward"):
+            LocalMesh((1,), ("tp",), device="cpu").run(ring_forward)
     x = torch.zeros(1, 2, 64)
     layer = params[True]["layers"][0]
     with torch.no_grad():

@@ -177,8 +177,14 @@ def test_forward_with_an_axis_under_grad_raises_on_card(cuda):
     tok = _prompt((1, 16), 1, cuda)
 
     def fwd(ax, p):
+        # a manual tp schedule has no backward: refused under autograd
+        # before any rank enters a collective (training on the card runs
+        # its ranks as processes: tests/test_torch_gpu_model_parallel_
+        # train.py)
         with torch.enable_grad():
-            return tt.forward(p, tok, cfg, tp_axis=ax)
+            for t in tt.tree_leaves(p):
+                t.requires_grad_(True)
+            return tt.forward(p, tok, cfg, tp_axis=ax, tp_algorithm="ring")
 
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         _run(cuda, cfg, params, "tp", 2, fwd)

@@ -48,6 +48,7 @@ def test_card_tests_are_scanned():
                            "test_torch_gpu_decode.py",
                            "test_torch_gpu_flash.py",
                            "test_torch_gpu_flash_grad.py",
+                           "test_torch_gpu_model_parallel_train.py",
                            "test_torch_gpu_moe.py",
                            "test_torch_gpu_paged.py",
                            "test_torch_gpu_parallel.py",

@@ -97,7 +97,7 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_bad_meshes_and_pairs():
     with pytest.raises(ValueError):
-        LocalMesh((2, 2, 2), ("a", "b", "c"))
+        LocalMesh((2, 2, 2, 2), ("a", "b", "c", "d"))
     with pytest.raises(ValueError):
         LocalMesh((2, 2), ("a", "a"))
     mesh = LocalMesh((2,), ("x",), "cpu", timeout=5)

@@ -221,16 +221,35 @@ def test_forward_on_sp_tp_mesh_matches_jax(model, attention):
 
 @pytest.mark.parametrize("axis", ["sp_axis", "tp_axis", "ep_axis"])
 def test_forward_with_an_axis_under_grad_raises(axis):
-    """Grad mode on: forward refuses (the backward of its collectives is
-    the multi-card training slice's), before any collective is entered,
-    so a LocalMesh neither runs nor hangs."""
+    """Grad mode on: forward with an axis differentiates on a CPU
+    LocalMesh (each rank's backward runs on its own thread, with the
+    collectives' transposes inside it) and gives the logits it gives
+    under no_grad; what still raises under autograd is a manual tp
+    schedule (its steps accumulate in place and have no backward),
+    refused before any rank enters a collective, so the LocalMesh
+    neither runs nor hangs."""
     cfg = tt.TransformerConfig(**dict(BASE, n_experts=4) if axis == "ep_axis"
                                else BASE)
     params = tt.init_params(cfg, device="cpu")
     tok = torch.zeros((1, 8), dtype=torch.int32)
     mesh = LocalMesh((2,), ("x",), device="cpu", timeout=20.0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        mesh.run(lambda axes: tt.forward(params, tok, cfg,
-                                         **{axis: axes["x"]}))
+    specs = tt.param_pspecs(cfg, "x" if axis == "tp_axis" else None,
+                            "x" if axis == "ep_axis" else None)
+
+    def run(axes, grad, specs=specs, **kw):
+        p = shard_tree(params, specs, axes)
+        leaves = [t.requires_grad_(grad) for t in tt.tree_leaves(p)]
+        logits = tt.forward(p, tok, cfg, **kw)
+        if grad:
+            grads = torch.autograd.grad(logits.sum(), leaves)
+            assert all(torch.isfinite(g).all() for g in grads)
+        return logits.detach()
+    with torch.no_grad():
+        want = mesh.run(lambda axes: run(axes, False, **{axis: axes["x"]}))
+    got = mesh.run(lambda axes: run(axes, True, **{axis: axes["x"]}))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        mesh.run(lambda axes: run(axes, True, tt.param_pspecs(cfg, "x"),
+                                  tp_axis=axes["x"], tp_algorithm="ring"))
     with torch.no_grad():
         assert torch.isfinite(tt.forward(params, tok, cfg)).all()

@@ -259,19 +259,38 @@ def test_dcn_axis_requires_dp_axis():
 
 @pytest.mark.parametrize("axis", ["sp_axis", "tp_axis", "ep_axis"])
 def test_model_parallel_training_refused(axis):
-    """Sequence-, tensor- and expert-parallel training are a later slice
-    (a collective inside the backward), for dense and MoE layers alike;
-    an MoE loss on one card runs."""
+    """What sequence-, tensor- and expert-parallel training still
+    refuses, for dense and MoE layers alike: under every axis an int8
+    ``dcn_algorithm`` (the JAX package's vma path sums dp and dcn
+    plainly and refuses it too); under sp a striped split (the JAX
+    package's sp loss is contiguous only); under tp a manual
+    ``tp_algorithm`` under autograd (its schedules have no backward).
+    An MoE loss on one card runs."""
     jc, tc = _cfgs(**SMALL)
     _, tp = _params(jc, 9)
     tok = torch.zeros((2, SEQ), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.train_step(tp, tok, tc, **{axis: object()})
     moe = dataclasses.replace(tc, n_experts=4)
     mp = tt.init_params(moe, seed=9, device="cpu")
     assert torch.isfinite(tt.loss_fn(mp, tok, moe))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.loss_fn(mp, tok, moe, **{axis: object()})
+    for cfg, params in ((tc, tp), (moe, mp)):
+        with pytest.raises(ValueError, match="cannot be compressed"):
+            tt.train_step(params, tok, cfg, dp_axis=object(),
+                          dcn_axis=object(), dcn_algorithm="int8",
+                          **{axis: object()})
+        if axis == "sp_axis":
+            striped = dataclasses.replace(cfg, sp_layout="striped")
+            with pytest.raises(ValueError, match="contiguous split"):
+                tt.loss_fn(params, tok, striped, sp_axis=object())
+        if axis == "tp_axis":
+            def ring_forward(axes, params=params, cfg=cfg):
+                live = tt._rebuild(params, iter(
+                    t.detach().requires_grad_(True)
+                    for t in tt.tree_leaves(params)))
+                return tt.forward(live, tok, cfg, tp_axis=axes["tp"],
+                                  tp_algorithm="ring")
+            mesh = LocalMesh((1,), ("tp",), device="cpu")
+            with pytest.raises(NotImplementedError, match="no backward"):
+                mesh.run(ring_forward)
 
 
 def test_training_reduces_loss():
