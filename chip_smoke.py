@@ -4,8 +4,9 @@ dense serving path, the paged serving path, the training step,
 speculative decoding, mixture-of-experts layers, tensor-, expert- and
 sequence-parallel inference, pipeline-parallel training with a resume
 from a checkpoint, the consensus-gated bridge with its
-multi-process deployment and engine tracing, and sequence-, tensor- and
-expert-parallel training as processes on the card.
+multi-process deployment and engine tracing, sequence-, tensor- and
+expert-parallel training as processes on the card, and the rootless
+serving fabric over fleets of the card's DecodeServers.
 
     python3 chip_smoke.py
 
@@ -217,8 +218,25 @@ Phases, each printing its own lines:
    against their plain versions, for a fully visible earlier shard's
    block and a fully masked later one (dk = dv = 0 exactly, dq its plain
    version's, K2's carried state unchanged).
-17. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-16), then the last
+17. The rootless serving fabric over the card's DecodeServers
+   (``phase_fabric``): fleets of four full-width ``DecodeServer`` ranks
+   (one shared cast set of weights) in the port's deterministic
+   simulator, each behind ``ModelBackend`` and a ``DecodeFabric``
+   (rootless-broadcast admission, IAR placement, fail-over with an
+   exactly-once re-queue): (a) dense (buckets 64 and 256, prompts of
+   64-384) and (b) paged (pages of 128, prompts one of four shared
+   256-token prefixes and a 32-128-token tail); 32 requests, 8 through
+   each gateway, the busiest rank killed at virtual t 3 and its server
+   released. Every request completes exactly once on every live rank
+   with the same tokens there, at least one is re-queued, every
+   completion equals its prompt's own ``generate`` but at a near-tie, K2,
+   K6, K7 and K8 launch in (a) and K9, K10 and K11 in (b) (the counts set
+   to 0 before each fleet and read after); wall, virtual drain time,
+   rounds a rank, tokens/s, re-queues, prefix hits, COW copies, the
+   fabric's virtual-time latencies, peak memory, and whether (a) run
+   again on the seed repeats its schedule digest and tokens.
+18. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-17), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -5036,6 +5054,306 @@ def phase_train_parallel(dev) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the serving fabric over the card's DecodeServers
+# ---------------------------------------------------------------------------
+
+#: phase 17's fleets: the model-backed fleet of tests/test_fabric.py at
+#: the flagship's width, ``ranks`` DecodeServers in the port's simulator,
+#: ``requests`` through every gateway in turn from virtual t = 0.5 a
+#: quarter second apart, the busiest rank killed at the first pump at
+#: ``kill_at`` virtual s, drained by ``deadline`` virtual s. A dense
+#: prompt of 384 passes the largest bucket: its admission extends the
+#: bucket's prefill (K2) with a 128-token block_decode chunk (K6 over the
+#: chunk, K8 writing it), the only dense admission that launches K8
+FABRIC = dict(ranks=4, requests=32, kill_at=3.0, deadline=120.0,
+              n_slots=8, max_len=512, round_len=16, buckets=(64, 256),
+              plens=(64, 128, 256, 384), max_new=(32, 64), page_size=128,
+              prefixes=4, prefix_len=256, tails=(32, 64, 128))
+FABRIC_ENGINE = dict(failure_timeout=6.0, heartbeat_interval=1.0,
+                     arq_rto=1.5, arq_max_retries=6, op_deadline=20.0)
+
+
+def fabric_requests(vocab: int, rng, paged: bool):
+    """Phase 17's requests, [(virtual t, gateway, prompt, max_new)]:
+    request i arrives at t = 0.5 + 0.25 i through gateway i % ranks with
+    max_new from FABRIC['max_new']. Dense prompts have a length drawn
+    from FABRIC['plens']; paged ones are one of FABRIC['prefixes'] shared
+    256-token prefixes and a tail of a length drawn from FABRIC['tails'],
+    half of the tails cut from that prefix's one 128-token stem (a tail
+    that begins with a registered one maps the registered partial page
+    and copies it before writing: copy-on-write), half random."""
+    import numpy as np
+    F = FABRIC
+    prefixes = [rng.integers(0, vocab, F["prefix_len"])
+                for _ in range(F["prefixes"])]
+    stems = [rng.integers(0, vocab, max(F["tails"]))
+             for _ in range(F["prefixes"])]
+    out = []
+    for i in range(F["requests"]):
+        if paged:
+            k = int(rng.integers(0, F["prefixes"]))
+            n = int(rng.choice(F["tails"]))
+            tail = (stems[k][:n] if rng.random() < 0.5
+                    else rng.integers(0, vocab, n))
+            p = np.concatenate([prefixes[k], tail])
+        else:
+            p = rng.integers(0, vocab, int(rng.choice(F["plens"])))
+        m = int(rng.integers(F["max_new"][0], F["max_new"][1] + 1))
+        out.append((0.5 + 0.25 * i, i % F["ranks"],
+                    tuple(int(t) for t in p), m))
+    return out
+
+
+def fabric_fleet(dev, params, cfg, paged: bool, reqs, seed: int) -> dict:
+    """One fleet run: ``FABRIC['ranks']`` ranks of the port's SimWorld,
+    one EngineManager, a ProgressEngine and a DecodeFabric over a
+    ModelBackend(DecodeServer) on each, the servers sharing one cast set
+    of weights. Requests go in through their gateways at their virtual
+    times (through the next live rank once a gateway is dead); at the
+    first pump at virtual t >= FABRIC['kill_at'] the rank holding the
+    most active requests is killed, its engine cleaned up and its server
+    released; the loop drains until every request has a result on every
+    live rank or the virtual deadline passes. The virtual clock moves
+    only through the simulator's event queue, so the schedule is the
+    seed's whatever the card's wall time."""
+    import gc
+
+    import torch
+    from rlo_tpu_torch.engine import EngineManager, ProgressEngine
+    from rlo_tpu_torch.models import serve as S
+    from rlo_tpu_torch.serving.backend import ModelBackend
+    from rlo_tpu_torch.serving.fabric import DecodeFabric, fleet_stats
+    from rlo_tpu_torch.transport.sim import SimWorld
+    from rlo_tpu_torch.utils.metrics import Registry
+
+    F = FABRIC
+    n = F["ranks"]
+    kw = (dict(paged=True, page_size=F["page_size"]) if paged
+          else dict(prompt_buckets=F["buckets"]))
+    world = SimWorld(n, seed=seed)
+    mgr = EngineManager()
+    engines = [ProgressEngine(world.transport(r), manager=mgr,
+                              clock=world.clock, **FABRIC_ENGINE)
+               for r in range(n)]
+    servers = [S.DecodeServer(params, cfg, n_slots=F["n_slots"],
+                              max_len=F["max_len"],
+                              round_len=F["round_len"], metrics=Registry(),
+                              **kw) for _ in range(n)]
+    for srv in servers:
+        check(srv.device.type == dev.type,
+              f"a fleet server landed on {srv.device}, not {dev.type}")
+        check(srv.params["embed"] is params["embed"],
+              "the fleet's servers do not share one set of weights")
+    fabrics = [DecodeFabric(engines[r], ModelBackend(servers[r]),
+                            decode_interval=1.0) for r in range(n)]
+    live = set(range(n))
+    rids = [None] * len(reqs)
+    redirected, killed, victim = 0, False, None
+    victim_stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = 0
+    while world.now < F["deadline"]:
+        while nxt < len(reqs) and world.now >= reqs[nxt][0]:
+            _, gw, prompt, m = reqs[nxt]
+            if gw not in live:
+                gw = min(live, key=lambda r: (r - gw) % n)
+                redirected += 1
+            rids[nxt] = fabrics[gw].submit(prompt, m)
+            nxt += 1
+        if not killed and world.now >= F["kill_at"]:
+            killed = True
+            victim = max(sorted(live), key=lambda r: len(
+                fabrics[r].backend.active_keys()))
+            victim_stats = dict(
+                active=len(fabrics[victim].backend.active_keys()),
+                rounds=servers[victim].rounds_run,
+                counters=servers[victim].stats()["counters"],
+                at_virtual_s=world.now)
+            world.kill_rank(victim)
+            engines[victim].cleanup()
+            live.discard(victim)
+            # the dead rank's server and its cache go: nothing pumps it
+            fabrics[victim].backend.server = None
+            servers[victim] = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        world.step()
+        mgr.progress_all()
+        for r in sorted(live):
+            fabrics[r].pump()
+        if nxt == len(reqs) and killed and all(
+                fabrics[r].result(rid) is not None
+                for r in live for rid in rids):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ranks = sorted(live)
+    check(killed and len(ranks) == n - 1, "no rank was killed")
+    for r in ranks:
+        f = fabrics[r]
+        for i, rid in enumerate(rids):
+            check(f.result(rid) is not None,
+                  f"request {i} {rid} has no result on rank {r} by virtual "
+                  f"t {world.now:.2f}")
+            check(f.completions.count(rid) == 1,
+                  f"request {i} completed {f.completions.count(rid)} times "
+                  f"on rank {r}")
+            check(f.result(rid) == fabrics[ranks[0]].result(rid),
+                  f"request {i}'s tokens differ between ranks {ranks[0]} "
+                  f"and {r}")
+        check(f.dup_done == 0, f"rank {r} decoded {f.dup_done} requests "
+                               f"that completed elsewhere")
+    results = [fabrics[ranks[0]].result(rid) for rid in rids]
+    for i, (_, _, _, m) in enumerate(reqs):
+        check(len(results[i]) == m, f"request {i}: {len(results[i])} "
+                                    f"tokens, wanted {m}")
+    fs = fleet_stats([fabrics[r] for r in ranks])
+    requeues = sum(fabrics[r].requeues for r in ranks)
+    counters = {}
+    for r in ranks:
+        for k, v in servers[r].stats()["counters"].items():
+            counters[k] = counters.get(k, 0) + v
+    for k, v in victim_stats.get("counters", {}).items():
+        counters[k] = counters.get(k, 0) + v
+    out = dict(
+        wall_s=wall, virtual_s=world.now, victim=victim,
+        victim_active=victim_stats["active"],
+        killed_at_virtual_s=victim_stats["at_virtual_s"],
+        redirected=redirected, requeues=requeues,
+        dup_done=sum(fabrics[r].dup_done for r in ranks),
+        rounds={str(r): servers[r].rounds_run for r in ranks}
+        | {str(victim): victim_stats["rounds"]},
+        tokens=sum(len(t) for t in results),
+        prefix_hits=counters.get("serve.prefix_hits", 0),
+        cow_copies=counters.get("serve.cow_copies", 0),
+        e2e_usec_virtual={q: fs["e2e_usec"][q]
+                          for q in ("count", "p50", "p99")},
+        queue_wait_usec_virtual={q: fs["queue_wait_usec"][q]
+                                 for q in ("count", "p50", "p99")},
+        digest=world.schedule_digest(), results=results)
+    out["tok_per_s_wall"] = out["tokens"] / wall
+    for e in engines:
+        e.cleanup()
+    return out
+
+
+def fabric_oracle(params, cfg, reqs, results, what) -> int:
+    """Every completion against its prompt's own greedy ``generate``
+    (``greedy_with_gaps``, one batched call a prompt length), by phase
+    5's rule: equal up to a parting at a near-tie. Returns how many
+    compared to the end."""
+    import numpy as np
+    import torch
+    dev = params["embed"].device
+    by_len = {}
+    for i, (_, _, p, _) in enumerate(reqs):
+        by_len.setdefault(len(p), []).append(i)
+    full = 0
+    for plen, idx in sorted(by_len.items()):
+        prompt = torch.as_tensor(np.array([reqs[i][2] for i in idx],
+                                          np.int32), device=dev)
+        toks, gaps = greedy_with_gaps(params, prompt, cfg,
+                                      max(reqs[i][3] for i in idx))
+        for j, i in enumerate(idx):
+            m = reqs[i][3]
+            upto, done = compare_until_near_tie(
+                np.asarray(results[i]), toks[j, :m], gaps[j, :m])
+            full += done
+            if not done:
+                print(f"[fabric] {what} request {i} (plen {plen}): tokens "
+                      f"part from its generate at position {upto} of {m}, "
+                      f"a near-tie (scaled top-2 gap {gaps[j, upto]:.4g})")
+    return full
+
+
+def phase_fabric(dev, counted) -> dict:
+    """Phase 17: the rootless serving fabric over fleets of full-width
+    DecodeServers on the card. (a) a dense fleet and (b) a paged one
+    (``fabric_fleet``), the ``counted`` kernels' launch counts set to 0
+    just before each fleet's run and read just after it: K2, K6, K7 and
+    K8 must launch in (a), K9, K10 and K11 in (b). Every request
+    completes exactly once on every live rank with the same tokens there,
+    at least one is re-queued by the fail-over, and every completion
+    equals its prompt's own generate but at a near-tie. (a) runs a second
+    time on the same seed: whether its schedule digest and tokens repeat
+    is printed."""
+    import numpy as np
+    import torch
+    from rlo_tpu_torch.models.transformer import (TransformerConfig,
+                                                  cast_params, init_params)
+
+    cfg = TransformerConfig(**SERVE_CFG)
+    params = cast_params(init_params(cfg, seed=SEED + 17, device=dev),
+                         cfg.act_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for tag, paged, must in (
+            ("17a dense", False, ("flash_block_update_hld",
+                                  "flash_block_decode", "write_kv_row",
+                                  "write_kv_block")),
+            ("17b paged", True, ("paged_flash_decode", "write_kv_page_row",
+                                 "write_kv_page_block"))):
+        rng = np.random.default_rng(SEED + 17 + paged)
+        reqs = fabric_requests(cfg.vocab, rng, paged)
+        for fn in counted:
+            fn.launches = 0
+        st = fabric_fleet(dev, params, cfg, paged, reqs, SEED + 17)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for name in must:
+            check(launches[name] > 0,
+                  f"{name} was not launched on the {tag} fleet's path")
+        check(st["requeues"] >= 1, f"the {tag} fleet re-queued nothing "
+                                   f"after the kill")
+        st["launches"] = launches
+        t0 = time.perf_counter()
+        st["compared_to_end"] = fabric_oracle(params, cfg, reqs,
+                                              st["results"], tag)
+        oracle_s = time.perf_counter() - t0
+        if not paged:
+            again = fabric_fleet(dev, params, cfg, paged, reqs, SEED + 17)
+            st["rerun_same_digest"] = again["digest"] == st["digest"]
+            st["rerun_same_tokens"] = again["results"] == st["results"]
+            st["rerun_wall_s"] = again["wall_s"]
+        print(f"[fabric] {tag} fleet: {FABRIC['ranks']} ranks x "
+              f"DecodeServer(n_slots={FABRIC['n_slots']}, max_len="
+              f"{FABRIC['max_len']}, round_len={FABRIC['round_len']}, "
+              + (f"paged, page_size={FABRIC['page_size']}" if paged else
+                 f"buckets {FABRIC['buckets']}")
+              + f"), {len(reqs)} requests; rank {st['victim']} killed at "
+              f"virtual {st['killed_at_virtual_s']:.2f} s holding "
+              f"{st['victim_active']} active requests ({st['redirected']} "
+              f"later requests through the next live gateway); wall "
+              f"{st['wall_s']:.2f} s, drained at virtual "
+              f"{st['virtual_s']:.2f} s; {st['tokens']} tokens, "
+              f"{st['tok_per_s_wall']:.0f} tok/s (wall); requeues "
+              f"{st['requeues']}, dup_done {st['dup_done']}, prefix hits "
+              f"{st['prefix_hits']}, COW copies {st['cow_copies']}; decode "
+              f"rounds by rank {json.dumps(st['rounds'])}")
+        print(f"[fabric] {tag} fleet: fabric e2e_usec and queue_wait_usec "
+              f"in VIRTUAL time (the simulator's clock, not the card's): "
+              f"e2e {json.dumps(st['e2e_usec_virtual'])}, queue wait "
+              f"{json.dumps(st['queue_wait_usec_virtual'])}")
+        print(f"[fabric] {tag} fleet: every request completed exactly once "
+              f"on every live rank, same tokens there; against each "
+              f"prompt's own generate {st['compared_to_end']} of "
+              f"{len(reqs)} to the end, every parting at a near-tie "
+              f"(oracle {oracle_s:.1f} s); launches {json.dumps(launches)}"
+              + ("" if paged else
+                 f"; a second run on the same seed: same schedule digest "
+                 f"{st['rerun_same_digest']}, same tokens "
+                 f"{st['rerun_same_tokens']} (wall {st['rerun_wall_s']:.2f}"
+                 f" s)"))
+        del st["results"]
+        out[tag] = st
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[fabric] peak device memory over phase 17 "
+          f"{out['peak_gib']:.2f} GiB (four servers' caches, one shared "
+          f"set of weights)")
+    return out
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -5357,6 +5675,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_par = phase_train_parallel(dev)
     print(f"[train-parallel] phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fabric = phase_fabric(dev, counted)
+    print(f"[fabric] phase 17 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
@@ -5365,7 +5688,7 @@ def main() -> int:
                       "speculative": spec, "moe": moe, "parallel": par,
                       "pipeline": pipe, "bridge": bridge,
                       "multihost": multihost,
-                      "train_parallel": train_par}))
+                      "train_parallel": train_par, "fabric": fabric}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -5392,6 +5715,10 @@ def main() -> int:
             n = train_par[tag]["launches_per_step"].get(name)
             if n:
                 out[f"{tag} step, each process (phase 16)"] = n
+        for tag in ("17a dense", "17b paged"):
+            n = fabric[tag]["launches"].get(name)
+            if n:
+                out[f"fabric {tag} fleet, 4 ranks (phase 17)"] = n
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
@@ -5436,7 +5763,8 @@ def main() -> int:
         kernel_entry("K11 write_kv_page_block", DECODE_SOURCE,
                      "rlo_tpu/pallas/decode.py:402",
                      paged_launches["write_kv_page_block"], pw_stats["K11"],
-                     paged_p, launch_unit=PAIR_LAUNCH),
+                     paged_p, launch_unit=PAIR_LAUNCH,
+                     **by_path("write_kv_page_block")),
         kernel_entry("K3 rowstats", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:249", vjp["k3_launches"],
                      k345_stats["K3"], chain_p),

@@ -6,6 +6,9 @@ barrier) from JAX on a TPU to PyTorch on an H100, and of the flagship
 transformer's dense serving path (``models``: prefill, KV-cache decode,
 ``generate`` and the continuous-batching ``DecodeServer``). Their
 kernels are CUDA (``kernels/csrc``), built with ``nvcc`` at first use.
+The rootless serving fabric schedules fleets of those servers
+(``serving``), proven in the deterministic simulator
+(``transport.sim``) and watched by the fleet telescope (``observe``).
 
     import rlo_tpu_torch
     with rlo_tpu_torch.init(backend="cuda", world_size=8) as b:

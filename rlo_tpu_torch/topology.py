@@ -1,10 +1,10 @@
 """Skip-ring overlay math and the static schedules the collectives run.
 
 The port's own copy of the part of ``rlo_tpu/topology.py`` that the
-device collectives and the progress engine use (the port imports
-nothing of ``rlo_tpu``). Pure functions, no transport, no state;
-``tests/test_torch_topology.py`` holds every schedule equal to the
-reference's for ws 1..16 and every origin.
+device collectives, the progress engine and the cost ledgers use (the
+port imports nothing of ``rlo_tpu``). Pure functions, no transport, no
+state; ``tests/test_torch_topology.py`` holds every schedule equal to
+the reference's for ws 1..16 and every origin.
 
 Each schedule round is a list of (src, dst) edges in which every src and
 every dst appears at most once, so a round is one ``Axis.ppermute``.
@@ -274,3 +274,26 @@ def halving_doubling_distances(world_size: int) -> Tuple[int, ...]:
     if not is_power_of_2(world_size):
         raise ValueError("halving/doubling requires power-of-2 world size")
     return tuple(world_size >> k for k in range(1, world_size.bit_length()))
+
+
+def ring_reduce_scatter_chunk(world_size: int, rank: int, step: int) -> int:
+    """Chunk index ``rank`` sends at ``step`` of a ring reduce-scatter.
+
+    At step s (0-based, ws-1 steps) a rank sends chunk (rank - s) mod ws
+    to rank+1 and accumulates chunk (rank - s - 1) mod ws; after ws-1
+    steps it owns the full reduction of chunk (rank + 1) mod ws. The
+    cost ledgers (``observe/ledger.py``) replay the ring through it.
+    """
+    return (rank - step) % world_size
+
+
+def describe(world_size: int) -> str:
+    """Human-readable topology table (a debugging aid)."""
+    lines = [f"world_size={world_size} (pow2={is_power_of_2(world_size)})"]
+    for r in range(world_size):
+        targets, cc = send_list(world_size, r)
+        lines.append(
+            f"  rank {r:3d}: level={level(world_size, r)} "
+            f"last_wall={last_wall(world_size, r)} "
+            f"send_list={list(targets)} channels={cc}")
+    return "\n".join(lines)

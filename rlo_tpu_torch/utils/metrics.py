@@ -156,6 +156,17 @@ class Histogram:
                 "min": self.min, "max": self.max,
                 "buckets": list(self.buckets)}
 
+    def quantile(self, q: float) -> Optional[float]:
+        """Approximate quantile (``hist_quantile`` of the snapshot);
+        None while empty. The serving fabric reads its p50/p99."""
+        return hist_quantile(self.snapshot(), q)
+
+    def p50(self) -> Optional[float]:
+        return self.quantile(0.50)
+
+    def p99(self) -> Optional[float]:
+        return self.quantile(0.99)
+
 
 class LinkStats:
     """Per-peer link accounting (one per (this rank, peer) edge):

@@ -551,3 +551,53 @@ def test_phase_train_parallel_rehearsal(monkeypatch):
     assert out["16a sp 4 ring"]["replicated_copies_equal"] == 3 * 14
     assert out["ring_step"]["later shard"]["nonzero"] == dict(dq=0, dk=0,
                                                               dv=0)
+
+
+def test_phase_fabric_rehearsal(monkeypatch):
+    """Phase 17 at a tiny f32 width on the CPU, the plain versions
+    counting their wrappers' launches: in the dense and the paged
+    four-rank fleet the busiest rank is killed mid-decode, every request
+    completes exactly once on every live rank, at least one is re-queued,
+    every completion equals its prompt's generate (here to the end), the
+    dense fleet launches K2, K6, K7 and K8 and the paged one K9, K10 and
+    K11, and the dense fleet's second run repeats its schedule digest and
+    its tokens."""
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.kernels import flash as kf
+    counted = (kf.flash_block_update_hld, kd.flash_block_decode,
+               kd.write_kv_row, kd.write_kv_block, kd.paged_flash_decode,
+               kd.write_kv_page_row, kd.write_kv_page_block)
+    for mod, wrapper in zip((kf,) + (kd,) * 6, counted):
+        def bump(*a, _orig=getattr(mod, wrapper.__name__ + "_plain"),
+                 _w=wrapper, **kw):
+            _w.launches += 1
+            return _orig(*a, **kw)
+        monkeypatch.setattr(mod, wrapper.__name__ + "_plain", bump)
+        monkeypatch.setattr(wrapper, "launches", 0)
+    for name, value in (("synchronize", None), ("empty_cache", None),
+                        ("reset_peak_memory_stats", None),
+                        ("max_memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value: _v)
+    monkeypatch.setattr(cs, "SERVE_CFG", dict(
+        vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+        dtype="float32"))
+    monkeypatch.setattr(cs, "FABRIC", dict(
+        cs.FABRIC, requests=16, n_slots=2, max_len=64, round_len=4,
+        buckets=(8, 16), plens=(8, 12, 16, 24), max_new=(6, 12), page_size=8,
+        prefix_len=16, tails=(4, 8, 12)))
+    out = cs.phase_fabric(torch.device("cpu"), counted)
+    for tag in ("17a dense", "17b paged"):
+        st = out[tag]
+        assert st["requeues"] >= 1 and st["dup_done"] == 0
+        assert st["compared_to_end"] == 16
+        assert len(st["rounds"]) == 4 and st["virtual_s"] < 120.0
+    assert out["17a dense"]["rerun_same_digest"]
+    assert out["17a dense"]["rerun_same_tokens"]
+    dense, paged = out["17a dense"]["launches"], out["17b paged"]["launches"]
+    for name in ("flash_block_update_hld", "flash_block_decode",
+                 "write_kv_row", "write_kv_block"):
+        assert dense[name] > 0, name
+    for name in ("paged_flash_decode", "write_kv_page_row",
+                 "write_kv_page_block"):
+        assert paged[name] > 0 and dense[name] == 0, name
+    assert out["17b paged"]["prefix_hits"] > 0

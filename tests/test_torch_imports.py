@@ -3,6 +3,7 @@ and not the card-only tests (tests/test_torch_gpu_*.py, which the machine
 with the card runs without the JAX package) imports JAX or anything of
 the JAX package; importing the port touches no GPU."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -26,6 +27,8 @@ def test_pattern_catches_what_it_must():
     bad = ["import jax", "from jax import lax", "  import jax.numpy as jnp",
            "import rlo_tpu", "from rlo_tpu.topology import ring_perm",
            "from rlo_tpu import topology",
+           "        from rlo_tpu.observe import (DEFAULT_RULES,",
+           "    import rlo_tpu.serving.scenario as sc",
            "importlib.import_module('rlo_tpu.pallas')"]
     good = ["import rlo_tpu_torch", "from rlo_tpu_torch.ops import x",
             "import torch", "# the JAX package (rlo_tpu) is the reference"]
@@ -41,11 +44,57 @@ def test_no_jax_and_no_reference_imports(path):
     assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
 
+def _imported(tree):
+    """Every module an ``import``/``from ... import`` statement names,
+    at any depth (inside functions, methods, ``try`` and ``if`` blocks),
+    and every literal ``importlib.import_module``/``__import__`` name."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"relative import at {node.lineno}"
+            out.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str) and \
+                getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__"):
+            out.append((node.lineno, node.args[0].value))
+    return out
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_import_at_any_depth(path):
+    """The syntax tree's view of the same rule: a lazy import inside a
+    function (the simulator's, the scenarios', the watchdog's and the
+    timeline's) names the port's module, never the JAX package's."""
+    hits = [(line, name) for line, name in
+            _imported(ast.parse(path.read_text()))
+            if name.split(".")[0] in ("jax", "jaxlib", "rlo_tpu")]
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_tree_walk_sees_lazy_imports():
+    src = ("def f():\n"
+           "    if x:\n"
+           "        from rlo_tpu.observe import Watchdog\n"
+           "    try:\n"
+           "        import jax.numpy\n"
+           "    except ImportError:\n"
+           "        pass\n"
+           "    return importlib.import_module('rlo_tpu.workloads')\n")
+    assert [n for _, n in _imported(ast.parse(src))] == \
+        ["rlo_tpu.observe", "jax.numpy", "rlo_tpu.workloads"]
+
+
 def test_card_tests_are_scanned():
     """Every card-only test file is jax-free and in SOURCES."""
     gpu = [p.name for p in SOURCES if p.name.startswith("test_torch_gpu_")]
     assert sorted(gpu) == ["test_torch_gpu_bridge.py",
                            "test_torch_gpu_decode.py",
+                           "test_torch_gpu_fabric.py",
                            "test_torch_gpu_flash.py",
                            "test_torch_gpu_flash_grad.py",
                            "test_torch_gpu_model_parallel_train.py",

@@ -790,13 +790,28 @@ def test_span_hooks_emit_prefill_chunks(mha):
     assert be.stats()["backend"] == "decode_server" and be.load() == (2, 0)
 
 
-def test_fabric_kill_paged_model_backend_exactly_once(mha):
-    """3-rank fabric over the port's paged DecodeServer: the owner dies
-    mid-decode, the re-queued request re-prefills on a survivor and
-    completes exactly once with the port's generate tokens."""
-    from rlo_tpu.engine import EngineManager, ProgressEngine
-    from rlo_tpu.serving.fabric import DecodeFabric
-    from rlo_tpu.transport.sim import SimWorld
+def _fabric_parts(pkg):
+    """(EngineManager, ProgressEngine, DecodeFabric, SimWorld) of the
+    JAX package (``ref``) or of the port."""
+    if pkg == "ref":
+        from rlo_tpu.engine import EngineManager, ProgressEngine
+        from rlo_tpu.serving.fabric import DecodeFabric
+        from rlo_tpu.transport.sim import SimWorld
+    else:
+        from rlo_tpu_torch.engine import EngineManager, ProgressEngine
+        from rlo_tpu_torch.serving.fabric import DecodeFabric
+        from rlo_tpu_torch.transport.sim import SimWorld
+    return EngineManager, ProgressEngine, DecodeFabric, SimWorld
+
+
+@pytest.mark.parametrize("fabric_pkg", ["ref", "port"])
+def test_fabric_kill_paged_model_backend_exactly_once(mha, fabric_pkg):
+    """3-rank fabric (the JAX package's, or the port's own) over the
+    port's paged DecodeServer: the owner dies mid-decode, the re-queued
+    request re-prefills on a survivor and completes exactly once with
+    the port's generate tokens."""
+    EngineManager, ProgressEngine, DecodeFabric, SimWorld = \
+        _fabric_parts(fabric_pkg)
 
     _, tc, _, tp = mha
     n_ranks = 3
