@@ -5,8 +5,9 @@ speculative decoding, mixture-of-experts layers, tensor-, expert- and
 sequence-parallel inference, pipeline-parallel training with a resume
 from a checkpoint, the consensus-gated bridge with its
 multi-process deployment and engine tracing, sequence-, tensor- and
-expert-parallel training as processes on the card, and the rootless
-serving fabric over fleets of the card's DecodeServers.
+expert-parallel training as processes on the card, the rootless
+serving fabric over fleets of the card's DecodeServers, and the host
+facades (native, loopback, mpi, tcp) fed card tensors.
 
     python3 chip_smoke.py
 
@@ -235,8 +236,27 @@ Phases, each printing its own lines:
    rounds a rank, tokens/s, re-queues, prefix hits, COW copies, the
    fabric's virtual-time latencies, peak memory, and whether (a) run
    again on the seed repeats its schedule digest and tokens.
-18. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-17), then the last
+18. The host facades fed card tensors (``phase_host_facades``,
+   ``phase_host_procs``): (a) ``init("native", world_size=8)`` (the
+   port's copy of the C core) and (b) ``init("loopback")`` (the port's
+   Python engines and ``ops/collectives.py``), each given per-rank
+   tensors on the card: the f32 allreduce (sum, min, max) by the ring
+   at 256 MB a rank, the int32 sum at 1 MB (native by bcast-gather),
+   reduce_scatter and all_gather at 32 MB, all_to_all, a bcast (1 MB
+   native, 16 KB loopback: under each engine's frame cap) from rank 5,
+   consensus all YES and with a veto, barrier and a 4-member
+   sub-group; (c) ``init("mpi")`` in four processes under the port's
+   femtompirun and (d) ``init("tcp")`` under its tcprun
+   (``chip_smoke.py --host-worker``), each holding its rank's tensors on
+   the card: the ring allreduce at 256 MB a rank, consensus with a veto,
+   all_gather and a 2-member sub-group. Every result is held bit for
+   bit against ``TorchBackend`` on the same card tensors, op, world and
+   schedule and must come back as a tensor on the card; each op prints
+   its wall split into staging (card to host, host to card) and the
+   host protocol, the ring allreduce its GB/s a rank, and the
+   TorchBackend call its time and K1 launches.
+19. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-18), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -5354,6 +5374,368 @@ def phase_fabric(dev, counted) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the host facades (native, loopback, mpi, tcp) fed card tensors
+# ---------------------------------------------------------------------------
+
+#: 18a/18b (one process, world size WS): int32 elements of the 1 MB sum,
+#: f32 elements of one all_to_all chunk, f32 elements of each facade's
+#: bcast (native engines take 4 MB a frame, loopback's 32 KB), the
+#: origin, the proposer, the rank that vetoes and the sub-group's members
+HOST = dict(n_int=2 ** 18, n_a2a=2 ** 15,
+            bcast={"native": 2 ** 18, "loopback": 2 ** 12},
+            origin=5, proposer=3, veto=6, sub=(1, 3, 4, 6))
+#: each facade's allreduce schedule for the f32 ops and the int32 sum
+HOST_ALGS = {"native": ("ring", "bcast_gather"),
+             "loopback": ("ring", "auto")}
+#: 18c/18d (one process a rank on the card): ranks, time limit, f32
+#: elements a rank of the all_gather and the sub-group's allreduce, the
+#: sub-group, the proposer and the rank that vetoes (the ring allreduce
+#: takes N_FULL a rank)
+HOST_PROCS = dict(procs=4, timeout_s=300.0, n_small=2 ** 16, sub=(0, 2),
+                  proposer=1, veto=2)
+
+
+def _host_inputs(dev, ws, n, seed):
+    """Rank r's f32 tensor on ``dev``: ``n`` normals from its own seeded
+    generator, so another process makes the same bits."""
+    import torch
+    out = []
+    for r in range(ws):
+        gen = torch.Generator(device=dev).manual_seed(seed + r)
+        out.append(torch.randn(n, generator=gen, device=dev))
+    return out
+
+
+def _host_digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def _held(what, got, want) -> None:
+    """Every rank's result equals TorchBackend's bit for bit (see
+    ``phase_host_facades`` for why each pair must) and lives where the
+    caller's tensors do."""
+    import torch
+    flat_g = [g for row in got for g in row] if isinstance(got[0], list) \
+        else list(got)
+    flat_w = [w for row in want for w in row] \
+        if isinstance(want[0], list) else list(want)
+    check(len(flat_g) == len(flat_w), f"{what}: {len(flat_g)} results, "
+          f"TorchBackend {len(flat_w)}")
+    for i, (g, w) in enumerate(zip(flat_g, flat_w)):
+        check(isinstance(g, torch.Tensor) and g.device == w.device,
+              f"{what}: result {i} is {type(g).__name__} on "
+              f"{getattr(g, 'device', None)}, not a tensor on {w.device}")
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: result {i} {g.dtype} {tuple(g.shape)}, "
+              f"TorchBackend {w.dtype} {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = float((g.double() - w.double()).abs().max())
+            check(False, f"{what}: result {i} differs from TorchBackend "
+                  f"(max abs err {err})")
+
+
+def _host_wall(dev, fn):
+    """(result, wall ms) of ``fn()``, ending in a synchronise of ``dev``
+    where it is a card."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _host_op(dev, rows, tag, op, facade, nbytes, got_fn, want_fn):
+    """Run one op on the facade and on TorchBackend, hold them, print
+    and keep the facade's wall (staging and protocol) beside
+    TorchBackend's wall and K1 launches."""
+    from rlo_tpu_torch.kernels import reduce as k1
+    facade.last_staging = None
+    got, ms = _host_wall(dev, got_fn)
+    st = facade.last_staging
+    check(st is not None, f"{tag} {op}: the facade staged nothing")
+    before = k1.fused_combine.launches
+    want, want_ms = _host_wall(dev, want_fn)
+    launches = k1.fused_combine.launches - before
+    _held(f"{tag} {op}", got, want)
+    row = {"ms": ms, "to_host_ms": st["to_host_s"] * 1e3,
+           "protocol_ms": st["protocol_s"] * 1e3,
+           "to_device_ms": st["to_device_s"] * 1e3,
+           "bytes_a_rank": nbytes, "torch_ms": want_ms,
+           "torch_k1_launches": launches}
+    if op.startswith("allreduce f32"):
+        row["gb_s"] = nbytes / (ms * 1e-3) / 1e9
+    rows[op] = row
+    rate = f", {row['gb_s']:.3f} GB/s a rank" if "gb_s" in row else ""
+    print(f"[host] {tag} {op} ({nbytes} B a rank): {ms:.1f} ms = to host "
+          f"{row['to_host_ms']:.1f} + protocol {row['protocol_ms']:.1f} + "
+          f"to card {row['to_device_ms']:.1f}{rate}; TorchBackend "
+          f"{want_ms:.1f} ms, K1 launches {launches}; equal bit for bit")
+    return got
+
+
+def phase_host_facades(dev, n_full: int) -> dict:
+    """(a) ``init("native", world_size=WS)`` and (b) ``init("loopback")``
+    fed per-rank tensors on ``dev``, every result held bit for bit
+    against ``TorchBackend`` on the same tensors, op and world: the f32
+    allreduce (sum, min, max) by the ring (C ring / ``Comm``'s ring
+    against the device ring: both reduce each chunk in the same ring
+    order, local + incoming, so their sums are the same float
+    additions in the same order); the int32 sum at 1 MB (native by
+    bcast-gather, loopback by ``Comm``'s ring: integer sums are exact in
+    any order); reduce_scatter (ring, same order as the allreduce) and
+    all_gather at n_full / WS; all_to_all; bcast from a non-zero
+    origin; consensus with every vote YES and with one veto; barrier;
+    and a 4-member ``sub_group`` (allreduce ring, consensus with a veto,
+    bcast) against a 4-rank ``TorchBackend``. Results must be tensors on
+    ``dev``."""
+    import torch
+    import rlo_tpu_torch
+    from rlo_tpu_torch.backend import TorchBackend
+
+    t_phase = time.perf_counter()
+    torch_b = TorchBackend(world_size=WS, device=dev)
+    xs = _host_inputs(dev, WS, n_full, SEED + 1800)
+    n_rs = n_full // WS
+    xs_rs = [x[:n_rs] for x in xs]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1801)
+    ints = [torch.randint(-2 ** 20, 2 ** 20, (HOST["n_int"],),
+                          generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(WS)]
+    grid = [[torch.randn(HOST["n_a2a"], generator=gen, device=dev)
+             for _ in range(WS)] for _ in range(WS)]
+    sub = list(HOST["sub"])
+    sub_b = TorchBackend(world_size=len(sub), device=dev)
+    stats = {}
+    for name, tag in (("native", "18a native"), ("loopback",
+                                                 "18b loopback")):
+        t0 = time.perf_counter()
+        alg_f32, alg_int = HOST_ALGS[name]
+        rows = {}
+        f = rlo_tpu_torch.init(name, world_size=WS)
+        try:
+            for op in ("sum", "min", "max"):
+                _host_op(dev, rows, tag, f"allreduce f32 {op} {alg_f32}",
+                         f, 4 * n_full,
+                         lambda: f.allreduce(xs, op=op, algorithm=alg_f32),
+                         lambda: torch_b.allreduce(xs, op=op,
+                                                   algorithm="ring"))
+            _host_op(dev, rows, tag, f"allreduce int32 sum {alg_int}", f,
+                     4 * HOST["n_int"],
+                     lambda: f.allreduce(ints, algorithm=alg_int),
+                     lambda: torch_b.allreduce(ints))
+            _host_op(dev, rows, tag, "reduce_scatter f32 sum ring", f,
+                     4 * n_rs, lambda: f.reduce_scatter(xs_rs),
+                     lambda: torch_b.reduce_scatter(xs_rs,
+                                                    algorithm="ring"))
+            _host_op(dev, rows, tag, "all_gather f32", f, 4 * n_rs,
+                     lambda: f.all_gather(xs_rs),
+                     lambda: torch_b.all_gather(xs_rs))
+            _host_op(dev, rows, tag, "all_to_all f32", f,
+                     4 * HOST["n_a2a"] * WS,
+                     lambda: f.all_to_all(grid),
+                     lambda: torch_b.all_to_all(grid))
+            xb = xs[HOST["origin"]][:HOST["bcast"][name]]
+            _host_op(dev, rows, tag, f"bcast from {HOST['origin']}", f,
+                     4 * xb.numel(), lambda: f.bcast(HOST["origin"], xb),
+                     lambda: torch_b.bcast(HOST["origin"], xb))
+            for what, votes in (("yes", [1] * WS),
+                                ("veto", [0 if r == HOST["veto"] else 1
+                                          for r in range(WS)])):
+                d, ms = _host_wall(dev, lambda: f.consensus(
+                    votes, proposer=HOST["proposer"]))
+                want = torch_b.consensus(votes)
+                check(d == want == (what == "yes"),
+                      f"{tag} consensus ({what}): {d}, TorchBackend {want}")
+                rows[f"consensus {what}"] = {"ms": ms, "decision": d}
+                print(f"[host] {tag} consensus ({what}) from proposer "
+                      f"{HOST['proposer']}: decision {d} = TorchBackend's, "
+                      f"{ms:.2f} ms")
+            _, ms = _host_wall(dev, f.barrier)
+            rows["barrier"] = {"ms": ms}
+            print(f"[host] {tag} barrier {ms:.2f} ms")
+            s = f.sub_group(sub)
+            try:
+                sxs = [xs_rs[r] for r in sub]
+                _host_op(dev, rows, tag, f"sub_group {sub} allreduce f32 "
+                         f"sum {alg_f32}", s, 4 * n_rs,
+                         lambda: s.allreduce(sxs, algorithm=alg_f32),
+                         lambda: sub_b.allreduce(sxs, algorithm="ring"))
+                votes = [1, 1, 0, 1]
+                d = s.consensus(votes, proposer=1)
+                check(d == sub_b.consensus(votes) == 0,
+                      f"{tag} sub_group consensus with a veto: {d}")
+                _host_op(dev, rows, tag, f"sub_group {sub} bcast from 2",
+                         s, 4 * xb.numel(), lambda: s.bcast(2, xb),
+                         lambda: sub_b.bcast(2, xb))
+            finally:
+                s.close()
+        finally:
+            f.close()
+        rows["seconds"] = time.perf_counter() - t0
+        stats[tag] = rows
+        print(f"[host] {tag} took {rows['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
+def phase_host_procs(dev, n: int) -> dict:
+    """(c) ``init("mpi")`` in HOST_PROCS['procs'] processes under the
+    port's femtompirun and (d) ``init("tcp")`` under its tcprun, each
+    process one rank holding its tensors on ``dev``
+    (``chip_smoke.py --host-worker``): the ring allreduce of ``n`` f32
+    a rank, consensus all YES and with a veto, all_gather and a
+    2-member sub-group's ring allreduce and veto. Each process prints
+    digests of its results; this process makes the same tensors and
+    holds every digest against ``TorchBackend``'s result on them
+    (ring allreduce, same ring order as the C ring's: equal bits)."""
+    import os
+    import torch
+    from rlo_tpu_torch.backend import TorchBackend
+    from rlo_tpu_torch.native import build
+
+    P = HOST_PROCS
+    nproc = P["procs"]
+    build.build()
+    build.build(femtompi=True)
+    launchers = {
+        "mpi": [str(build.build_tool("femtompirun")), "-n", str(nproc),
+                "-r", str(_femto_ring_bytes(n, nproc)), "-t",
+                str(int(P["timeout_s"]))],
+        "tcp": [sys.executable, str(build.BUILD_DIR.parent / "tcprun"),
+                "-n", str(nproc), "-t", str(P["timeout_s"])]}
+    xs = _host_inputs(dev, nproc, n, SEED + 1810)
+    smalls = _host_inputs(dev, nproc, P["n_small"], SEED + 1820)
+    torch_b = TorchBackend(world_size=nproc, device=dev)
+    want_ar = [_host_digest(t)
+               for t in torch_b.allreduce(xs, algorithm="ring")]
+    want_ag = [_host_digest(t) for t in torch_b.all_gather(smalls)]
+    sub = list(P["sub"])
+    sub_b = TorchBackend(world_size=len(sub), device=dev)
+    want_sub = [_host_digest(t) for t in sub_b.allreduce(
+        [smalls[r] for r in sub], algorithm="ring")]
+    stats = {"n": n}
+    for facade, tag in (("mpi", "18c mpi"), ("tcp", "18d tcp")):
+        cmd = launchers[facade] + [sys.executable, os.path.abspath(
+            __file__), "--host-worker", facade, str(n), str(P["n_small"]),
+            dev.type]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=P["timeout_s"] + 30)
+        except subprocess.TimeoutExpired:
+            check(False, f"{tag}: the launch hung past {P['timeout_s']} s")
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{tag}: the launch exited "
+              f"{proc.returncode}: {proc.stderr.strip()[-3000:]}")
+        res = sorted((json.loads(ln.split(" ", 1)[1])
+                      for ln in proc.stdout.splitlines()
+                      if ln.startswith("HOST-WORKER ")),
+                     key=lambda d: d["rank"])
+        check([d["rank"] for d in res] == list(range(nproc)),
+              f"{tag}: ranks {[d['rank'] for d in res]} reported")
+        for d in res:
+            r = d["rank"]
+            check(d["ws"] == nproc and d["device"] == str(
+                xs[r].device), f"{tag} rank {r}: {d['ws']} ranks, "
+                f"results on {d['device']}")
+            check(d["allreduce"]["digest"] == want_ar[r],
+                  f"{tag} rank {r}: ring allreduce differs from "
+                  f"TorchBackend's")
+            check(d["all_gather"] == want_ag[r],
+                  f"{tag} rank {r}: all_gather differs")
+            check(d["consensus_yes"] == 1 and d["consensus_veto"] == 0,
+                  f"{tag} rank {r}: consensus {d['consensus_yes']}, "
+                  f"{d['consensus_veto']}")
+            if r in sub:
+                i = sub.index(r)
+                check(d["sub"] == {"digest": want_sub[i], "veto": 0},
+                      f"{tag} rank {r}: sub-group {d['sub']}")
+            else:
+                check(d["sub"] is None, f"{tag} rank {r} got a sub-group")
+        ar = [d["allreduce"] for d in res]
+        slow = max(ar, key=lambda a: a["ms"])
+        stats[tag] = {"wall_s": wall, "allreduce": slow,
+                      "gb_s": 4 * n / (slow["ms"] * 1e-3) / 1e9,
+                      "consensus_ms": max(d["consensus_ms"] for d in res)}
+        print(f"[host] {tag}: {nproc} processes on one {dev.type} device, "
+              f"results equal TorchBackend's; ring allreduce of {4 * n} B a "
+              f"rank, slowest rank {slow['ms']:.1f} ms = to host "
+              f"{slow['to_host_ms']:.1f} + protocol "
+              f"{slow['protocol_ms']:.1f} + to card "
+              f"{slow['to_device_ms']:.1f}, "
+              f"{stats[tag]['gb_s']:.3f} GB/s a rank; consensus (veto) "
+              f"{stats[tag]['consensus_ms']:.2f} ms; launch to exit "
+              f"{wall:.1f} s")
+    return stats
+
+
+def _femto_ring_bytes(n: int, nproc: int) -> int:
+    """femtompi's per-pair ring: one ring-allreduce chunk (n / nproc f32)
+    and its frame header must fit, with room to spare."""
+    return max(4 << 20, 2 * (4 * n // nproc) + (1 << 20))
+
+
+def host_worker(argv) -> int:
+    """One rank of ``phase_host_procs``: facade (mpi or tcp), f32
+    elements of the allreduce and of the all_gather, device type. Prints
+    one HOST-WORKER line of digests and times."""
+    facade, n, n_small, devtype = argv[0], int(argv[1]), int(argv[2]), \
+        argv[3]
+    import torch
+    if devtype == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device in a host-facade process",
+              file=sys.stderr)
+        return 2
+    import rlo_tpu_torch
+    P = HOST_PROCS
+    dev = torch.device(devtype)
+    b = rlo_tpu_torch.init(facade)
+    rank, ws = b.rank, b.world_size
+    x = _host_inputs(dev, ws, n, SEED + 1810)[rank]
+    small = _host_inputs(dev, ws, n_small, SEED + 1820)[rank]
+    b.barrier()  # every rank up before the clock starts
+    y, ms = _host_wall(dev, lambda: b.allreduce(x, algorithm="ring"))
+    st = b.last_staging
+    out = {"rank": rank, "ws": ws, "device": str(y.device),
+           "allreduce": {"digest": _host_digest(y), "ms": ms,
+                         "to_host_ms": st["to_host_s"] * 1e3,
+                         "protocol_ms": st["protocol_s"] * 1e3,
+                         "to_device_ms": st["to_device_s"] * 1e3}}
+    del y
+    out["consensus_yes"] = b.consensus(1, proposer=P["proposer"])
+    out["consensus_veto"], out["consensus_ms"] = _host_wall(
+        dev, lambda: b.consensus(0 if rank == P["veto"] else 1,
+                            proposer=P["proposer"]))
+    g = b.all_gather(small)
+    check(g.device == small.device, f"all_gather on {g.device}")
+    out["all_gather"] = _host_digest(g)
+    s = b.sub_group(P["sub"])
+    out["sub"] = None
+    if s is not None:
+        z = s.allreduce(small, algorithm="ring")
+        veto = s.consensus(0 if s.pos == 1 else 1, proposer=0)
+        out["sub"] = {"digest": _host_digest(z), "veto": veto}
+    b.barrier()
+    if s is not None:
+        s.close()
+    b.barrier()
+    b.close()
+    # one write (under PIPE_BUF), so the ranks' lines never interleave
+    import os
+    sys.stdout.flush()
+    os.write(1, ("HOST-WORKER " + json.dumps(out) + "\n").encode())
+    return 0
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -5476,6 +5858,8 @@ def main() -> int:
         return multihost_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--train-parallel-worker"]:
         return train_parallel_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--host-worker"]:
+        return host_worker(sys.argv[2:])
     print(cards_line())
     pin_one_card()
     import torch
@@ -5680,6 +6064,19 @@ def main() -> int:
     fabric = phase_fabric(dev, counted)
     print(f"[fabric] phase 17 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    # the host facades: K1 runs only in the TorchBackend calls they are
+    # held against (the facades themselves compute on the host)
+    k1.fused_combine.launches = 0
+    t0 = time.perf_counter()
+    host = phase_host_facades(dev, N_FULL)
+    host["procs"] = phase_host_procs(dev, N_FULL)
+    host_launches = k1.fused_combine.launches
+    print(f"[host] phase 18 took {time.perf_counter() - t0:.1f} s, K1 "
+          f"launches {host_launches} (all in the TorchBackend calls the "
+          f"facades are held against)")
+    check(host_launches > 0, "K1 was not launched by the TorchBackend "
+          "references of phase 18")
+    torch.cuda.empty_cache()
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
@@ -5688,7 +6085,8 @@ def main() -> int:
                       "speculative": spec, "moe": moe, "parallel": par,
                       "pipeline": pipe, "bridge": bridge,
                       "multihost": multihost,
-                      "train_parallel": train_par, "fabric": fabric}))
+                      "train_parallel": train_par, "fabric": fabric,
+                      "host_facades": host}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -5711,6 +6109,8 @@ def main() -> int:
                 out[f"pipeline {sched} step, pp 4 (phase 14)"] = n
         if name == "fused_combine":
             out["bridge"] = bridge_launches
+            out["TorchBackend references of the host facades (phase "
+                "18)"] = host_launches
         for tag, _, _, _ in TRAIN_PARALLEL_RUNS:
             n = train_par[tag]["launches_per_step"].get(name)
             if n:

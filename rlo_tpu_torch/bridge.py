@@ -30,33 +30,13 @@ cache.
 from __future__ import annotations
 
 import json
-import struct
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from rlo_tpu_torch.convert import from_numpy, to_numpy
-
-_ARR_HEADER = struct.Struct("<B")  # ndim; then dtype-str, dims
-
-
-def _pack_array(x: np.ndarray) -> bytes:
-    dt = np.dtype(x.dtype).str.encode()
-    dims = struct.pack(f"<{x.ndim}q", *x.shape)
-    return (_ARR_HEADER.pack(x.ndim) + struct.pack("<B", len(dt)) + dt
-            + dims + np.ascontiguousarray(x).tobytes())
-
-
-def _unpack_array(raw: bytes) -> np.ndarray:
-    ndim = _ARR_HEADER.unpack_from(raw, 0)[0]
-    dtlen = struct.unpack_from("<B", raw, 1)[0]
-    off = 2
-    dt = np.dtype(raw[off:off + dtlen].decode())
-    off += dtlen
-    shape = struct.unpack_from(f"<{ndim}q", raw, off)
-    off += 8 * ndim
-    return np.frombuffer(raw, dtype=dt, offset=off).reshape(shape).copy()
+from rlo_tpu_torch.ops.collectives import _pack_array, _unpack_array
 
 
 def _dtype_name(x) -> str:

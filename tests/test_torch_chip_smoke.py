@@ -7,8 +7,10 @@ pair-write gate
 and fails on any kernel other than the write kernel (a copy of its
 source) or on no launch; K6/K9's device-time window (``_attend_device_ms``)
 is also their one-launch gate; phase 14 (pipeline training) runs at a
-tiny size with the plain versions counting the launches. The windows'
-real behaviour on the card is ``chip_smoke.py``'s own run."""
+tiny size with the plain versions counting the launches, and so do
+phases 15-18 (phase 18: the host facades and their process workers on
+CPU tensors). The windows' real behaviour on the card is
+``chip_smoke.py``'s own run."""
 
 import importlib.util
 from pathlib import Path
@@ -601,3 +603,42 @@ def test_phase_fabric_rehearsal(monkeypatch):
                  "write_kv_page_block"):
         assert paged[name] > 0 and dense[name] == 0, name
     assert out["17b paged"]["prefix_hits"] > 0
+
+
+def test_phase_host_facades_rehearsal(monkeypatch):
+    """Phase 18a/b at a tiny size on the CPU, the plain K1 counting its
+    launches: the native and loopback facades fed tensors give
+    TorchBackend's bits for every op (the ring ones by the same
+    association), tensors back, and a split of each op's wall."""
+    from rlo_tpu_torch.kernels import reduce as k1
+
+    def bump(*a, _orig=k1.fused_combine_plain, **kw):
+        k1.fused_combine.launches += 1
+        return _orig(*a, **kw)
+    monkeypatch.setattr(k1, "fused_combine_plain", bump)
+    monkeypatch.setattr(k1.fused_combine, "launches", 0)
+    monkeypatch.setattr(cs, "HOST", dict(
+        cs.HOST, n_int=2 ** 10, n_a2a=2 ** 6,
+        bcast={"native": 2 ** 10, "loopback": 2 ** 8}))
+    out = cs.phase_host_facades(torch.device("cpu"), 2 ** 14)
+    assert k1.fused_combine.launches > 0
+    for tag in ("18a native", "18b loopback"):
+        rows = out[tag]
+        assert rows["consensus yes"]["decision"] == 1
+        assert rows["consensus veto"]["decision"] == 0
+        ring = rows["allreduce f32 sum ring"]
+        assert ring["torch_k1_launches"] == 7 * 8 and ring["gb_s"] > 0
+        assert ring["ms"] >= ring["protocol_ms"] > 0
+
+
+def test_phase_host_procs_rehearsal(monkeypatch):
+    """Phase 18c/d on the CPU: four ``chip_smoke.py --host-worker``
+    processes under the port's femtompirun and its tcprun, each one rank
+    of ``init("mpi")``/``init("tcp")``, their digests equal to
+    TorchBackend's on the same tensors."""
+    monkeypatch.setattr(cs, "HOST_PROCS", dict(cs.HOST_PROCS,
+                                               n_small=2 ** 8))
+    out = cs.phase_host_procs(torch.device("cpu"), 2 ** 14)
+    for tag in ("18c mpi", "18d tcp"):
+        assert out[tag]["allreduce"]["ms"] > 0
+        assert out[tag]["gb_s"] > 0

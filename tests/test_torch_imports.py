@@ -1,7 +1,10 @@
 """The port stands alone: no module of rlo_tpu_torch, not chip_smoke.py
 and not the card-only tests (tests/test_torch_gpu_*.py, which the machine
 with the card runs without the JAX package) imports JAX or anything of
-the JAX package; importing the port touches no GPU."""
+the JAX package; importing the port touches no GPU. Its copy of the C
+core (rlo_tpu_torch/native) names no path into the JAX package's and
+builds only into its git-ignored _build; no file of the port names a
+path under /root/."""
 
 import ast
 import re
@@ -97,6 +100,7 @@ def test_card_tests_are_scanned():
                            "test_torch_gpu_fabric.py",
                            "test_torch_gpu_flash.py",
                            "test_torch_gpu_flash_grad.py",
+                           "test_torch_gpu_host_backends.py",
                            "test_torch_gpu_model_parallel_train.py",
                            "test_torch_gpu_moe.py",
                            "test_torch_gpu_paged.py",
@@ -121,3 +125,62 @@ def test_importing_every_module_loads_no_reference_module():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+NATIVE = ROOT / "rlo_tpu_torch" / "native"
+#: the C sources, headers, Makefile and launcher of the port's C core
+NATIVE_FILES = sorted(p for p in NATIVE.rglob("*")
+                      if p.is_file() and "_build" not in p.parts
+                      and p.suffix in (".c", ".h", ".supp", "")
+                      and "__pycache__" not in p.parts)
+
+
+def test_native_files_are_the_core():
+    names = {str(p.relative_to(NATIVE)) for p in NATIVE_FILES}
+    assert {"Makefile", "tcprun", "tsan.supp", "rlo_core.h",
+            "rlo_internal.h", "rlo_engine.c", "rlo_coll.c",
+            "femtompi/femtompi.c", "femtompi/mpi.h", "femtompi/mpirun.c",
+            "mock_mpi/mpi.h"} <= names
+
+
+@pytest.mark.parametrize("path", NATIVE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_names_no_path_into_the_jax_package(path):
+    """No #include, -I, Makefile path or comment of the port's C core
+    reaches into rlo_tpu/ (``rlo_tpu/`` does not match ``rlo_tpu_torch/``
+    thanks to the boundary), and nothing climbs out of the directory."""
+    text = path.read_text()
+    hits = re.findall(r"\brlo_tpu/|rlo_tpu\.native|\.\./|/root/", text)
+    assert not hits, f"{path.relative_to(ROOT)} names {hits}"
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+        assert (path.parent / inc).is_file(), inc
+
+
+def test_no_file_of_the_port_names_a_path_under_root():
+    files = [p for p in (ROOT / "rlo_tpu_torch").rglob("*")
+             if p.is_file() and "_build" not in p.parts
+             and "__pycache__" not in p.parts] + [ROOT / "chip_smoke.py"]
+    hits = [str(p.relative_to(ROOT)) for p in files
+            if "/root/" in p.read_text(errors="replace")]
+    assert not hits
+
+
+def test_native_build_writes_only_under_its_ignored_directory():
+    """Building the library and every tool adds no file beside the
+    sources: everything lands in native/_build, which .gitignore lists."""
+    assert "rlo_tpu_torch/native/_build/" in \
+        (ROOT / ".gitignore").read_text().splitlines()
+
+    def outside():
+        return {p for p in NATIVE.rglob("*")
+                if "_build" not in p.parts and "__pycache__" not in p.parts}
+    before = outside()
+    out = subprocess.run(
+        [sys.executable, "-m", "rlo_tpu_torch.native.build", "lib",
+         "femtompirun", "demo"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    built = [Path(line) for line in out.stdout.split()]
+    assert len(built) == 3 and all(
+        p.is_file() and p.parent == NATIVE / "_build" for p in built)
+    assert outside() == before
