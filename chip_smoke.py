@@ -6,8 +6,10 @@ sequence-parallel inference, pipeline-parallel training with a resume
 from a checkpoint, the consensus-gated bridge with its
 multi-process deployment and engine tracing, sequence-, tensor- and
 expert-parallel training as processes on the card, the rootless
-serving fabric over fleets of the card's DecodeServers, and the host
-facades (native, loopback, mpi, tcp) fed card tensors.
+serving fabric over fleets of the card's DecodeServers, the host
+facades (native, loopback, mpi, tcp) fed card tensors, and the
+developer tools (the static analyzers, the byte pinning, the hostile
+probes of the decode kernels, rlo-scope and rlo-trace).
 
     python3 chip_smoke.py
 
@@ -235,13 +237,18 @@ Phases, each printing its own lines:
    to 0 before each fleet and read after); wall, virtual drain time,
    rounds a rank, tokens/s, re-queues, prefix hits, COW copies, the
    fabric's virtual-time latencies, peak memory, and whether (a) run
-   again on the seed repeats its schedule digest and tokens.
+   again on the seed repeats its schedule digest and tokens. (a) runs a
+   third time with a ``SpanRecorder`` on every rank: its decisions
+   (victim, re-queues, rounds, tokens, virtual latencies) must equal
+   the unrecorded run's, and its per-rank span dumps go to phase 19.
 18. The host facades fed card tensors (``phase_host_facades``,
    ``phase_host_procs``): (a) ``init("native", world_size=8)`` (the
    port's copy of the C core) and (b) ``init("loopback")`` (the port's
    Python engines and ``ops/collectives.py``), each given per-rank
-   tensors on the card: the f32 allreduce (sum, min, max) by the ring
-   at 256 MB a rank, the int32 sum at 1 MB (native by bcast-gather),
+   tensors on the card: the f32 allreduce by the ring, the sum at
+   256 MB a rank on native and at 32 MB on loopback, min and max at
+   32 MB on both (they re-measure the same copies and protocol), the
+   int32 sum at 1 MB (native by bcast-gather),
    reduce_scatter and all_gather at 32 MB, all_to_all, a bcast (1 MB
    native, 16 KB loopback: under each engine's frame cap) from rank 5,
    consensus all YES and with a veto, barrier and a 4-member
@@ -255,8 +262,28 @@ Phases, each printing its own lines:
    its wall split into staging (card to host, host to card) and the
    host protocol, the ring allreduce its GB/s a rank, and the
    TorchBackend call its time and K1 launches.
-19. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-18), then the last
+19. The developer tools (``phase_tools``): (a) ``python -m
+   rlo_tpu_torch.tools.runner --json`` on the tree the script runs from
+   (rlo-lint, rlo-sentinel, rlo-prover, rlo-model): 0 findings, each
+   tool's seconds; (b) the byte pinning on the card: 8 ranks of a
+   ``LocalMesh`` at 256 MB fp32 a rank through ``RecordingAxis`` (ring,
+   bidir ring at 1/2/4 sub-chunks, halving-doubling, recursive doubling,
+   hierarchical 2 x 4 with int8 over the outer axis, direct
+   all-to-all): bytes handed to ``ppermute`` and the number of calls
+   equal the cost model and the ledger, results equal an unrecorded
+   run's bit for bit, K1's launches counted; (c) K6-K11 at rlo-prover
+   P3's probe shapes with hostile positions (negative, past max_len),
+   page ids (past the pool, negative) and the null page, each result
+   equal to its plain twin's and the dropped rows untouched, in a
+   ``chip_smoke.py --hostile-worker`` process under ``compute-sanitizer
+   --tool memcheck`` where it can run a CUDA program, bare where it
+   cannot (said so); (d) rlo-scope over per-rank tracer dumps of an
+   instrumented ring allreduce through the loopback facade (8 ranks,
+   32 MB card tensors a rank): no predicted-vs-measured finding, the
+   GB/s of each step; rlo-trace over phase 17's span dumps: no
+   incomplete trace.
+20. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-19), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -298,6 +325,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 20261016
@@ -5125,7 +5153,8 @@ def fabric_requests(vocab: int, rng, paged: bool):
     return out
 
 
-def fabric_fleet(dev, params, cfg, paged: bool, reqs, seed: int) -> dict:
+def fabric_fleet(dev, params, cfg, paged: bool, reqs, seed: int,
+                 tracer=None) -> dict:
     """One fleet run: ``FABRIC['ranks']`` ranks of the port's SimWorld,
     one EngineManager, a ProgressEngine and a DecodeFabric over a
     ModelBackend(DecodeServer) on each, the servers sharing one cast set
@@ -5136,12 +5165,15 @@ def fabric_fleet(dev, params, cfg, paged: bool, reqs, seed: int) -> dict:
     released; the loop drains until every request has a result on every
     live rank or the virtual deadline passes. The virtual clock moves
     only through the simulator's event queue, so the schedule is the
-    seed's whatever the card's wall time."""
+    seed's whatever the card's wall time. With a ``tracer``, each rank's
+    fabric records every request's spans into it (a SpanRecorder a rank,
+    on the fleet's seed)."""
     import gc
 
     import torch
     from rlo_tpu_torch.engine import EngineManager, ProgressEngine
     from rlo_tpu_torch.models import serve as S
+    from rlo_tpu_torch.observe.spans import SpanRecorder
     from rlo_tpu_torch.serving.backend import ModelBackend
     from rlo_tpu_torch.serving.fabric import DecodeFabric, fleet_stats
     from rlo_tpu_torch.transport.sim import SimWorld
@@ -5165,8 +5197,11 @@ def fabric_fleet(dev, params, cfg, paged: bool, reqs, seed: int) -> dict:
               f"a fleet server landed on {srv.device}, not {dev.type}")
         check(srv.params["embed"] is params["embed"],
               "the fleet's servers do not share one set of weights")
+    spans = [None if tracer is None else SpanRecorder(
+        r, world.clock, seed=seed, tracer=tracer) for r in range(n)]
     fabrics = [DecodeFabric(engines[r], ModelBackend(servers[r]),
-                            decode_interval=1.0) for r in range(n)]
+                            decode_interval=1.0, spans=spans[r])
+               for r in range(n)]
     live = set(range(n))
     rids = [None] * len(reqs)
     redirected, killed, victim = 0, False, None
@@ -5288,7 +5323,38 @@ def fabric_oracle(params, cfg, reqs, results, what) -> int:
     return full
 
 
-def phase_fabric(dev, counted) -> dict:
+#: the facts of a fleet run that its span recorders must leave as they
+#: are (their trailers change the record bytes, and with them the
+#: schedule digest, which hashes the bytes)
+FLEET_DECISIONS = ("victim", "killed_at_virtual_s", "virtual_s",
+                   "redirected", "requeues", "dup_done", "rounds",
+                   "results", "e2e_usec_virtual", "queue_wait_usec_virtual")
+
+
+def fabric_spans(dev, params, cfg, reqs, unrecorded, span_dir) -> dict:
+    """17a once more with a SpanRecorder on every rank (every request
+    traced): the decisions must equal the unrecorded run's; each rank's
+    spans are dumped to ``span_dir`` as JSON lines for phase 19."""
+    import os
+    from rlo_tpu_torch.utils.tracing import Tracer
+    tracer = Tracer(capacity=1 << 22, enabled=True)
+    rec = fabric_fleet(dev, params, cfg, False, reqs, SEED + 17,
+                       tracer=tracer)
+    for k in FLEET_DECISIONS:
+        check(rec[k] == unrecorded[k], f"17a with span recorders: {k} "
+              f"differs from the unrecorded fleet's")
+    check(tracer.dropped == 0, f"the span ring dropped {tracer.dropped}")
+    events = [tracer.dump_jsonl(os.path.join(span_dir,
+                                             f"spans.rank{r}.jsonl"), rank=r)
+              for r in range(FABRIC["ranks"])]
+    print(f"[fabric] 17a fleet with a SpanRecorder a rank: decisions "
+          f"equal the unrecorded run's ({', '.join(FLEET_DECISIONS)}); "
+          f"{sum(events)} span events dumped, by rank {events}; wall "
+          f"{rec['wall_s']:.2f} s")
+    return {"wall_s": rec["wall_s"], "span_events": events}
+
+
+def phase_fabric(dev, counted, span_dir=None) -> dict:
     """Phase 17: the rootless serving fabric over fleets of full-width
     DecodeServers on the card. (a) a dense fleet and (b) a paged one
     (``fabric_fleet``), the ``counted`` kernels' launch counts set to 0
@@ -5298,7 +5364,8 @@ def phase_fabric(dev, counted) -> dict:
     at least one is re-queued by the fail-over, and every completion
     equals its prompt's own generate but at a near-tie. (a) runs a second
     time on the same seed: whether its schedule digest and tokens repeat
-    is printed."""
+    is printed. With a ``span_dir``, (a) runs a third time with span
+    recorders (``fabric_spans``)."""
     import numpy as np
     import torch
     from rlo_tpu_torch.models.transformer import (TransformerConfig,
@@ -5336,6 +5403,9 @@ def phase_fabric(dev, counted) -> dict:
             st["rerun_same_digest"] = again["digest"] == st["digest"]
             st["rerun_same_tokens"] = again["results"] == st["results"]
             st["rerun_wall_s"] = again["wall_s"]
+            if span_dir is not None:
+                st["recorded"] = fabric_spans(dev, params, cfg, reqs, st,
+                                              span_dir)
         print(f"[fabric] {tag} fleet: {FABRIC['ranks']} ranks x "
               f"DecodeServer(n_slots={FABRIC['n_slots']}, max_len="
               f"{FABRIC['max_len']}, round_len={FABRIC['round_len']}, "
@@ -5381,8 +5451,11 @@ def phase_fabric(dev, counted) -> dict:
 #: 18a/18b (one process, world size WS): int32 elements of the 1 MB sum,
 #: f32 elements of one all_to_all chunk, f32 elements of each facade's
 #: bcast (native engines take 4 MB a frame, loopback's 32 KB), the
-#: origin, the proposer, the rank that vetoes and the sub-group's members
-HOST = dict(n_int=2 ** 18, n_a2a=2 ** 15,
+#: origin, the proposer, the rank that vetoes and the sub-group's members;
+#: the f32 allreduce runs at the full size only for native's sum (the
+#: GB/s of the BASELINE size), every other one at a eighth of it (32 MB a
+#: rank: min, max and loopback re-measure the same copies and protocol)
+HOST = dict(n_int=2 ** 18, n_a2a=2 ** 15, allreduce_cut=8,
             bcast={"native": 2 ** 18, "loopback": 2 ** 12},
             origin=5, proposer=3, veto=6, sub=(1, 3, 4, 6))
 #: each facade's allreduce schedule for the f32 ops and the int32 sum
@@ -5495,7 +5568,8 @@ def phase_host_facades(dev, n_full: int) -> dict:
     origin; consensus with every vote YES and with one veto; barrier;
     and a 4-member ``sub_group`` (allreduce ring, consensus with a veto,
     bcast) against a 4-rank ``TorchBackend``. Results must be tensors on
-    ``dev``."""
+    ``dev``. The f32 allreduce takes n_full a rank for native's sum and
+    n_full / HOST['allreduce_cut'] otherwise."""
     import torch
     import rlo_tpu_torch
     from rlo_tpu_torch.backend import TorchBackend
@@ -5505,6 +5579,8 @@ def phase_host_facades(dev, n_full: int) -> dict:
     xs = _host_inputs(dev, WS, n_full, SEED + 1800)
     n_rs = n_full // WS
     xs_rs = [x[:n_rs] for x in xs]
+    n_cut = n_full // HOST["allreduce_cut"]
+    xs_cut = [x[:n_cut] for x in xs]
     gen = torch.Generator(device=dev).manual_seed(SEED + 1801)
     ints = [torch.randint(-2 ** 20, 2 ** 20, (HOST["n_int"],),
                           generator=gen, device=dev, dtype=torch.int32)
@@ -5522,10 +5598,11 @@ def phase_host_facades(dev, n_full: int) -> dict:
         f = rlo_tpu_torch.init(name, world_size=WS)
         try:
             for op in ("sum", "min", "max"):
+                ar = xs if (name, op) == ("native", "sum") else xs_cut
                 _host_op(dev, rows, tag, f"allreduce f32 {op} {alg_f32}",
-                         f, 4 * n_full,
-                         lambda: f.allreduce(xs, op=op, algorithm=alg_f32),
-                         lambda: torch_b.allreduce(xs, op=op,
+                         f, 4 * ar[0].numel(),
+                         lambda: f.allreduce(ar, op=op, algorithm=alg_f32),
+                         lambda: torch_b.allreduce(ar, op=op,
                                                    algorithm="ring"))
             _host_op(dev, rows, tag, f"allreduce int32 sum {alg_int}", f,
                      4 * HOST["n_int"],
@@ -5736,6 +5813,443 @@ def host_worker(argv) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the developer tools on the card
+# ---------------------------------------------------------------------------
+
+#: f32 elements a rank of 19d's instrumented loopback ring (32 MB), and
+#: the time limits of the analyzer run and of the hostile-probe process
+TOOLS = dict(scope_n=2 ** 23, runner_timeout_s=300.0,
+             hostile_timeout_s=300.0)
+
+
+def phase_static_tools() -> dict:
+    """19a: the merged static report on the tree this script runs from;
+    0 findings, the four analyzers named, each one's seconds."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rlo_tpu_torch.tools.runner", "--json",
+         "--root", root], cwd=root, capture_output=True, text=True,
+        timeout=TOOLS["runner_timeout_s"])
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"19a: the runner exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    tools = {t["tool"]: t for t in doc["tools"]}
+    check(list(tools) == ["rlo-lint", "rlo-sentinel", "rlo-prover",
+                          "rlo-model"], f"19a: analyzers {list(tools)}")
+    check(doc["findings"] == [], f"19a: findings {doc['findings'][:5]}")
+    secs = {name: t["seconds"] for name, t in tools.items()}
+    print(f"[tools] 19a rlo_tpu_torch.tools.runner on {root}: 0 findings; "
+          f"seconds {json.dumps(secs)}; {wall:.1f} s with the interpreter")
+    return {"tool_seconds": secs, "wall_s": wall}
+
+
+def phase_moved_bytes(dev, n_full: int) -> dict:
+    """19b: every schedule of the byte pinning on ``WS`` ranks of a
+    ``LocalMesh`` on ``dev``, ``n_full`` f32 a rank, each rank's axis a
+    ``RecordingAxis``: the bytes handed to ``ppermute`` and the calls a
+    rank equal the cost model (``pipeline_chunks`` given) and the ledger
+    where it has the schedule; results equal an unrecorded run's bit for
+    bit."""
+    import torch
+    from rlo_tpu_torch.observe.ledger import ledger
+    from rlo_tpu_torch.ops import device_collectives as dc
+    from rlo_tpu_torch.parallel.mesh import LocalMesh
+    from rlo_tpu_torch.utils import moved_bytes as mb
+
+    nbytes = 4 * n_full
+    xs = _host_inputs(dev, WS, n_full, SEED + 1900)
+    flat = LocalMesh((WS,), ("x",), dev)
+    tiers = LocalMesh((2, WS // 2), ("dcn", "ici"), dev)
+    a2a = [x.view(WS, -1) for x in xs]
+    stats = {}
+
+    def run(tag, mesh, names, fn, inputs):
+        recs = [None] * mesh.world_size
+
+        def rank(axes, x, r):
+            recs[r] = mb.recording_axes(axes, names)
+            return fn(recs[r], x)
+        got, ms = _host_wall(dev, lambda: mesh.run(
+            rank, inputs, list(range(mesh.world_size))))
+        want = mesh.run(lambda axes, x: fn(axes, x), inputs)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"19b {tag}: the recorded run's results differ from an "
+              f"unrecorded run's")
+        del got, want
+        return recs, ms
+
+    for alg, q, sched in (("ring", 1, "ring_allreduce"),
+                          ("bidir_ring", 1, None), ("bidir_ring", 2, None),
+                          ("bidir_ring", 4, None),
+                          ("halving_doubling", 1, "halving_doubling"),
+                          ("recursive_doubling", 1, "recursive_doubling")):
+        tag = f"{alg} q{q}" if alg == "bidir_ring" else alg
+        recs, ms = run(tag, flat, ("x",), lambda ax, x, alg=alg, q=q:
+                       dc.allreduce(x, ax["x"], algorithm=alg,
+                                    pipeline_chunks=q), xs)
+        model = dc.allreduce_cost(alg, WS, nbytes, pipeline_chunks=q)
+        want = (model["total_bytes"], model["n_permutes"])
+        moved = [mb.permute_total_bytes(r["x"], require=True) for r in recs]
+        check(all(m == want for m in moved), f"19b {tag}: moved "
+              f"{moved}, the cost model {want}")
+        if sched is not None:
+            led = ledger(sched, WS, nbytes)
+            check((led.bytes_per_rank, led.num_steps) == want,
+                  f"19b {tag}: the ledger {led.bytes_per_rank} B in "
+                  f"{led.num_steps} steps, the cost model {want}")
+        stats[tag] = {"bytes_a_rank": want[0], "ppermutes": want[1],
+                      "ms": ms}
+        print(f"[tools] 19b {tag}: {want[0]} B in {want[1]} ppermutes a "
+              f"rank = the cost model" + (" = the ledger" if sched else "")
+              + f"; recorded run {ms:.1f} ms wall, bits equal an "
+              f"unrecorded run's")
+
+    wi = WS // 2
+    recs, ms = run("hierarchical int8", tiers, ("dcn", "ici"),
+                   lambda ax, x: dc.hierarchical_allreduce(
+                       x, ax["ici"], ax["dcn"], dcn_algorithm="int8"), xs)
+    model = dc.hierarchical_allreduce_cost(wi, 2, nbytes,
+                                           dcn_algorithm="int8")
+    led = ledger("halving_doubling", wi, nbytes)
+    for r in recs:
+        ici = mb.permute_total_bytes(r["ici"], require=True)
+        check(ici == (model["ici_bytes"], model["ici_permutes"]) ==
+              (led.bytes_per_rank, led.num_steps),
+              f"19b hierarchical: ici moved {ici}, the cost model "
+              f"{model['ici_bytes'], model['ici_permutes']}")
+        payload = [e for e, dt in mb.all_gather_operands(r["dcn"],
+                                                         require=True)
+                   if dt == "i8"]
+        check(payload == [model["dcn_elems"]], f"19b hierarchical: int8 "
+              f"payload {payload}, the cost model {model['dcn_elems']}")
+    stats["hierarchical int8"] = {"ici_bytes": model["ici_bytes"],
+                                  "ici_permutes": model["ici_permutes"],
+                                  "dcn_int8_elems": model["dcn_elems"],
+                                  "ms": ms}
+    print(f"[tools] 19b hierarchical {wi} x 2, int8 over the outer axis: "
+          f"{model['ici_bytes']} B in {model['ici_permutes']} ppermutes "
+          f"a rank on the inner axis = the cost model = the ledger, "
+          f"{model['dcn_elems']} int8 elements gathered over the outer; "
+          f"recorded run {ms:.1f} ms wall, bits equal an unrecorded run's")
+
+    recs, ms = run("all_to_all direct", flat, ("x",),
+                   lambda ax, x: dc.all_to_all(x, ax["x"],
+                                               algorithm="direct"), a2a)
+    model = dc.all_to_all_cost("direct", WS, nbytes)
+    want = (model["injected_bytes"], model["link_hop_bytes"],
+            model["n_permutes"])
+    for r in recs:
+        ent = mb.permute_entries(r["x"], require=True)
+        got = (sum(b for _s, _d, b in ent),
+               sum((d - s) % WS * b for s, d, b in ent), len(ent))
+        check(got == want, f"19b all_to_all: moved {got}, the cost "
+              f"model {want}")
+    stats["all_to_all direct"] = {"injected_bytes": want[0],
+                                  "link_hop_bytes": want[1],
+                                  "ppermutes": want[2], "ms": ms}
+    print(f"[tools] 19b all_to_all direct: {want[0]} B injected, "
+          f"{want[1]} B x hops in {want[2]} ppermutes a rank = the cost "
+          f"model; recorded run {ms:.1f} ms wall, bits equal an "
+          f"unrecorded run's")
+    del xs, a2a
+    return stats
+
+
+def _hostile_mask(shape, written) -> "torch.Tensor":
+    """A bool mask of ``shape``, True at the index tuples ``written``
+    (a leading slice stands for a whole axis)."""
+    import torch
+    m = torch.zeros(shape, dtype=torch.bool)
+    for idx in written:
+        m[idx] = True
+    return m
+
+
+def hostile_probes(dev) -> dict:
+    """19c: K6-K11 at rlo-prover P3's probe shapes with hostile values,
+    each against its plain twin on the same inputs: attention (K6, K9)
+    within phase 4's tolerance (NaN where no position is attended, on
+    both sides), writes (K7, K8, K10, K11) bit for bit; every element a
+    write must leave (dropped rows, lanes outside the page, pads) equal
+    to what it was."""
+    import torch
+    from rlo_tpu_torch.kernels import build
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.serving.pages import NULL_PAGE
+
+    build.load("decode")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1930)
+    big, small = 2 ** 31 - 1, -2 ** 31
+    out = {}
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def attend(tag, fn, plain, q, *args, want_launches=1):
+        before = fn.launches
+        got = fn(q, *args)
+        torch.cuda.synchronize()
+        check(fn.launches - before == want_launches,
+              f"19c {tag}: {fn.launches - before} launches")
+        want = plain(q, *args)
+        check(torch.equal(got.isnan(), want.isnan()),
+              f"19c {tag}: NaN where its plain twin has none, or not")
+        err = abs_err(got.nan_to_num(), want.nan_to_num())
+        check(torch.allclose(got, want, rtol=1e-3, atol=2e-3,
+                             equal_nan=True), f"19c {tag}: differs from "
+              f"its plain twin by {err}")
+        out[tag] = {"max_abs_err": err,
+                    "nan_rows": int(got.isnan().any(-1).sum())}
+
+    def write(tag, fn, plain, dst, rest, written):
+        orig = dst.clone()
+        got = fn(dst.clone(), *rest)
+        torch.cuda.synchronize()
+        want = plain(orig.clone(), *rest)
+        check(torch.equal(got, want), f"19c {tag}: differs from its plain "
+              f"twin")
+        keep = ~_hostile_mask(tuple(dst.shape), written).to(dev)
+        check(torch.equal(got[keep], orig[keep]), f"19c {tag}: an element "
+              f"a dropped row or lane holds was written")
+        out[tag] = {"written": int((got != orig).sum()),
+                    "untouched": int(keep.sum())}
+
+    bf = torch.bfloat16
+    for dt in (bf, torch.float32):
+        k = torch.randn(2, 4, 64, 1024, generator=gen, device=dev).to(dt)
+        v = torch.randn(2, 4, 64, 1024, generator=gen, device=dev).to(dt)
+        q = torch.randn(2, 2, 8, 64, generator=gen, device=dev).to(bf)
+        for pos in ([0, 800], [-5, 1030], [small, big], [-1, 1023]):
+            attend(f"K6 {str(dt)[6:]} pos {pos}", kd.flash_block_decode,
+                   kd.flash_block_decode_plain, q, k, v, i32(pos), 0.125)
+    kp = torch.randn(8, 4, 64, 128, generator=gen, device=dev).to(bf)
+    vp = torch.randn(8, 4, 64, 128, generator=gen, device=dev).to(bf)
+    q = torch.randn(2, 2, 8, 64, generator=gen, device=dev).to(bf)
+    for table, pos in (([[0, 1, 7], [2, 300, NULL_PAGE]], [5, 383]),
+                       ([[-4, big, 3], [NULL_PAGE, small, 6]], [-7, big]),
+                       ([[NULL_PAGE] * 3, [5, 5, 5]], [200, 1000])):
+        attend(f"K9 table {table} pos {pos}", kd.paged_flash_decode,
+               kd.paged_flash_decode_plain, q, kp, vp, i32(table),
+               i32(pos), 0.125)
+
+    cache = torch.randn(4, 4, 64, 1024, generator=gen, device=dev).to(bf)
+    row = torch.randn(4, 4, 64, generator=gen, device=dev).to(bf)
+    for pos in ([0, 5, 1023, 2048], [big, small, -1, 1024]):
+        written = [(b, slice(None), slice(None), p)
+                   for b, p in enumerate(pos) if 0 <= p < 1024]
+        write(f"K7 pos {pos}", kd.write_kv_row, kd.write_kv_row_plain,
+              cache, (row, i32(pos)), written)
+    rows = torch.randn(4, 4, 64, 8, generator=gen, device=dev).to(bf)
+    for pos in ([0, 100, 900, 1016], [-3, 1020, big - 4, small]):
+        written = [(b, slice(None), slice(None), c) for b, p in
+                   enumerate(pos) for c in range(p, p + 8)
+                   if 0 <= c < 1024]
+        write(f"K8 pos0 {pos}", kd.write_kv_block, kd.write_kv_block_plain,
+              cache, (rows, i32(pos)), written)
+    pool = torch.randn(16, 4, 64, 128, generator=gen, device=dev).to(bf)
+    for page, off in (([1, 3, 15, 200], [0, 64, 127, 128]),
+                      ([-5, NULL_PAGE, big, 7], [3, -1, 5, big])):
+        written = [(min(max(p, 0), 15), slice(None), slice(None), o)
+                   for p, o in zip(page, off) if 0 <= o < 128]
+        write(f"K10 page {page} off {off}", kd.write_kv_page_row,
+              kd.write_kv_page_row_plain, pool, (row, i32(page), i32(off)),
+              written)
+    chunk = torch.randn(4, 64, 16, generator=gen, device=dev).to(bf)
+    for page, off0, n_valid in ((200, 64, 16), (-3, 120, 16),
+                                (NULL_PAGE, -5, 16), (big, 0, -1),
+                                (small, 100, 1000)):
+        written = [(min(max(page, 0), 15), slice(None), slice(None), c)
+                   for t, c in enumerate(range(off0, off0 + 16))
+                   if t < n_valid and 0 <= c < 128]
+        write(f"K11 page {page} off0 {off0} n_valid {n_valid}",
+              kd.write_kv_page_block, kd.write_kv_page_block_plain, pool,
+              (chunk, page, off0, n_valid), written)
+    return out
+
+
+def hostile_worker() -> int:
+    """``chip_smoke.py --hostile-worker``: one CUDA call first (so a
+    sanitizer that cannot run a CUDA program shows as a missing
+    ``HOSTILE-CUDA-UP`` line), then ``hostile_probes``; prints one
+    ``HOSTILE`` line of its figures."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device in the hostile-probe process",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", torch.cuda.current_device())
+    check(float((torch.ones(4, device=dev) + 1).sum()) == 8.0,
+          "a first CUDA call")
+    print("HOSTILE-CUDA-UP", flush=True)
+    print("HOSTILE " + json.dumps(hostile_probes(dev)), flush=True)
+    return 0
+
+
+def phase_hostile() -> dict:
+    """19c: ``hostile_worker`` in a process of its own, under
+    ``compute-sanitizer --tool memcheck`` beside ``nvcc`` when that can
+    run a CUDA program (a memcheck error fails the phase), else bare,
+    saying why."""
+    import os
+    from pathlib import Path
+    from rlo_tpu_torch.kernels import build
+    me = [sys.executable, os.path.abspath(__file__), "--hostile-worker"]
+    sanitizer = Path(build.find_nvcc()).with_name("compute-sanitizer")
+    how, why = "bare", "no compute-sanitizer beside nvcc"
+    t0 = time.perf_counter()
+    proc = None
+    if sanitizer.is_file():
+        proc = subprocess.run(
+            [str(sanitizer), "--tool", "memcheck", "--error-exitcode", "9"]
+            + me, capture_output=True, text=True,
+            timeout=TOOLS["hostile_timeout_s"])
+        if "HOSTILE-CUDA-UP" in proc.stdout:
+            how = "compute-sanitizer --tool memcheck"
+            check(proc.returncode == 0 and
+                  "ERROR SUMMARY: 0 errors" in proc.stdout + proc.stderr,
+                  f"19c: memcheck found errors: {proc.stdout[-3000:]} "
+                  f"{proc.stderr[-3000:]}")
+        else:
+            tail = [ln for ln in (proc.stderr + proc.stdout).splitlines()
+                    if "error" in ln.lower()][:2]
+            why = (f"{sanitizer} cannot run a CUDA program on this machine "
+                   f"(exit {proc.returncode}: {' | '.join(tail)})")
+            proc = None
+    if proc is None:
+        proc = subprocess.run(me, capture_output=True, text=True,
+                              timeout=TOOLS["hostile_timeout_s"])
+        check(proc.returncode == 0, f"19c: the hostile probes exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("HOSTILE ")]
+    check(len(line) == 1, f"19c: no figures: {proc.stdout[-2000:]}")
+    cases = json.loads(line[0].split(" ", 1)[1])
+    print(f"[tools] 19c K6-K11 at P3's probe shapes with hostile "
+          f"positions, page ids and the null page: {len(cases)} cases, "
+          f"each equal to its plain twin, dropped rows untouched; run "
+          f"{how}" + ("" if how != "bare" else f" ({why})")
+          + f"; {wall:.1f} s")
+    return {"cases": cases, "run": how, "why_bare": why if how == "bare"
+            else None, "wall_s": wall}
+
+
+def phase_scope_trace(dev, span_dir, victim: int) -> dict:
+    """19d: (1) a ring allreduce through ``init("loopback")`` with every
+    rank's ``Comm`` instrumented (``Comm.instrument``), fed
+    ``TOOLS['scope_n']`` f32 card tensors a rank and held against
+    ``TorchBackend``; the tracer's per-rank JSON-line dumps through
+    rlo-scope's dump mode: no predicted-vs-measured finding, each step's
+    GB/s. (2) rlo-trace over phase 17's span dumps in ``span_dir``: no
+    inconsistent trace, and every incomplete one (no ``deliver`` span) a
+    request whose gateway was the killed rank ``victim``, which died
+    before it could deliver: every other request traced to delivery."""
+    import contextlib
+    import io
+    import os
+    import re
+    import rlo_tpu_torch
+    from rlo_tpu_torch.backend import TorchBackend
+    from rlo_tpu_torch.tools import rlo_scope, rlo_trace
+    from rlo_tpu_torch.utils.tracing import Tracer
+
+    def tool(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, json.loads(buf.getvalue())
+
+    n = TOOLS["scope_n"]
+    xs = _host_inputs(dev, WS, n, SEED + 1940)
+    tracer = Tracer(capacity=1 << 20, enabled=True)
+    f = rlo_tpu_torch.init("loopback", world_size=WS)
+    try:
+        for c in f._comms:
+            c.instrument(time.monotonic, tracer)
+        got, ms = _host_wall(dev, lambda: f.allreduce(xs,
+                                                      algorithm="ring"))
+    finally:
+        f.close()
+    _held("19d loopback ring", got,
+          TorchBackend(world_size=WS, device=dev).allreduce(
+              xs, algorithm="ring"))
+    del got
+    dumps = [os.path.join(span_dir, f"steps.rank{r}.jsonl")
+             for r in range(WS)]
+    for r, p in enumerate(dumps):
+        tracer.dump_jsonl(p, rank=r)
+    rc, doc = tool(rlo_scope.main, dumps + ["--nbytes", str(4 * n),
+                                            "--json"])
+    check(rc == 0 and doc["findings"] == [],
+          f"19d rlo-scope: exit {rc}, findings {doc['findings']}")
+    check(doc["schedule"] == "ring_allreduce" and doc["n"] == WS,
+          f"19d rlo-scope joined {doc['schedule']} over {doc['n']} ranks")
+    gbps = {f"{s['algorithm']}:{s['step']}": s["gbps_med"]
+            for s in doc["steps"]}
+    print(f"[tools] 19d rlo-scope over {WS} per-rank dumps of the "
+          f"instrumented loopback ring allreduce ({4 * n} B a rank, "
+          f"{ms:.1f} ms wall with staging, results equal TorchBackend's): "
+          f"{doc['ledger']['steps']} ledger steps, "
+          f"{doc['measured']['step_events']} step events, no finding; "
+          f"median GB/s a step {json.dumps(gbps)}")
+    spans = sorted(os.path.join(span_dir, p) for p in os.listdir(span_dir)
+                   if p.startswith("spans."))
+    check(len(spans) == FABRIC["ranks"], f"19d: span dumps {spans}")
+    rc, trace = tool(rlo_trace.main, spans + ["--json"])
+    undelivered = []
+    for fnd in trace["findings"]:
+        m = re.fullmatch(r"request (\d+):(\d+) has spans but never "
+                         r"delivered \(incomplete trace\)", fnd["message"])
+        check(fnd["rule"] == "T1" and m is not None and
+              int(m.group(1)) == victim,
+              f"19d rlo-trace: {fnd['rule']} {fnd['message']}")
+        undelivered.append(f"{m.group(1)}:{m.group(2)}")
+    check(rc == (1 if undelivered else 0), f"19d rlo-trace: exit {rc}")
+    check(trace["requests"] == FABRIC["requests"] and
+          trace["complete"] == trace["requests"] - len(undelivered),
+          f"19d rlo-trace: {trace['complete']} of {trace['requests']} "
+          f"requests delivered, {len(undelivered)} undelivered")
+    print(f"[tools] 19d rlo-trace over phase 17's span dumps: "
+          f"{trace['complete']} of {trace['requests']} requests traced to "
+          f"delivery; the {len(undelivered)} incomplete traces "
+          f"{undelivered} are all requests of gateway {victim}, the rank "
+          f"killed before it delivered them; failover on the critical "
+          f"path {trace['failover']}; virtual e2e p50/p99 "
+          f"{trace['e2e_usec']['p50']}/{trace['e2e_usec']['p99']} us")
+    return {"scope_gbps": gbps, "scope_wall_ms": ms,
+            "trace_requests": trace["requests"],
+            "trace_undelivered": undelivered,
+            "trace_failover": trace["failover"]}
+
+
+def phase_tools(dev, n_full: int, span_dir, victim: int) -> dict:
+    """Phase 19 (see the module docstring): 19a-19d, each timed. K1's
+    launch count is set to 0 just before 19b and read just after it."""
+    import torch
+    from rlo_tpu_torch.kernels import reduce as k1
+    out = {}
+    for tag, fn in (("19a", phase_static_tools),
+                    ("19b", lambda: phase_moved_bytes(dev, n_full)),
+                    ("19c", phase_hostile),
+                    ("19d", lambda: phase_scope_trace(dev, span_dir,
+                                                      victim))):
+        k1.fused_combine.launches = 0
+        t0 = time.perf_counter()
+        out[tag] = fn()
+        out[tag]["seconds"] = time.perf_counter() - t0
+        if tag == "19b":
+            out["k1_launches_19b"] = k1.fused_combine.launches
+        print(f"[tools] {tag} took {out[tag]['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+    check(out["k1_launches_19b"] > 0, "K1 was not launched by the byte "
+          "pinning's schedules (phase 19b)")
+    return out
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -5860,6 +6374,8 @@ def main() -> int:
         return train_parallel_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--host-worker"]:
         return host_worker(sys.argv[2:])
+    if sys.argv[1:] == ["--hostile-worker"]:
+        return hostile_worker()
     print(cards_line())
     pin_one_card()
     import torch
@@ -6060,23 +6576,31 @@ def main() -> int:
     train_par = phase_train_parallel(dev)
     print(f"[train-parallel] phase 16 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    fabric = phase_fabric(dev, counted)
-    print(f"[fabric] phase 17 took {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    # the host facades: K1 runs only in the TorchBackend calls they are
-    # held against (the facades themselves compute on the host)
-    k1.fused_combine.launches = 0
-    t0 = time.perf_counter()
-    host = phase_host_facades(dev, N_FULL)
-    host["procs"] = phase_host_procs(dev, N_FULL)
-    host_launches = k1.fused_combine.launches
-    print(f"[host] phase 18 took {time.perf_counter() - t0:.1f} s, K1 "
-          f"launches {host_launches} (all in the TorchBackend calls the "
-          f"facades are held against)")
-    check(host_launches > 0, "K1 was not launched by the TorchBackend "
-          "references of phase 18")
-    torch.cuda.empty_cache()
+    # phase 17's span dumps are read by phase 19
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as span_dir:
+        t0 = time.perf_counter()
+        fabric = phase_fabric(dev, counted, span_dir)
+        print(f"[fabric] phase 17 took {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # the host facades: K1 runs only in the TorchBackend calls they
+        # are held against (the facades themselves compute on the host)
+        k1.fused_combine.launches = 0
+        t0 = time.perf_counter()
+        host = phase_host_facades(dev, N_FULL)
+        host["procs"] = phase_host_procs(dev, N_FULL)
+        host_launches = k1.fused_combine.launches
+        print(f"[host] phase 18 took {time.perf_counter() - t0:.1f} s, K1 "
+              f"launches {host_launches} (all in the TorchBackend calls "
+              f"the facades are held against)")
+        check(host_launches > 0, "K1 was not launched by the TorchBackend "
+              "references of phase 18")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tools = phase_tools(dev, N_FULL, span_dir,
+                            fabric["17a dense"]["victim"])
+        tools_launches = tools["k1_launches_19b"]
+        print(f"[tools] phase 19 took {time.perf_counter() - t0:.1f} s, "
+              f"K1 launches {tools_launches} in 19b")
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
@@ -6086,7 +6610,7 @@ def main() -> int:
                       "pipeline": pipe, "bridge": bridge,
                       "multihost": multihost,
                       "train_parallel": train_par, "fabric": fabric,
-                      "host_facades": host}))
+                      "host_facades": host, "tools": tools}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -6111,6 +6635,7 @@ def main() -> int:
             out["bridge"] = bridge_launches
             out["TorchBackend references of the host facades (phase "
                 "18)"] = host_launches
+            out["byte pinning's schedules (phase 19b)"] = tools_launches
         for tag, _, _, _ in TRAIN_PARALLEL_RUNS:
             n = train_par[tag]["launches_per_step"].get(name)
             if n:

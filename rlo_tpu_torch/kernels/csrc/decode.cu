@@ -150,7 +150,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int BK = 128;       // cache tile = threads of a row group
+constexpr int BK = 128;  // rlo-prover: lane-pinned (a cache tile; BLOCK_K)
 constexpr int kWarps = BK / 32;  // warps of a row group
 
 // Threads of a block: one row group of BK threads, two for the large row
@@ -270,6 +270,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
     const int npg = (c_stop - 1) / a.ps + 1 - pg0;
     for (int i = tid; i < npg; i += NT) {
       int page = a.table[(size_t)bi * a.mp + pg0 + i];
+      // rlo-prover: lane-pinned (below range: the null page, 0)
       pg_s[i] = page < 0 ? 0 : (page >= a.P ? a.P - 1 : page);
     }
   }
@@ -687,6 +688,7 @@ write_row_kernel(RowWrite a) {
       if (j < nd) e[j] = __ldg(src + j * sd);
   }
   if (o < 0 || o >= a.ps) return;
+  // rlo-prover: lane-pinned (below range: the null page, 0)
   pg = pg < 0 ? 0 : (pg >= a.P ? a.P - 1 : pg);
   E* out = static_cast<E*>(second ? a.dst[1] : a.dst[0]) +
            (((long long)pg * a.H + h) * a.D + d0) * a.ps + o;
@@ -771,6 +773,7 @@ write_block_kernel(BlockWrite a) {
   if (hi > nv) hi = nv;
   if (hi > a.Lc - c0) hi = a.Lc - c0;
   if (lo >= hi) return;           // the whole block: no barrier skipped
+  // rlo-prover: lane-pinned (below range: the null page, 0)
   row = row < 0 ? 0 : (row >= a.nrow ? a.nrow - 1 : row);
   E* dst = static_cast<E*>(a.dst[pair]) +
            (((long long)row * a.H + h) * a.D + d0) * a.Lc;
@@ -903,7 +906,7 @@ extern "C" int rlo_decode_attend(const void* params, void* stream) {
   if (nsplit > 65535 || (long long)p.b * p.nkv > 0x7fffffffLL) return -1;
   const int esize = p.cache_code == 1 ? 4 : (p.cache_code == 2 ? 2 : 1);
   const bool quant = p.cache_code == 3;
-  // 16-byte chunks: every cache (and scale) row starts on 16 bytes
+  // rlo-prover: lane-pinned (16-byte chunks: rows start on 16 bytes)
   const long long run = p.paged ? p.ps : L;
   const bool vec = (run * esize) % 16 == 0 && p.k % 16 == 0 &&
                    p.v % 16 == 0 &&

@@ -72,13 +72,13 @@ import torch
 
 NEG = -1e30
 #: K6's cache-axis tile, the same for every T (the plain twin mirrors it)
-BLOCK_K = 128
+BLOCK_K = 128  # rlo-prover: lane-pinned (decode.cu's BK)
 #: K6/K9's split of the cache axis across blocks, a multiple of BLOCK_K,
 #: fixed in absolute positions and the same for every call (the plain
 #: twins compute the same partition and merge)
-SPLIT_K = 256
+SPLIT_K = 256  # rlo-prover: lane-pinned (a multiple of BLOCK_K)
 #: K8's widest block, as on the TPU
-MAX_BLOCK_T = 128
+MAX_BLOCK_T = 128  # rlo-prover: lane-pinned (the default page_size)
 
 _CACHE_CODE = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
 _Q_CODE = {torch.float32: 1, torch.bfloat16: 2}

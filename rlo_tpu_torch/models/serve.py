@@ -115,6 +115,7 @@ class DecodeServer:
                  n_slots: int, max_len: int, round_len: int = 32,
                  prompt_buckets: Tuple[int, ...] = (64, 256, 1024),
                  metrics: Optional[Registry] = None,
+                 # rlo-prover: lane-pinned (K8's widest block)
                  paged: bool = False, page_size: int = 128,
                  n_pages: Optional[int] = None,
                  prefill_budget: Optional[int] = None,

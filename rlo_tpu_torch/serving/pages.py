@@ -34,7 +34,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
-NULL_PAGE = 0  # the device side's sentinel page (models/paged.py)
+NULL_PAGE = 0  # rlo-prover: lane-pinned (device sentinel: paged.py)
 
 
 class PageError(RuntimeError):

@@ -20,8 +20,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-#: number of histogram buckets (the JAX package's HIST_BUCKETS)
-HIST_BUCKETS = 28
+#: number of histogram buckets — mirror of RLO_HIST_BUCKETS (rlo_core.h)
+HIST_BUCKETS = 28  # rlo-lint: paired-with rlo_core.h:RLO_HIST_BUCKETS
 
 #: The engine-counter schema, in snapshot order — the single source of
 #: truth for the ``metrics()["counters"]`` keys both engines emit
@@ -58,6 +58,7 @@ HIST_BUCKETS = 28
 #:   ``batched_admits``     joiners admitted through a MULTI-joiner
 #:                          admission record (one IAR round admitting
 #:                          k queued petitions at once)
+# rlo-lint: paired-with rlo_core.h:rlo_stats
 ENGINE_COUNTER_KEYS = (
     "sent_bcast", "recved_bcast", "total_pickup", "ops_failed",
     "arq_retransmits", "arq_dup_drops", "arq_gave_up", "arq_unacked",
@@ -89,6 +90,7 @@ ENGINE_COUNTER_KEYS = (
 #:     ``bcast_all_delivered``    bcast init -> every fan-out send done
 #:     ``prop_votes_aggregated``  proposal submit -> all votes merged
 #:     ``prop_decision``          proposal submit -> decision fan-out done
+# rlo-lint: paired-with rlo_core.h:rlo_phase_stats
 ENGINE_PHASE_KEYS = (
     "frame_encode", "frame_decode", "send", "arq_scan", "tag_dispatch",
     "pickup_drain", "bcast_first_fwd", "bcast_all_delivered",

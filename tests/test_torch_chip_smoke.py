@@ -8,8 +8,9 @@ and fails on any kernel other than the write kernel (a copy of its
 source) or on no launch; K6/K9's device-time window (``_attend_device_ms``)
 is also their one-launch gate; phase 14 (pipeline training) runs at a
 tiny size with the plain versions counting the launches, and so do
-phases 15-18 (phase 18: the host facades and their process workers on
-CPU tensors). The windows' real behaviour on the card is
+phases 15-19 (phase 18: the host facades and their process workers on
+CPU tensors; phase 19: the developer tools, after phase 17's dense fleet
+with span recorders). The windows' real behaviour on the card is
 ``chip_smoke.py``'s own run."""
 
 import importlib.util
@@ -642,3 +643,68 @@ def test_phase_host_procs_rehearsal(monkeypatch):
     for tag in ("18c mpi", "18d tcp"):
         assert out[tag]["allreduce"]["ms"] > 0
         assert out[tag]["gb_s"] > 0
+
+
+def _count_plain(monkeypatch, mod, wrapper):
+    """The wrapper's plain version bumps the wrapper's launch count."""
+    def bump(*a, _orig=getattr(mod, wrapper.__name__ + "_plain"),
+             _w=wrapper, **kw):
+        _w.launches += 1
+        return _orig(*a, **kw)
+    monkeypatch.setattr(mod, wrapper.__name__ + "_plain", bump)
+    monkeypatch.setattr(wrapper, "launches", 0)
+
+
+def test_phase_tools_rehearsal(monkeypatch, tmp_path):
+    """Phase 19 on the CPU after phase 17's recorded dense fleet (tiny
+    f32 widths, the plain versions counting their wrappers' launches,
+    the hostile probes in this process): the runner reports no finding,
+    every schedule's recorded bytes equal the cost model and its
+    results an unrecorded run's, the hostile cases equal their plain
+    twins with dropped rows untouched, rlo-scope joins the loopback
+    ring's dumps without a finding and rlo-trace finds undelivered only
+    the killed gateway's requests."""
+    from rlo_tpu_torch.kernels import build
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.kernels import flash as kf
+    from rlo_tpu_torch.kernels import reduce as k1
+    counted = (kf.flash_block_update_hld, kd.flash_block_decode,
+               kd.write_kv_row, kd.write_kv_block, kd.paged_flash_decode,
+               kd.write_kv_page_row, kd.write_kv_page_block)
+    for mod, wrapper in zip((kf,) + (kd,) * 6, counted):
+        _count_plain(monkeypatch, mod, wrapper)
+    _count_plain(monkeypatch, k1, k1.fused_combine)
+    for name, value in (("synchronize", None), ("empty_cache", None),
+                        ("reset_peak_memory_stats", None),
+                        ("max_memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value: _v)
+    monkeypatch.setattr(build, "load", lambda name: None)
+    monkeypatch.setattr(cs, "SERVE_CFG", dict(
+        vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+        dtype="float32"))
+    monkeypatch.setattr(cs, "FABRIC", dict(
+        cs.FABRIC, requests=16, n_slots=2, max_len=64, round_len=4,
+        buckets=(8, 16), plens=(8, 12, 16, 24), max_new=(6, 12),
+        page_size=8, prefix_len=16, tails=(4, 8, 12)))
+    monkeypatch.setattr(cs, "TOOLS", dict(cs.TOOLS, scope_n=2 ** 10))
+    dev = torch.device("cpu")
+    monkeypatch.setattr(cs, "phase_hostile", lambda: {
+        "cases": cs.hostile_probes(dev)})
+    fabric = cs.phase_fabric(dev, counted, str(tmp_path))
+    victim = fabric["17a dense"]["victim"]
+    assert sum(fabric["17a dense"]["recorded"]["span_events"]) > 0
+    out = cs.phase_tools(dev, 2 ** 12, str(tmp_path), victim)
+    assert out["19a"]["tool_seconds"].keys() == {
+        "rlo-lint", "rlo-sentinel", "rlo-prover", "rlo-model"}
+    assert set(out["19b"]) >= {"ring", "bidir_ring q1", "bidir_ring q2",
+                               "bidir_ring q4", "halving_doubling",
+                               "recursive_doubling", "hierarchical int8",
+                               "all_to_all direct"}
+    assert out["k1_launches_19b"] > 0
+    cases = out["19c"]["cases"]
+    assert len([c for c in cases if c.startswith("K6")]) == 8
+    assert all(k in " ".join(cases) for k in ("K7", "K8", "K9", "K10",
+                                               "K11"))
+    assert all(g > 0 for g in out["19d"]["scope_gbps"].values())
+    assert all(r.startswith(f"{victim}:")
+               for r in out["19d"]["trace_undelivered"])

@@ -184,3 +184,50 @@ def test_native_build_writes_only_under_its_ignored_directory():
     assert len(built) == 3 and all(
         p.is_file() and p.parent == NATIVE / "_build" for p in built)
     assert outside() == before
+
+
+#: a repo path the tools may read: directories end in '/', files carry
+#: a source or data extension
+_PATH_CONST = re.compile(
+    r"^[\w.-]+(/[\w.-]+)*/([\w.-]+\.(py|c|h|cu|cuh|json|jsonl|md))?$")
+TOOLS = sorted((ROOT / "rlo_tpu_torch" / "tools").glob("*.py"))
+
+
+def _path_constants(path):
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _PATH_CONST.match(node.value):
+            out.append((node.lineno, node.value))
+    return out
+
+
+def test_path_pattern_catches_what_it_must():
+    assert all(_PATH_CONST.match(s) for s in (
+        "rlo_tpu/engine.py", "rlo_tpu/pallas/decode.py",
+        "rlo_tpu_torch/kernels/csrc/decode.cu", "rlo_tpu/tools/",
+        "rlo_tpu/native/rlo_core.h"))
+    assert not any(_PATH_CONST.match(s) for s in (
+        "GB/s", "bytes/edge", "xor_perm/involution",
+        "models/serve.py DecodeServer page_size default"))
+
+
+@pytest.mark.parametrize("path", TOOLS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_tools_read_only_the_port(path):
+    """Every path constant of the port's tools names a file of the port:
+    a tool that quietly analysed the JAX package would pass every parity
+    test against it."""
+    bad = [(ln, s) for ln, s in _path_constants(path)
+           if not s.startswith("rlo_tpu_torch/")]
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+def test_the_analyzers_name_their_inputs():
+    """The check above is not vacuous: the four analyzers name dozens of
+    the port's files, and the kernel sources among them."""
+    consts = {s for p in TOOLS for _ln, s in _path_constants(p)}
+    assert len(consts) >= 40
+    assert {"rlo_tpu_torch/kernels/csrc/decode.cu",
+            "rlo_tpu_torch/native/rlo_engine.c",
+            "rlo_tpu_torch/topology.py"} <= consts
