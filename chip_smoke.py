@@ -9,7 +9,10 @@ expert-parallel training as processes on the card, the rootless
 serving fabric over fleets of the card's DecodeServers, the host
 facades (native, loopback, mpi, tcp) fed card tensors, and the
 developer tools (the static analyzers, the byte pinning, the hostile
-probes of the decode kernels, rlo-scope and rlo-trace).
+probes of the decode kernels, rlo-scope and rlo-trace), and the
+collectives' backward (K1 with a backward, every differentiable
+collective and ``forward``'s gradient under a manual tp schedule as
+processes on the card).
 
     python3 chip_smoke.py
 
@@ -282,8 +285,31 @@ Phases, each printing its own lines:
    32 MB card tensors a rank): no predicted-vs-measured finding, the
    GB/s of each step; rlo-trace over phase 17's span dumps: no
    incomplete trace.
-20. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-19), then the last
+20. The collectives' backward (``phase_grad_parallel``): (a) K1 with a
+   backward, ``FusedCombine``, against autograd through its plain version
+   on the same card tensors (f32/bf16 x sum/min/max at 32 MB and a
+   ragged size, integer-valued operands with ties and NaNs): the forward
+   and both gradients bit-identical, one K1 launch a forward and none in
+   the backward, the forward + backward timed against the plain
+   version's; then four ``chip_smoke.py --grad-parallel-worker``
+   processes over gloo on the one card: (b) every differentiable
+   collective at 1 MB f32 a rank (the four manual allreduces with sum
+   and max, reduce-scatter ring and halving, all-gather xla, ring and
+   doubling, the three bcast schedules from rank 2, hierarchical 2 x 2
+   with psum and ring over dcn), integer-valued inputs and cotangents,
+   each process's gradient equal to its closed form (the sum of every
+   rank's cotangent, the winning rank's mask, ...), K1 launched the
+   schedule's combines in a forward and never in a backward; (c) the
+   gradient of sum(logits * c) through ``forward`` under tp 4 with each
+   manual ``tp_algorithm`` (the flagship config at phase 9's global
+   batch, c a fixed random cotangent) within DP_REL_LIMIT relative L2
+   per leaf of 4 x the single card's gradient (a manual schedule's
+   logits vary over tp), every replicated leaf the same bits on every
+   process, K1 launched layers x 2 sums x the schedule's combines in the
+   forward and K2/K4/K5 once a layer; each schedule's wall, peak and
+   bytes staged through the host a process.
+21. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-20), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -4843,6 +4869,81 @@ def _train_parallel_plan(dev, tmp) -> dict:
     return plan
 
 
+def _rank_processes(dev, plan_fn, flag: str, nproc: int, timeout_s: float,
+                    phase: int, line_tag: str):
+    """Make a phase's plan (``plan_fn(dev, tmp)``, its JSON written to a
+    temp dir), run ``nproc`` processes ``chip_smoke.py flag RANK WS STORE
+    DEVTYPE PLAN`` to their end within ``timeout_s`` (any left is
+    killed), and return (plan, the JSON of their ``line_tag`` lines, the
+    plan's seconds, the processes' seconds). A process that hangs or
+    exits non-zero fails the phase."""
+    import os
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix=f"rlo_phase{phase}_")
+    t0 = time.perf_counter()
+    try:
+        plan = plan_fn(dev, tmp)
+        t_plan = time.perf_counter() - t0
+        plan_path = os.path.join(tmp, "plan.json")
+        with open(plan_path, "w") as f:
+            json.dump(plan, f)
+        cmd = [sys.executable, os.path.abspath(__file__), flag]
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + [str(r), str(nproc),
+                                         os.path.join(tmp, "store"),
+                                         dev.type, plan_path],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(nproc)]
+        outs = []
+        try:
+            for r, proc in enumerate(procs):
+                try:
+                    out, err = proc.communicate(timeout=max(
+                        1.0, timeout_s - (time.perf_counter() - t1)))
+                except subprocess.TimeoutExpired:
+                    check(False, f"phase-{phase} process {r} hung past "
+                          f"{timeout_s} s")
+                outs.append((proc.returncode, out, err))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        t_procs = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"phase-{phase} process {r} exited {rc}: "
+              f"{err.strip()[-3000:]}")
+    lines = [json.loads(ln.split(" ", 1)[1]) for _, out, _ in outs
+             for ln in out.splitlines() if ln.startswith(line_tag + " ")]
+    return plan, lines, t_plan, t_procs
+
+
+def _leaf_slices(got, tag):
+    """Per leaf, the relative L2 of the processes' (result - reference)
+    over the leaf's distinct slices (each process's ``diff`` and ``ref``
+    sums of squares), and the count of replicated copies; fails where two
+    processes holding one slice differ in its bits (``digest``)."""
+    rel, copies = [], 0
+    for i in range(len(got[0]["leaves"])):
+        slices = {}
+        for x in got:
+            leaf = x["leaves"][i]
+            slices.setdefault(tuple(leaf["key"]), []).append(leaf)
+        for key, held in slices.items():
+            check(all(h["digest"] == held[0]["digest"] for h in held),
+                  f"{tag}: leaf {i} slice {key} differs between the "
+                  f"processes that hold it")
+            copies += len(held) - 1
+        diff = sum(h[0]["diff"] for h in slices.values())
+        ref = sum(h[0]["ref"] for h in slices.values())
+        rel.append(math.sqrt(diff / max(ref, 1e-300)))
+    return rel, copies
+
+
 def _digest(t) -> list:
     """Two integer sums of a tensor's bits (plain and position-weighted):
     equal for equal bits, apart on any one element's change."""
@@ -4986,54 +5087,10 @@ def phase_train_parallel(dev) -> dict:
     it, and K2, K4 and K5 launched the path's own count a step on every
     process (layers x ring steps). Then 16f: K4/K5 at a ring step's
     shapes (``ring_step_bwd``)."""
-    import os
-    import shutil
-    import tempfile
-
-    import torch
-
     nproc = TRAIN_PARALLEL["procs"]
-    tmp = tempfile.mkdtemp(prefix="rlo_train_parallel_")
-    t0 = time.perf_counter()
-    try:
-        plan = _train_parallel_plan(dev, tmp)
-        t_ref = time.perf_counter() - t0
-        plan_path = os.path.join(tmp, "plan.json")
-        with open(plan_path, "w") as f:
-            json.dump(plan, f)
-        cmd = [sys.executable, os.path.abspath(__file__),
-               "--train-parallel-worker"]
-        t1 = time.perf_counter()
-        procs = [subprocess.Popen(cmd + [str(r), str(nproc),
-                                         os.path.join(tmp, "store"),
-                                         dev.type, plan_path],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for r in range(nproc)]
-        outs = []
-        try:
-            for r, proc in enumerate(procs):
-                try:
-                    out, err = proc.communicate(timeout=max(
-                        1.0, TRAIN_PARALLEL["timeout_s"]
-                        - (time.perf_counter() - t1)))
-                except subprocess.TimeoutExpired:
-                    check(False, f"phase-16 process {r} hung past "
-                          f"{TRAIN_PARALLEL['timeout_s']} s")
-                outs.append((proc.returncode, out, err))
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
-        t_procs = time.perf_counter() - t1
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for r, (rc, out, err) in enumerate(outs):
-        check(rc == 0, f"phase-16 process {r} exited {rc}: "
-              f"{err.strip()[-3000:]}")
-    lines = [json.loads(ln.split(" ", 1)[1]) for _, out, _ in outs
-             for ln in out.splitlines() if ln.startswith("TRAIN-PARALLEL ")]
+    plan, lines, t_ref, t_procs = _rank_processes(
+        dev, _train_parallel_plan, "--train-parallel-worker", nproc,
+        TRAIN_PARALLEL["timeout_s"], 16, "TRAIN-PARALLEL")
     stats = {}
     for run in plan["runs"]:
         tag, names, cfg = run["tag"], run["names"], run["cfg"]
@@ -5048,20 +5105,7 @@ def phase_train_parallel(dev) -> dict:
         check(math.isfinite(losses[0]) and lrel <= PIPE_LOSS_RTOL,
               f"{tag}: loss {losses[0]} against the single card's "
               f"{run['ref_loss']} (relative {lrel:.3g} > {PIPE_LOSS_RTOL})")
-        rel, copies = [], 0
-        for i in range(len(got[0]["leaves"])):
-            slices = {}
-            for x in got:
-                leaf = x["leaves"][i]
-                slices.setdefault(tuple(leaf["key"]), []).append(leaf)
-            for key, held in slices.items():
-                check(all(h["digest"] == held[0]["digest"] for h in held),
-                      f"{tag}: leaf {i} slice {key} differs between the "
-                      f"processes that hold it")
-                copies += len(held) - 1
-            diff = sum(h[0]["diff"] for h in slices.values())
-            ref = sum(h[0]["ref"] for h in slices.values())
-            rel.append(math.sqrt(diff / max(ref, 1e-300)))
+        rel, copies = _leaf_slices(got, tag)
         check(max(rel) <= DP_REL_LIMIT,
               f"{tag}: update differs from the single card's: max relative "
               f"L2 {max(rel):.3g} > {DP_REL_LIMIT}")
@@ -6250,6 +6294,453 @@ def phase_tools(dev, n_full: int, span_dir, victim: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the collectives' backward: K1 with a backward, the
+# differentiable schedules as processes, forward's gradient under a manual
+# tp schedule
+# ---------------------------------------------------------------------------
+
+#: 20a's operand sizes: 32 MB a tensor (8 Mi f32, 16 Mi bf16 elements)
+#: and a ragged count
+GRAD_K1 = dict(nbytes=32 * 2 ** 20, ragged=1_000_003)
+#: phase 20's processes (ranks over gloo on the one card), its time limit,
+#: 20b's payload a rank (1 MB of f32) and bcast origin, the forward and
+#: backward runs 20c times a schedule
+GRAD_PARALLEL = dict(procs=4, timeout_s=300.0, n=2 ** 18, origin=2, reps=2)
+#: 20c's manual tp schedules
+GRAD_TP_ALGORITHMS = ("ring", "bidir_ring", "recursive_doubling",
+                      "halving_doubling")
+
+
+def phase_k1_grad(dev) -> dict:
+    """20a: ``FusedCombine`` (K1 out of place, with a backward) against
+    autograd through ``fused_combine_plain`` on the same card tensors:
+    f32/bf16 x sum/min/max at 32 MB and at a ragged size, integer-valued
+    operands (ties everywhere) with NaNs in both. The forward's bits and
+    both gradients' must be the plain version's, the forward one K1
+    launch and the backward none. Then the forward and backward at 32 MB
+    f32 max against the plain version's, by events."""
+    import torch
+    from rlo_tpu_torch.kernels import reduce as k1
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def operands(n, dtype):
+        a, b = (torch.randint(-8, 9, (n,), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        a[::1009] = float("nan")
+        b[5::997] = float("nan")
+        ct = torch.randn(n, generator=gen, device=dev).to(dtype)
+        return a, b, ct
+
+    def grads(fn, a, b, ct, op):
+        la, lb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        y = fn(la, lb, op)
+        return (y,) + torch.autograd.grad(y, (la, lb), ct)
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = torch.empty((), dtype=dtype).element_size()
+        for n in (GRAD_K1["nbytes"] // esize, GRAD_K1["ragged"]):
+            for op in ("sum", "min", "max"):
+                a, b, ct = operands(n, dtype)
+                before = k1.fused_combine.launches
+                got = grads(k1.FusedCombine.apply, a, b, ct, op)
+                torch.cuda.synchronize()
+                check(k1.fused_combine.launches == before + 1,
+                      f"FusedCombine {op} {dtype} n={n} launched K1 "
+                      f"{k1.fused_combine.launches - before} times, not once")
+                want = grads(k1.fused_combine_plain, a, b, ct, op)
+                torch.cuda.synchronize()
+                for what, g, w in zip(("forward", "grad a", "grad b"), got,
+                                      want):
+                    check(same_bits(g.detach(), w.detach()),
+                          f"FusedCombine {op} {dtype} n={n}: {what} is not "
+                          f"bit-identical to the plain version's")
+                cases += 1
+    a, b, ct = operands(GRAD_K1["nbytes"] // 4, torch.float32)
+    ms = time_ms(lambda: grads(k1.FusedCombine.apply, a, b, ct, "max"),
+                 iters=10)
+    plain_ms = time_ms(lambda: grads(k1.fused_combine_plain, a, b, ct,
+                                     "max"), iters=10)
+    print(f"[k1-grad] 20a {cases} cases (f32/bf16 x sum/min/max x 32 MB and "
+          f"{GRAD_K1['ragged']} elements, integer-valued operands with ties "
+          f"and NaNs): FusedCombine's forward one K1 launch and bit-identical "
+          f"to fused_combine_plain, both gradients bit-identical to its "
+          f"autograd's; forward + backward at 32 MB f32 max {ms:.4f} ms, the "
+          f"plain version's {plain_ms:.4f} ms (events)")
+    return {"cases": cases, "fwd_bwd_ms_32MB_max": ms,
+            "plain_fwd_bwd_ms_32MB_max": plain_ms}
+
+
+def _combines(kind: str, alg: str, ws: int, nq: int) -> int:
+    """K1 launches a rank makes in one forward of a schedule at ``ws``
+    (bidir ring: ``nq`` sub-chunks a row; hierarchical: ``alg`` is the
+    dcn step on a 2 x 2 mesh)."""
+    k = ws.bit_length() - 1
+    if kind == "allreduce":
+        return {"ring": ws - 1, "bidir_ring": 2 * (ws - 1) * nq,
+                "recursive_doubling": k, "halving_doubling": k}[alg]
+    if kind == "reduce_scatter":
+        return ws - 1 if alg == "ring" else k
+    if kind == "hierarchical":
+        return 1 + (alg == "ring")
+    return 0
+
+
+def _grad_cases(n, origin):
+    """20b's matrix: (tag, kind, algorithm, op, mesh)."""
+    cases = [(f"allreduce {alg} {op}", "allreduce", alg, op, "x")
+             for alg in GRAD_TP_ALGORITHMS for op in ("sum", "max")]
+    cases += [(f"reduce_scatter {alg}", "reduce_scatter", alg, "sum", "x")
+              for alg in ("ring", "halving")]
+    cases += [(f"all_gather {alg}", "all_gather", alg, "sum", "x")
+              for alg in ("xla", "ring", "doubling")]
+    cases += [(f"rootless_bcast {s} from {origin}", "bcast", s, "sum", "x")
+              for s in ("binomial", "skip_ring", "gather")]
+    cases += [(f"hierarchical 2 x 2 {alg}", "hierarchical", alg, "sum",
+               "dcn x ici") for alg in ("psum", "ring")]
+    return cases
+
+
+def _grad_collectives(axes, mesh2, rank, ws, n, origin, dev, sync) -> list:
+    """20b in one process: every case's gradient against its closed form,
+    from every rank's inputs and cotangents (made in each process from
+    the same seed: integer-valued, so every sum is exact; the max inputs a
+    permutation of 0..ws-1 along the ranks, so one rank wins each
+    element)."""
+    import torch
+    from rlo_tpu_torch.kernels import reduce as k1
+    from rlo_tpu_torch.ops import device_collectives as dc
+
+    nq = dc._default_pipeline_chunks(dev)
+    # the first pass warms what a process does first (gloo's first
+    # exchanges on a group, the first backward, each kernel's first
+    # launch: seconds in all); the second pass is the one reported
+    passes = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        xs = torch.randint(-8, 9, (ws, n), generator=gen, device=dev).float()
+        perm = torch.rand((ws, n), generator=gen,
+                          device=dev).argsort(0).float()
+        out = []
+        for tag, kind, alg, op, mesh in _grad_cases(n, origin):
+            x = (perm if op == "max" else xs)[rank]
+            if kind == "allreduce":
+                shape = (n,)
+
+                def fn(v, alg=alg, op=op):
+                    return dc.allreduce(v, axes["x"], op=op, algorithm=alg)
+            elif kind == "reduce_scatter":
+                shape = (n // ws,)
+
+                def fn(v, alg=alg):
+                    return dc.reduce_scatter(v, axes["x"], algorithm=alg)
+            elif kind == "all_gather":
+                shape = (ws, n)
+
+                def fn(v, alg=alg):
+                    return dc.all_gather(v, axes["x"], algorithm=alg)
+            elif kind == "bcast":
+                shape = (n,)
+
+                def fn(v, alg=alg):
+                    return dc.rootless_bcast(v, origin, axes["x"],
+                                             schedule=alg)
+            else:
+                shape = (n,)
+
+                def fn(v, alg=alg):
+                    return dc.hierarchical_allreduce(v, mesh2["ici"],
+                                                     mesh2["dcn"],
+                                                     dcn_algorithm=alg)
+            cts = torch.randint(-8, 9, (ws,) + shape, generator=gen,
+                                device=dev).float()
+            if kind in ("allreduce", "bcast") or alg == "ring" and \
+                    kind == "hierarchical":
+                want = cts.sum(0)
+                if op == "max":
+                    want = torch.where(perm[rank] == ws - 1, want, 0.0)
+                if kind == "bcast" and rank != origin:
+                    want = torch.zeros_like(want)
+            elif kind == "reduce_scatter":
+                want = cts.reshape(-1)[:n]
+            elif kind == "all_gather":
+                want = cts.sum(0)[rank]
+            else:   # psum over dcn: the result is invariant over dcn
+                row = rank // 2 * 2
+                want = cts[row] + cts[row + 1]
+            staged0 = sum(a.staged_bytes for a in (axes["x"], mesh2["ici"],
+                                                   mesh2["dcn"]))
+            sync()
+            t0 = time.perf_counter()
+            v = x.clone().requires_grad_(True)
+            k1.fused_combine.launches = 0
+            y = fn(v)
+            fwd = k1.fused_combine.launches
+            (g,) = torch.autograd.grad(y, v, cts[rank])
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            out.append(dict(
+                tag=tag, equal=bool(torch.equal(g, want)),
+                max_abs_err=float((g - want).abs().max()), ms=ms,
+                k1_forward=fwd, k1_backward=k1.fused_combine.launches - fwd,
+                k1_want=_combines(
+                    kind, alg, 2 if kind == "hierarchical" else ws, nq),
+                staged_bytes=sum(a.staged_bytes for a in (
+                    axes["x"], mesh2["ici"], mesh2["dcn"])) - staged0))
+        passes.append(out)
+    for first, last in zip(*passes):   # both passes held
+        last["equal"] = first["equal"] and last["equal"]
+    return passes[-1]
+
+
+def _grad_parallel_plan(dev, tmp) -> dict:
+    """The single-card gradient of 20c's objective, sum(logits * c), on
+    the flagship config at phase 9's global batch (c a fixed random
+    cotangent from the seed), times the tp size, saved on the host per
+    leaf; and the plan the worker processes read."""
+    import os
+    import torch
+    from rlo_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(**SERVE_CFG)
+    params = tt.init_params(cfg, seed=SEED, device=dev)
+    leaves = [t.requires_grad_(True) for t in tt.tree_leaves(params)]
+    tokens, cot = _grad_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    for _ in range(2):      # the second run timed, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = tt.forward(params, tokens, cfg)
+        grads = torch.autograd.grad((logits * cot).sum(), leaves)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    tp = GRAD_PARALLEL["procs"]
+    path = os.path.join(tmp, "ref_grads.pt")
+    torch.save([(tp * g).cpu() for g in grads], path)
+    del params, leaves, logits, grads, tokens, cot
+    torch.cuda.empty_cache()
+    return {"n": GRAD_PARALLEL["n"], "origin": GRAD_PARALLEL["origin"],
+            "reps": GRAD_PARALLEL["reps"], "cfg": dict(SERVE_CFG),
+            "algorithms": list(GRAD_TP_ALGORITHMS), "ref": path,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "single_card_ms": wall, "count_plain": dev.type == "cpu"}
+
+
+def _grad_batch(cfg, batch, seq, dev):
+    """20c's tokens (phase 16's: phase 9's global batch) and cotangent."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    cot = torch.randn((batch, seq, cfg.vocab), generator=gen, device=dev)
+    return tokens, cot
+
+
+def grad_parallel_worker(argv) -> int:
+    """One process of phase 20: rank, world size, store path, device
+    type, plan path. Runs 20b and then 20c as one rank over gloo on
+    ``dist_mesh_axes`` and prints a ``GRAD-PARALLEL`` JSON line for each
+    20b case list and each 20c schedule."""
+    rank, ws, store, devtype, plan_path = (int(argv[0]), int(argv[1]),
+                                           argv[2], argv[3], argv[4])
+    import torch
+    if devtype == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device in a phase-20 process",
+              file=sys.stderr)
+        return 2
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from rlo_tpu_torch.kernels import flash as kf
+    from rlo_tpu_torch.kernels import reduce as k1
+    from rlo_tpu_torch.models import transformer as tt
+    from rlo_tpu_torch.parallel.mesh import dist_mesh_axes
+    from rlo_tpu_torch.parallel.sharding import leaf_specs, shard_tree
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    with open(plan_path) as f:
+        plan = json.load(f)
+    counted = (k1.fused_combine, kf.flash_block_update_hld, kf.bwd_dq,
+               kf.bwd_dkv)
+    if plan["count_plain"]:
+        # a rehearsal on the CPU: the plain versions count in their
+        # wrappers' place
+        for mod, wrapper in zip((k1,) + (kf,) * 3, counted):
+            def bump(*a, _orig=getattr(mod, wrapper.__name__ + "_plain"),
+                     _w=wrapper, **kw):
+                _w.launches += 1
+                return _orig(*a, **kw)
+            setattr(mod, wrapper.__name__ + "_plain", bump)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if devtype == "cuda" else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, ws), rank=rank, world_size=ws,
+        timeout=timedelta(seconds=GRAD_PARALLEL["timeout_s"] / 2))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        axes = dist_mesh_axes((ws,), ("x",), device=dev)
+        mesh2 = dist_mesh_axes((2, ws // 2), ("dcn", "ici"), device=dev)
+        cases = _grad_collectives(axes, mesh2, rank, ws, plan["n"],
+                                  plan["origin"], dev, sync)
+        print("GRAD-PARALLEL " + json.dumps(dict(kind="20b", rank=rank,
+                                                 cases=cases)), flush=True)
+        cfg = tt.TransformerConfig(**plan["cfg"])
+        specs = tt.param_pspecs(cfg, "tp")
+        tp = {"tp": axes["x"]}
+        params = shard_tree(tt.init_params(cfg, seed=SEED, device=dev),
+                            specs, tp)
+        leaves = [t.requires_grad_(True) for t in tt.tree_leaves(params)]
+        tokens, cot = _grad_batch(cfg, plan["batch"], plan["seq"], dev)
+        ref = shard_tree(tt._rebuild(params, iter(torch.load(
+            plan["ref"], mmap=True))), specs, tp)
+        for alg in plan["algorithms"]:
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for i in range(plan["reps"]):
+                staged0 = axes["x"].staged_bytes
+                for fn in counted:
+                    fn.launches = 0
+                sync()
+                t0 = time.perf_counter()
+                logits = tt.forward(params, tokens, cfg, tp_axis=axes["x"],
+                                    tp_algorithm=alg)
+                k1_fwd = k1.fused_combine.launches
+                grads = torch.autograd.grad((logits * cot).sum(), leaves)
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    first = grads
+                    launches = {fn.__name__: fn.launches for fn in counted}
+                    launches["fused_combine_forward"] = k1_fwd
+                    staged = axes["x"].staged_bytes - staged0
+                del logits, grads
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+                if dev.type == "cuda" else 0.0
+            held = []
+            for g, r, spec in zip(first, tt.tree_leaves(ref),
+                                  leaf_specs(params, specs)):
+                r = r.to(dev).double()
+                held.append(dict(
+                    key=[axes["x"].index for a in spec if a is not None],
+                    diff=float((g.double() - r).square().sum()),
+                    ref=float(r.square().sum()), digest=_digest(g)))
+            print("GRAD-PARALLEL " + json.dumps(dict(
+                kind="20c", tag=alg, rank=rank, walls=walls, peak_gib=peak,
+                staged_bytes=staged, launches=launches, leaves=held)),
+                flush=True)
+            del first, held
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_grad_parallel(dev) -> dict:
+    """Phase 20 (see the module docstring): 20a here, then 20b and 20c in
+    ``GRAD_PARALLEL['procs']`` processes ``chip_smoke.py
+    --grad-parallel-worker`` over gloo on the one card (a backward
+    collective needs each rank's backward on a thread of its own), their
+    tensors and kernels on the card, their collectives through host
+    buffers."""
+    import torch
+
+    stats = {"20a": phase_k1_grad(dev)}
+    torch.cuda.empty_cache()
+    nproc = GRAD_PARALLEL["procs"]
+    plan, lines, t_ref, t_procs = _rank_processes(
+        dev, _grad_parallel_plan, "--grad-parallel-worker", nproc,
+        GRAD_PARALLEL["timeout_s"], 20, "GRAD-PARALLEL")
+    # 20b: every case's gradient equals its closed form on every process
+    got = sorted((x for x in lines if x["kind"] == "20b"),
+                 key=lambda x: x["rank"])
+    check(len(got) == nproc, f"20b: {len(got)} of {nproc} processes "
+                             f"reported")
+    b = {}
+    for i, case in enumerate(got[0]["cases"]):
+        per = [x["cases"][i] for x in got]
+        tag = case["tag"]
+        for c in per:
+            check(c["equal"], f"20b {tag}: a process's gradient differs "
+                              f"from the closed form (max |err| "
+                              f"{c['max_abs_err']})")
+            check(c["k1_forward"] == c["k1_want"] and c["k1_backward"] == 0,
+                  f"20b {tag}: K1 launched {c['k1_forward']} times in the "
+                  f"forward (counted {c['k1_want']}) and "
+                  f"{c['k1_backward']} in the backward")
+        b[tag] = dict(ms_max=max(c["ms"] for c in per),
+                      staged_bytes=max(c["staged_bytes"] for c in per),
+                      k1_forward=case["k1_forward"])
+    print(f"[grad-parallel] 20b {len(b)} cases on {nproc} processes, "
+          f"{GRAD_PARALLEL['n'] * 4 >> 20} MB f32 a rank, integer-valued: "
+          f"every process's gradient equals its closed form; K1 launches "
+          f"a forward as counted, none in a backward; forward + backward "
+          f"ms (slowest process) / bytes staged a process: " + "; ".join(
+              f"{t} {s['ms_max']:.1f} / {s['staged_bytes']}"
+              for t, s in b.items()))
+    stats["20b"] = b
+    # 20c: forward's gradient under each manual tp schedule at tp 4
+    cfg = plan["cfg"]
+    nq = 2 if dev.type == "cuda" else 1
+    for alg in plan["algorithms"]:
+        tag = f"20c tp {nproc} {alg}"
+        got = sorted((x for x in lines if x["kind"] == "20c"
+                      and x["tag"] == alg), key=lambda x: x["rank"])
+        check(len(got) == nproc, f"{tag}: {len(got)} of {nproc} processes "
+                                 f"reported")
+        rel, copies = _leaf_slices(got, tag)
+        check(max(rel) <= DP_REL_LIMIT,
+              f"{tag}: gradient differs from {nproc} x the single card's: "
+              f"max relative L2 {max(rel):.3g} > {DP_REL_LIMIT}")
+        k1_want = cfg["n_layers"] * 2 * _combines("allreduce", alg, nproc,
+                                                  nq)
+        for x in got:
+            n = x["launches"]
+            check(n["fused_combine_forward"] == n["fused_combine"] == k1_want,
+                  f"{tag}: process {x['rank']} launched K1 "
+                  f"{n['fused_combine_forward']} times in the forward and "
+                  f"{n['fused_combine']} in all, not {k1_want} (layers x 2 "
+                  f"sums x the schedule's combines)")
+            check(all(n[k] == cfg["n_layers"] for k in (
+                "flash_block_update_hld", "bwd_dq", "bwd_dkv")),
+                f"{tag}: process {x['rank']} launched {n}, not "
+                f"{cfg['n_layers']} each of K2/K4/K5")
+        walls = [statistics.median(x["walls"]) for x in got]
+        st = dict(grad_rel_l2_max=max(rel),
+                  grad_rel_l2_median=statistics.median(rel),
+                  replicated_copies_equal=copies,
+                  wall_ms_median=max(walls), wall_ms_min=min(walls),
+                  peak_gib_max=max(x["peak_gib"] for x in got),
+                  staged_bytes=max(x["staged_bytes"] for x in got),
+                  launches=got[0]["launches"])
+        stats[tag] = st
+        print(f"[grad-parallel] {tag} ({nproc} processes, {cfg['dtype']}, "
+              f"{plan['batch']} x {plan['seq']}): the gradient of "
+              f"sum(logits * c) within max relative L2 {max(rel):.3g} (median "
+              f"{st['grad_rel_l2_median']:.3g}; limit {DP_REL_LIMIT}) of "
+              f"{nproc} x the single card's; {copies} replicated copies "
+              f"bit-identical; forward + backward {st['wall_ms_median']:.1f} "
+              f"ms (median, slowest process; fastest "
+              f"{st['wall_ms_min']:.1f}; the single card "
+              f"{plan['single_card_ms']:.1f}); peak {st['peak_gib_max']:.2f} "
+              f"GiB a process; {st['staged_bytes']} bytes staged through "
+              f"the host a process; launches a process "
+              f"{json.dumps(st['launches'])} (K1 {k1_want} counted)")
+    stats["reference_s"] = t_ref
+    stats["processes_s"] = t_procs
+    print(f"[grad-parallel] the single-card reference {t_ref:.1f} s, the "
+          f"{nproc} processes {t_procs:.1f} s (start included)")
+    return stats
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -6372,6 +6863,8 @@ def main() -> int:
         return multihost_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--train-parallel-worker"]:
         return train_parallel_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--grad-parallel-worker"]:
+        return grad_parallel_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--host-worker"]:
         return host_worker(sys.argv[2:])
     if sys.argv[1:] == ["--hostile-worker"]:
@@ -6601,6 +7094,10 @@ def main() -> int:
         tools_launches = tools["k1_launches_19b"]
         print(f"[tools] phase 19 took {time.perf_counter() - t0:.1f} s, "
               f"K1 launches {tools_launches} in 19b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grads = phase_grad_parallel(dev)
+    print(f"[grad-parallel] phase 20 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
@@ -6610,7 +7107,8 @@ def main() -> int:
                       "pipeline": pipe, "bridge": bridge,
                       "multihost": multihost,
                       "train_parallel": train_par, "fabric": fabric,
-                      "host_facades": host, "tools": tools}))
+                      "host_facades": host, "tools": tools,
+                      "collective_grads": grads}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -6644,6 +7142,15 @@ def main() -> int:
             n = fabric[tag]["launches"].get(name)
             if n:
                 out[f"fabric {tag} fleet, 4 ranks (phase 17)"] = n
+        for alg in GRAD_TP_ALGORITHMS:
+            tag = f"20c tp {GRAD_PARALLEL['procs']} {alg}"
+            n = grads[tag]["launches"].get(name)
+            if n:
+                out[f"{tag} forward + backward, each process (phase 20)"] = n
+        if name == "fused_combine":
+            out["20b differentiable collectives, each process, forwards "
+                "(phase 20)"] = sum(c["k1_forward"]
+                                    for c in grads["20b"].values())
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,

@@ -147,3 +147,37 @@ def fused_combine(a: torch.Tensor, b: torch.Tensor, op: str = "sum",
 #: kernel launches so far (CPU tensors never count); a run sets it to 0
 #: and reads it to show its path went through the kernel
 fused_combine.launches = 0
+
+
+class FusedCombine(torch.autograd.Function):
+    """``fused_combine(a, b, op)`` out of place, with a backward: the
+    differentiable step of the manual schedules (``FusedCombine.apply(a,
+    b, op)``). The forward is K1 on CUDA tensors and the plain version on
+    CPU tensors; the backward is the gradient autograd takes through
+    ``fused_combine_plain``, bit for bit: (g, g) for sum; for min/max the
+    cotangent goes to the operand that won, split in half where they tie
+    (as ``jnp.minimum``/``jnp.maximum`` split it), and where a NaN won
+    to both operands (torch's rule; JAX gives neither a share). and/or
+    take integers, which carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, op):
+        if op not in ("sum", "min", "max"):
+            raise ValueError(f"op {op!r} has no gradient")
+        ctx.op = op
+        if op != "sum":
+            ctx.save_for_backward(a, b)
+        return fused_combine(a, b, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op == "sum":
+            return g, g, None
+        a, b = ctx.saved_tensors
+        # in f32, as autograd takes the plain version's widened operands
+        af, bf, gf = a.float(), b.float(), g.float()
+        half = torch.where(af == bf, gf / 2, gf)
+        a_lost, b_lost = (af < bf, af > bf) if ctx.op == "max" \
+            else (af > bf, af < bf)
+        return (half.masked_fill(a_lost, 0).to(a.dtype),
+                half.masked_fill(b_lost, 0).to(b.dtype), None)

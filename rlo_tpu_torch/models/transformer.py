@@ -346,10 +346,15 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
     these local heads) and d_ff/tp hidden units, and the row-parallel
     products of ``wo`` and ``w2`` are summed over the axis by
     ``allreduce(algorithm=tp_algorithm)`` (K1 on the manual schedules)
-    and cast back to the activation dtype. Under autograd the normed
-    activation enters the column-parallel products through
-    ``autodiff.pvary`` (its cotangent summed over tp, where JAX's vma
-    typing inserts the same sum) and only 'psum' differentiates.
+    and cast back to the activation dtype. Under autograd the sums over
+    tp sit where JAX's vma typing inserts them (``autodiff.pvary``, whose
+    backward sums the cotangent over tp): with 'psum' the residual is
+    tp-invariant and the normed activation enters the column-parallel
+    products through ``pvary``; with a manual schedule the residual
+    varies over tp (``x`` must already: ``forward`` passes the
+    embedding's output through ``pvary``) and each tp-replicated
+    parameter (the norm gains, an MoE layer's weights) goes through
+    ``pvary`` at its use instead, the activations through none.
     ``ep_axis`` splits the experts (``models.moe``; its two all_to_alls
     take ``all_to_all_algorithm``: 'xla', 'direct' or 'ring'). Every rank
     must call this with the same shapes (the collectives pair up across
@@ -364,6 +369,13 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
     if cfg.kv_heads % ntp:
         raise ValueError(f"tp={ntp} must divide n_kv_heads {cfg.kv_heads}")
     nh, nkv = cfg.n_heads // ntp, cfg.kv_heads // ntp
+    varies = _tp_varies(tp_axis, tp_algorithm)
+
+    def shared(t):      # a tp-replicated leaf where it meets x
+        return pvary(t, tp_axis) if varies else t
+
+    def act(t):         # an activation meeting a tp-split weight
+        return t if varies else pvary(t, tp_axis)
 
     def tp_sum(t):
         if tp_axis is None:
@@ -371,7 +383,7 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
         from rlo_tpu_torch.ops.device_collectives import allreduce
         return allreduce(t, tp_axis, algorithm=tp_algorithm).to(t.dtype)
 
-    h = pvary(_rmsnorm(x, layer["ln1"]["g"]), tp_axis)
+    h = act(_rmsnorm(x, shared(layer["ln1"]["g"])))
     if cfg.kv_heads == cfg.n_heads:
         w = layer["wqkv"].to(dt)           # (d, 3, local heads x hd)
         q, k, v = torch.split(h @ w.reshape(w.shape[0], -1), nh * hd,
@@ -397,15 +409,16 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
         att = _local_attention(q, k, v)
     att = att.reshape(b, blk, nh * hd)
     x = x + tp_sum(att @ layer["wo"].to(dt))
-    h = _rmsnorm(x, layer["ln2"]["g"])
+    h = _rmsnorm(x, shared(layer["ln2"]["g"]))
     if cfg.n_experts > 0:
-        ffn, aux = moe_ffn(layer["moe"], h, cfg.n_experts,
+        moe = {k: shared(v) for k, v in layer["moe"].items()}
+        ffn, aux = moe_ffn(moe, h, cfg.n_experts,
                            capacity_factor=cfg.capacity_factor,
                            ep_axis=ep_axis,
                            all_to_all_algorithm=all_to_all_algorithm)
         return x + ffn, aux
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(pvary(h, tp_axis) @ layer["w1"].to(dt), approximate="tanh")
+    h = F.gelu(act(h) @ layer["w1"].to(dt), approximate="tanh")
     x = x + tp_sum(h @ layer["w2"].to(dt))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -498,15 +511,28 @@ def _positions(blk: int, cfg: TransformerConfig, sp_axis, device):
                      f"'contiguous', 'striped'")
 
 
+def _tp_varies(tp_axis, tp_algorithm: str) -> bool:
+    """Whether the residual varies over tp: a manual schedule's sum does
+    (JAX's vma typing), psum's does not."""
+    return tp_axis is not None and tp_algorithm != "psum"
+
+
 def _features(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
               tp_axis=None, tp_algorithm: str = "psum", ep_axis=None,
               all_to_all_algorithm: str = "xla"):
     """The body up to and including the final norm: (b, blk, d) pre-head
     activations and the aux loss (0 for dense layers). ``cfg.remat``
-    checkpoints each layer."""
+    checkpoints each layer. Under a manual ``tp_algorithm`` the
+    embedding's output enters the layers through ``pvary`` (JAX sums its
+    cotangent over tp at the first layer's normed activation and at its
+    first residual add: the same sum, moved before a map linear in the
+    cotangent) and ``ln_f``'s gain through ``pvary`` at its use."""
     b, blk = tokens.shape
     pos = _positions(blk, cfg, sp_axis, tokens.device)
     x = embed_tokens(params["embed"], tokens, pos, cfg)
+    varies = _tp_varies(tp_axis, tp_algorithm)
+    if varies:
+        x = pvary(x, tp_axis)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(x, layer):
@@ -521,7 +547,8 @@ def _features(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
         else:
             x, aux = block(x, layer)
         aux_total = aux_total + aux
-    return _rmsnorm(x, params["ln_f"]["g"]), aux_total
+    ln_f = params["ln_f"]["g"]
+    return _rmsnorm(x, pvary(ln_f, tp_axis) if varies else ln_f), aux_total
 
 
 def forward(params: dict, tokens, cfg: TransformerConfig,
@@ -539,12 +566,18 @@ def forward(params: dict, tokens, cfg: TransformerConfig,
     (under tp the same bits on every rank); aux is the rank's own
     tokens' term.
 
-    Differentiable under every axis (the JAX package's transposes,
-    ``parallel.autodiff``), with ``tp_algorithm='psum'``: the manual
-    schedules have no backward and raise under autograd."""
+    Differentiable under every axis and every ``tp_algorithm`` (the JAX
+    package's transposes, ``parallel.autodiff``). With 'psum' the logits
+    are tp-invariant; with a manual schedule they vary over tp, as in the
+    JAX package, so each rank's gradient is that of the sum of every
+    rank's loss (tp times psum's for a loss every rank computes alike):
+    the head's ``embed`` enters through ``pvary``."""
     x, aux = _features(params, tokens, cfg, sp_axis, tp_axis, tp_algorithm,
                        ep_axis, all_to_all_algorithm)
-    logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
+    embed = params["embed"]
+    if _tp_varies(tp_axis, tp_algorithm):
+        embed = pvary(embed, tp_axis)
+    logits = (x @ embed.t().to(cfg.act_dtype)).float()
     return (logits, aux) if with_aux else logits
 
 

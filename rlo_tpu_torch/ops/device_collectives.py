@@ -16,13 +16,23 @@ path).
 Accumulating steps write into a buffer the op owns (``out=``), never
 into the caller's tensor.
 
-Under autograd (grad mode on and an input that needs a gradient) the
-ops of a training path differentiate as JAX's transpose rules do
-(``parallel.autodiff``): ``allreduce(algorithm='psum')`` is a sum into a
-value every rank holds alike (its backward the identity), and
-``all_to_all`` of every schedule moves the cotangent back the way it
-came. The manual allreduce schedules and ``hierarchical_allreduce``
-accumulate in place and have no backward: under autograd they raise.
+Under autograd (grad mode on and an input that needs a gradient) every
+op differentiates as ``jax.grad`` differentiates its counterpart under
+``shard_map``'s vma typing (``parallel.autodiff``):
+``allreduce(algorithm='psum')`` with sum is a value every rank holds
+alike (its backward the identity); ``all_gather('xla')`` and the
+``gather`` bcast take ``autodiff.all_gather`` (backward: the cotangents'
+sum, this rank's row); ``all_to_all`` moves the cotangent back the way
+it came. Every manual schedule (the allreduce algorithms, reduce-scatter,
+all-gather, the bcast trees, ``hierarchical_allreduce``) runs its steps
+out of place: the same pairs and chunk order, each send through
+``autodiff.ppermute``, each combine through K1's ``FusedCombine``, each
+row write a new tensor and the bcast's pick a ``torch.where``, so every
+rank builds the same graph and autograd takes JAX's transpose of the
+schedule step by step. Its result varies over the axis: the gradient is
+that of the sum of every rank's loss. The forward's bits are the no-grad
+path's. ``psum`` with min/max has no backward, as ``lax.pmin``/``pmax``
+have none: under autograd it raises.
 """
 
 from __future__ import annotations
@@ -33,17 +43,42 @@ from typing import Callable, Optional
 import torch
 
 from rlo_tpu_torch import topology
-from rlo_tpu_torch.kernels.reduce import (OPS, fused_combine,
+from rlo_tpu_torch.kernels.reduce import (OPS, FusedCombine, fused_combine,
                                           fused_combine_plain)
 from rlo_tpu_torch.parallel import autodiff
 
 
-def _combiner(op: str, use_kernel: bool) -> Callable:
-    """``combine(a, b, out=None)`` for one op."""
+def _combiner(op: str, use_kernel: bool, grad: bool = False) -> Callable:
+    """``combine(a, b, out=None)`` for one op; with ``grad`` (autograd
+    records the step) ``combine(a, b)``, out of place and
+    differentiable."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
+    if grad and use_kernel:
+        return lambda a, b: FusedCombine.apply(a, b, op)
     fn = fused_combine if use_kernel else fused_combine_plain
     return functools.partial(fn, op=op)
+
+
+def _accumulator(op: str, use_kernel: bool, grad: bool) -> Callable:
+    """``acc(dst, src)`` -> op(dst, src): written into ``dst`` (a row
+    of a buffer the schedule owns), or with ``grad`` a new tensor."""
+    combine = _combiner(op, use_kernel, grad)
+    if grad:
+        return combine
+    return lambda dst, src: combine(dst, src, out=dst)
+
+
+def _put(out, start: int, rows, grad: bool):
+    """``out`` with rows ``start:start + len(rows)`` replaced by
+    ``rows``: written in place, or with ``grad`` a new tensor, so that
+    autograd records the write (the replaced rows' cotangent dropped, as
+    ``dynamic_update_slice``'s transpose drops it)."""
+    stop = start + rows.shape[0]
+    if not grad:
+        out[start:stop] = rows
+        return out
+    return torch.cat([out[:start], rows, out[stop:]])
 
 
 #: Step hook: ``hook(algorithm, step, ws)`` once per executed step of the
@@ -77,10 +112,11 @@ def rootless_bcast(x: torch.Tensor, origin: int, axis, *,
 
     schedule: 'binomial' (ceil(log2 n) rounds), 'skip_ring' (the
     reference overlay's tree, more rounds) or 'gather' (all_gather, then
-    pick the origin's row)."""
+    pick the origin's row). Under autograd the origin's gradient is the
+    sum of every rank's cotangent and the others' zero."""
     ws = axis.size
     if schedule == "gather":
-        return axis.all_gather(x)[origin]
+        return autodiff.all_gather(x, axis)[origin]
     if schedule == "binomial":
         sched = topology.binomial_bcast_schedule(ws, origin)
         alg = "binomial_bcast"
@@ -89,10 +125,14 @@ def rootless_bcast(x: torch.Tensor, origin: int, axis, *,
         alg = "skip_ring_bcast"
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
+    grad = autodiff.needs_grad(x)
     for s, rnd in enumerate(sched.rounds):
         _hook(axis, alg, s)
-        recv = axis.ppermute(x, rnd)
-        if axis.index in {d for _, d in rnd}:
+        recv = autodiff.ppermute(x, axis, rnd)
+        is_dst = axis.index in {d for _, d in rnd}
+        if grad:   # one graph on every rank, as jnp.where builds it
+            x = torch.where(torch.tensor(is_dst, device=x.device), recv, x)
+        elif is_dst:
             x = recv
     return x
 
@@ -259,7 +299,11 @@ def allreduce(x: torch.Tensor, axis, *, op: str = "sum",
     ring directions carry half the payload, each row cut into
     ``pipeline_chunks`` sub-chunks; None -> 2 on CUDA, 1 on the CPU),
     'recursive_doubling' and 'halving_doubling' (power-of-2 only).
-    'auto' is psum. Under autograd only psum's sum differentiates."""
+    'auto' is psum. Under autograd psum's sum is invariant (backward the
+    identity), a manual schedule's result varies over the axis (for sum
+    each rank's gradient is the sum of every rank's cotangent; for
+    min/max the cotangent goes to the rank that holds the extreme, split
+    at each combine where operands tie), and psum's min/max raise."""
     if pipeline_chunks is None:
         pipeline_chunks = _default_pipeline_chunks(x.device)
     if algorithm == "auto":
@@ -269,9 +313,12 @@ def allreduce(x: torch.Tensor, axis, *, op: str = "sum",
             raise ValueError(f"unknown op {op!r}")
         if op == "sum":
             return autodiff.psum_invariant(x, axis)
-        _no_backward(x, f"allreduce(op={op!r})")
+        if autodiff.needs_grad(x):
+            raise NotImplementedError(
+                f"allreduce(op={op!r}, algorithm='psum') has no backward, "
+                f"as lax.pmin/lax.pmax have none: under autograd take a "
+                f"manual schedule")
         return axis.all_reduce(x, op)
-    _no_backward(x, f"allreduce(algorithm={algorithm!r})")
     if algorithm == "recursive_doubling":
         return _allreduce_rd(x, axis, op, use_kernel)
     if algorithm == "bidir_ring":
@@ -288,23 +335,15 @@ def allreduce(x: torch.Tensor, axis, *, op: str = "sum",
     raise ValueError(f"unknown algorithm {algorithm!r}")
 
 
-def _no_backward(x, what: str) -> None:
-    if autodiff.needs_grad(x):
-        raise NotImplementedError(
-            f"{what} has no backward (its steps accumulate in place): "
-            f"under autograd sum with algorithm='psum', the JAX package's "
-            f"training path")
-
-
 def _allreduce_rd(x, axis, op: str, use_kernel):
     ws = axis.size
     if not topology.is_power_of_2(ws):
         raise ValueError("recursive_doubling requires power-of-2 axis size")
-    combine = _combiner(op, use_kernel)
+    combine = _combiner(op, use_kernel, autodiff.needs_grad(x))
     x = x.contiguous()
     for s, rnd in enumerate(topology.recursive_doubling_rounds(ws)):
         _hook(axis, "recursive_doubling", s)
-        other = axis.ppermute(x, rnd)
+        other = autodiff.ppermute(x, axis, rnd)
         x = combine(x, other)
     return x
 
@@ -320,7 +359,7 @@ def _bidir_ring_allreduce(x, axis, op: str, use_kernel,
     ws = axis.size
     if ws == 1:
         return x
-    combine = _combiner(op, use_kernel)
+    acc = _accumulator(op, use_kernel, autodiff.needs_grad(x))
     idx = axis.index
     nq = pipeline_chunks
     shape, n = x.shape, x.numel()
@@ -337,17 +376,15 @@ def _bidir_ring_allreduce(x, axis, op: str, use_kernel,
     # place into the rolled copy, which this function owns
     for s in range(ws - 1):
         for q in range(nq):
-            f_in = axis.ppermute(fwd[(ws - s) % ws][q], fperm)
-            b_in = axis.ppermute(bwd[s][q], bperm)
-            f_dst = fwd[ws - 1 - s][q]
-            b_dst = bwd[s + 1][q]
-            combine(f_dst, f_in, out=f_dst)
-            combine(b_dst, b_in, out=b_dst)
+            f_in = autodiff.ppermute(fwd[(ws - s) % ws][q], axis, fperm)
+            b_in = autodiff.ppermute(bwd[s][q], axis, bperm)
+            fwd[ws - 1 - s][q] = acc(fwd[ws - 1 - s][q], f_in)
+            bwd[s + 1][q] = acc(bwd[s + 1][q], b_in)
     # all-gather: ws-1 forwarding steps
     for t in range(ws - 1):
         for q in range(nq):
-            f_in = axis.ppermute(fwd[(1 - t) % ws][q], fperm)
-            b_in = axis.ppermute(bwd[(ws - 1 + t) % ws][q], bperm)
+            f_in = autodiff.ppermute(fwd[(1 - t) % ws][q], axis, fperm)
+            b_in = autodiff.ppermute(bwd[(ws - 1 + t) % ws][q], axis, bperm)
             fwd[(-t) % ws][q] = f_in
             bwd[t][q] = b_in
     out = torch.stack([torch.stack([torch.stack(row) for row in half])
@@ -376,30 +413,32 @@ def _unchunk_shard(chunks, meta):
 def _ring_reduce_scatter(chunks, axis, op: str, use_kernel):
     """ws-1 steps; returns (owned_chunk_index, reduced_chunk). After the
     loop rank r owns the fully reduced chunk (r+1) mod ws. Accumulates in
-    place into ``chunks``."""
+    place into ``chunks`` (under autograd, out of place)."""
     ws = chunks.shape[0]
     idx = axis.index
-    combine = _combiner(op, use_kernel)
+    acc = _accumulator(op, use_kernel, autodiff.needs_grad(chunks))
     perm = topology.ring_perm(ws)
+    rows = list(chunks.unbind(0))
     for s in range(ws - 1):
-        recv = axis.ppermute(chunks[(idx - s) % ws], perm)
-        cur = chunks[(idx - s - 1) % ws]
-        combine(cur, recv, out=cur)
+        recv = autodiff.ppermute(rows[(idx - s) % ws], axis, perm)
+        cur = (idx - s - 1) % ws
+        rows[cur] = acc(rows[cur], recv)
     own_idx = (idx + 1) % ws
-    return own_idx, chunks[own_idx]
+    return own_idx, rows[own_idx]
 
 
 def _ring_all_gather_rolled(chunk, axis):
     """Rank r starts with chunk (r+1); ws-1 forwarding steps assemble the
     (ws, chunk) rows in index order on every rank."""
     ws, idx = axis.size, axis.index
+    grad = autodiff.needs_grad(chunk)
     perm = topology.ring_perm(ws)
-    out = chunk.new_zeros((ws,) + tuple(chunk.shape))
-    out[(idx + 1) % ws] = chunk
+    out = _put(chunk.new_zeros((ws,) + tuple(chunk.shape)), (idx + 1) % ws,
+               chunk[None], grad)
     cur = chunk
     for s in range(ws - 1):
-        cur = axis.ppermute(cur, perm)
-        out[(idx - s) % ws] = cur
+        cur = autodiff.ppermute(cur, axis, perm)
+        out = _put(out, (idx - s) % ws, cur[None], grad)
     return out
 
 
@@ -410,15 +449,15 @@ def _halving_reduce_scatter(chunks, axis, op: str, use_kernel):
     chunk r."""
     ws = chunks.shape[0]
     idx = axis.index
-    combine = _combiner(op, use_kernel)
+    acc = _accumulator(op, use_kernel, autodiff.needs_grad(chunks))
     cur = chunks
     for s, dist in enumerate(topology.halving_doubling_distances(ws)):
         _hook(axis, "halving_reduce_scatter", s)
         upper = (idx & dist) != 0
         keep = cur[dist:2 * dist] if upper else cur[0:dist]
         send = cur[0:dist] if upper else cur[dist:2 * dist]
-        recv = axis.ppermute(send, topology.xor_perm(ws, dist))
-        cur = combine(keep, recv, out=keep)
+        recv = autodiff.ppermute(send, axis, topology.xor_perm(ws, dist))
+        cur = acc(keep, recv)
     return cur[0]
 
 
@@ -427,16 +466,16 @@ def _doubling_all_gather(chunk, axis):
     round swapping the assembled block with rank XOR dist. Returns
     (ws, chunk) rows in index order."""
     ws, idx = axis.size, axis.index
-    out = chunk.new_zeros((ws,) + tuple(chunk.shape))
-    out[idx] = chunk
+    grad = autodiff.needs_grad(chunk)
+    out = _put(chunk.new_zeros((ws,) + tuple(chunk.shape)), idx, chunk[None],
+               grad)
     for s, dist in enumerate(
             reversed(topology.halving_doubling_distances(ws))):
         _hook(axis, "doubling_all_gather", s)
         start = (idx // dist) * dist
-        recv = axis.ppermute(out[start:start + dist],
-                             topology.xor_perm(ws, dist))
-        peer = start ^ dist
-        out[peer:peer + dist] = recv
+        recv = autodiff.ppermute(out[start:start + dist], axis,
+                                 topology.xor_perm(ws, dist))
+        out = _put(out, start ^ dist, recv, grad)
     return out
 
 
@@ -444,7 +483,9 @@ def _int8_gather_allreduce(x, axis):
     """Sum over a slow axis with int8 compression: per-rank symmetric
     quantisation (f32 scale = amax/127), all-gather of the int8 payload
     and the scales, f32 dequantise-and-sum. Error per element is at most
-    one half-step per contributing rank. Sum only."""
+    one half-step per contributing rank. Sum only. Under autograd the
+    gradient flows through the scales alone (the int8 cast carries none),
+    as in the JAX package."""
     orig_dtype = x.dtype
     xf = x.float()
     amax = xf.abs().max()
@@ -453,7 +494,7 @@ def _int8_gather_allreduce(x, axis):
     scale = torch.clamp_min(amax, 1e-30) * (1.0 / 127.0)
     q = torch.round(xf / scale).to(torch.int8)
     qs = axis.all_gather(q).double()
-    ss = axis.all_gather(scale).double()
+    ss = autodiff.all_gather(scale, axis).double()
     # dequantise and sum in rank order with one rounding per rank, as
     # the fused multiply-adds XLA compiles the reference's sum into: an
     # int8 times an f32 is exact in f64, so each step rounds once
@@ -469,10 +510,12 @@ def hierarchical_allreduce(x, ici_axis, dcn_axis, *, op: str = "sum",
                            use_kernel: bool = True):
     """Allreduce over a 2-level (dcn x ici) mesh: reduce-scatter over
     ``ici_axis``, allreduce of the owned shard over ``dcn_axis`` (psum,
-    a manual schedule, or 'int8'), all-gather over ``ici_axis``."""
+    a manual schedule, or 'int8'), all-gather over ``ici_axis``. Under
+    autograd each step differentiates as it does alone: the result varies
+    over ``ici_axis``, and over ``dcn_axis`` unless the dcn step is
+    psum's."""
     if dcn_algorithm == "int8" and op != "sum":
         raise ValueError("dcn_algorithm='int8' supports op='sum' only")
-    _no_backward(x, "hierarchical_allreduce")
     wi = ici_axis.size
     chunks, meta = _chunk_shard(x, wi)
     pow2 = topology.is_power_of_2(wi)
@@ -480,7 +523,8 @@ def hierarchical_allreduce(x, ici_axis, dcn_axis, *, op: str = "sum",
         mine = _halving_reduce_scatter(chunks, ici_axis, op, use_kernel)
     else:
         _, reduced = _ring_reduce_scatter(chunks, ici_axis, op, use_kernel)
-        mine = ici_axis.ppermute(reduced, topology.ring_perm(wi, 1))
+        mine = autodiff.ppermute(reduced, ici_axis,
+                                 topology.ring_perm(wi, 1))
     if dcn_axis.size > 1:
         if dcn_algorithm == "int8":
             mine = _int8_gather_allreduce(mine, dcn_axis)
@@ -496,7 +540,9 @@ def reduce_scatter(x, axis, *, op: str = "sum", algorithm: str = "auto",
                    use_kernel: bool = True):
     """Rank r gets the r-th equal chunk of the reduction of ``x``
     (flattened, zero-padded to a multiple of the axis size). algorithm:
-    'ring', 'halving' (power-of-2), 'auto' (halving on powers of 2)."""
+    'ring', 'halving' (power-of-2), 'auto' (halving on powers of 2).
+    Under autograd rank r's gradient is the all-gather of every rank's
+    cotangent (flattened, cut to ``x``'s size)."""
     ws = axis.size
     if algorithm == "auto":
         algorithm = "halving" if topology.is_power_of_2(ws) else "ring"
@@ -507,27 +553,28 @@ def reduce_scatter(x, axis, *, op: str = "sum", algorithm: str = "auto",
         raise ValueError(f"unknown algorithm {algorithm!r}")
     _, reduced = _ring_reduce_scatter(chunks, axis, op, use_kernel)
     # rotate one hop forward so rank r holds chunk r
-    return axis.ppermute(reduced, topology.ring_perm(ws, 1))
+    return autodiff.ppermute(reduced, axis, topology.ring_perm(ws, 1))
 
 
 def all_gather(x, axis, *, algorithm: str = "xla"):
     """Every rank's ``x`` along a new leading axis. 'xla' is the
     transport's own all-gather; 'ring' ws-1 steps; 'doubling' log2(ws)
-    exchanges (power-of-2)."""
+    exchanges (power-of-2). Under autograd rank r's gradient is row r
+    of the sum of every rank's cotangent."""
     if algorithm not in ("xla", "doubling", "ring"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if algorithm == "xla":
-        return axis.all_gather(x)
+        return autodiff.all_gather(x, axis)
     if algorithm == "doubling":
         return _doubling_all_gather(x, axis)
     ws, idx = axis.size, axis.index
+    grad = autodiff.needs_grad(x)
     perm = topology.ring_perm(ws)
-    out = x.new_zeros((ws,) + tuple(x.shape))
-    out[idx] = x
+    out = _put(x.new_zeros((ws,) + tuple(x.shape)), idx, x[None], grad)
     cur = x
     for s in range(ws - 1):
-        cur = axis.ppermute(cur, perm)
-        out[(idx - s - 1) % ws] = cur
+        cur = autodiff.ppermute(cur, axis, perm)
+        out = _put(out, (idx - s - 1) % ws, cur[None], grad)
     return out
 
 

@@ -11,6 +11,10 @@ applies:
     nothing gets a zero gradient, as ``lax.ppermute``'s transpose gives);
   - ``all_to_all(x, axis)``: row s to rank s; its backward is the same
     exchange of the cotangent (the exchange is its own inverse);
+  - ``all_gather(x, axis)``: every rank's ``x`` stacked, a value varying
+    over the axis as ``lax.all_gather``'s is; its backward is the
+    transpose JAX takes, ``psum_scatter``: the cotangents summed over the
+    axis, of which a rank keeps its own row;
   - ``psum_invariant(x, axis)``: the sum over the axis, a value every
     rank holds alike; its backward passes the cotangent on unchanged (the
     transpose of a psum into an invariant value is no collective);
@@ -59,6 +63,18 @@ class _AllToAll(torch.autograd.Function):
         return ctx.axis.all_to_all(g.contiguous()), None
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        return axis.all_reduce(g.contiguous(), "sum")[axis.index], None
+
+
 class _PsumInvariant(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -92,6 +108,14 @@ def all_to_all(x: torch.Tensor, axis) -> torch.Tensor:
     if needs_grad(x):
         return _AllToAll.apply(x, axis)
     return axis.all_to_all(x)
+
+
+def all_gather(x: torch.Tensor, axis) -> torch.Tensor:
+    """``axis.all_gather(x)``; differentiable (row ``index`` of the
+    cotangents' sum)."""
+    if needs_grad(x):
+        return _AllGather.apply(x, axis)
+    return axis.all_gather(x)
 
 
 def psum_invariant(x: torch.Tensor, axis) -> torch.Tensor:

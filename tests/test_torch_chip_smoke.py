@@ -556,6 +556,60 @@ def test_phase_train_parallel_rehearsal(monkeypatch):
                                                               dv=0)
 
 
+def test_phase_grad_parallel_rehearsal(monkeypatch):
+    """Phase 20's 20b and 20c at a tiny f32 size on the CPU: four
+    ``chip_smoke.py --grad-parallel-worker`` processes (gloo, device type
+    cpu, the plain versions counting their wrappers' launches) take every
+    differentiable collective's gradient, each equal to its closed form
+    with K1 launched the schedule's combines in a forward and none in a
+    backward, and ``forward``'s gradient under each manual tp schedule
+    within f32's class of 4 x the single card's, replicated slices the
+    same bits, K1 launched layers x 2 sums x combines (one sub-chunk a
+    row on the CPU). 20a (the card's K1 against its plain version) is
+    stubbed: the CPU launches no kernel."""
+    for name, value in (("synchronize", None), ("empty_cache", None),
+                        ("reset_peak_memory_stats", None),
+                        ("max_memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value: _v)
+    monkeypatch.setattr(cs, "phase_k1_grad", lambda dev: {})
+    monkeypatch.setattr(cs, "SERVE_CFG", dict(
+        vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+        dtype="float32"))
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 16)
+    monkeypatch.setattr(cs, "GRAD_PARALLEL", dict(cs.GRAD_PARALLEL, n=64,
+                                                  reps=1))
+    out = cs.phase_grad_parallel(torch.device("cpu"))
+    assert len(out["20b"]) == 18
+    assert out["20b"]["allreduce bidir_ring sum"]["k1_forward"] == 6
+    assert out["20b"]["hierarchical 2 x 2 ring"]["k1_forward"] == 2
+    assert out["20b"]["all_gather ring"]["k1_forward"] == 0
+    want = {"ring": 12, "bidir_ring": 24, "recursive_doubling": 8,
+            "halving_doubling": 8}
+    for alg, k1 in want.items():
+        st = out[f"20c tp 4 {alg}"]
+        assert st["launches"] == {"fused_combine": k1,
+                                  "fused_combine_forward": k1,
+                                  "flash_block_update_hld": 2, "bwd_dq": 2,
+                                  "bwd_dkv": 2}
+        assert st["grad_rel_l2_max"] <= 1e-4, alg
+        assert st["staged_bytes"] == 0          # CPU tensors
+        # embed, ln_f and the 2 x 2 norm gains held whole by 4 processes
+        assert st["replicated_copies_equal"] == 3 * 6
+
+
+def test_phase_grad_parallel_launch_arithmetic():
+    """20c's K1 counts at the flagship config on the card (8 layers, tp 4,
+    two sub-chunks a bidir row): 48, 192, 32 and 32 launches a forward."""
+    got = {alg: cs.SERVE_CFG["n_layers"] * 2 * cs._combines(
+        "allreduce", alg, cs.GRAD_PARALLEL["procs"], 2)
+        for alg in cs.GRAD_TP_ALGORITHMS}
+    assert got == {"ring": 48, "bidir_ring": 192, "recursive_doubling": 32,
+                   "halving_doubling": 32}
+    assert [cs._combines("reduce_scatter", a, 4, 2)
+            for a in ("ring", "halving")] == [3, 2]
+
+
 def test_phase_fabric_rehearsal(monkeypatch):
     """Phase 17 at a tiny f32 width on the CPU, the plain versions
     counting their wrappers' launches: in the dense and the paged

@@ -26,6 +26,7 @@ from rlo_tpu_torch.convert import (cache_from_numpy, cache_to_numpy,
 from rlo_tpu_torch.models import generate as tg
 from rlo_tpu_torch.models import transformer as tt
 from rlo_tpu_torch.models.moe import moe_ffn
+from rlo_tpu_torch.ops.device_collectives import allreduce
 from rlo_tpu_torch.parallel.mesh import LocalMesh
 from rlo_tpu_torch.utils.metrics import Registry
 
@@ -260,7 +261,9 @@ def test_later_slices_raise():
     tests/test_torch_model_parallel_train.py); what the port still
     refuses, as the JAX package does, raises: the loss of a striped
     sequence split, an int8 ``dcn_algorithm`` beside any of the axes,
-    and ``forward`` under autograd with a manual ``tp_algorithm``."""
+    and a psum min/max under autograd (``lax.pmax`` has no
+    differentiation rule). ``forward`` under autograd with a manual
+    ``tp_algorithm`` runs and gives the logits of ``no_grad``."""
     _, tc = _cfgs("mha_sincos")
     moe = dataclasses.replace(tc, n_experts=2)
     params = {False: tt.init_params(tc, device="cpu"),
@@ -277,13 +280,22 @@ def test_later_slices_raise():
                               dcn_axis=object(), dcn_algorithm="int8",
                               **{axis: object()})
 
-        def ring_forward(axes, p=p, cfg=cfg):
-            live = tt._rebuild(p, iter(t.detach().requires_grad_(True)
+        def ring_forward(axes, p=p, cfg=cfg, grad=True):
+            live = tt._rebuild(p, iter(t.detach().requires_grad_(grad)
                                        for t in tt.tree_leaves(p)))
             return tt.forward(live, tok, cfg, tp_axis=axes["tp"],
                               tp_algorithm="ring")
+        mesh = LocalMesh((1,), ("tp",), device="cpu")
+        (got,) = mesh.run(ring_forward)
+        assert got.requires_grad
+        (want,) = mesh.run(lambda axes: ring_forward(axes, grad=False))
+        assert torch.equal(got.detach(), want)
+
+        def psum_max(axes, p=p):
+            return allreduce(tt.tree_leaves(p)[0].detach().requires_grad_(),
+                             axes["tp"], op="max", algorithm="psum")
         with pytest.raises(NotImplementedError, match="no backward"):
-            LocalMesh((1,), ("tp",), device="cpu").run(ring_forward)
+            mesh.run(psum_max)
     x = torch.zeros(1, 2, 64)
     layer = params[True]["layers"][0]
     with torch.no_grad():

@@ -21,6 +21,7 @@ from rlo_tpu_torch.kernels import flash as kf
 from rlo_tpu_torch.kernels import reduce as kr
 from rlo_tpu_torch.models import generate as tg
 from rlo_tpu_torch.models import transformer as tt
+from rlo_tpu_torch.ops.device_collectives import allreduce
 from rlo_tpu_torch.parallel.mesh import LocalMesh
 from rlo_tpu_torch.parallel.sharding import shard_tree
 
@@ -176,15 +177,30 @@ def test_forward_with_an_axis_under_grad_raises_on_card(cuda):
     params = tt.init_params(cfg, seed=1, device=cuda)
     tok = _prompt((1, 16), 1, cuda)
 
-    def fwd(ax, p):
-        # a manual tp schedule has no backward: refused under autograd
-        # before any rank enters a collective (training on the card runs
-        # its ranks as processes: tests/test_torch_gpu_model_parallel_
-        # train.py)
+    def fwd(ax, p, grad=True):
+        # a manual tp schedule's forward under autograd runs out of place
+        # through FusedCombine, with the no-grad bits; its backward runs
+        # with the ranks as processes (a backward collective hangs on a
+        # card's LocalMesh: tests/test_torch_gpu_collective_grads.py)
         with torch.enable_grad():
             for t in tt.tree_leaves(p):
-                t.requires_grad_(True)
-            return tt.forward(p, tok, cfg, tp_axis=ax, tp_algorithm="ring")
+                t.requires_grad_(grad)
+            return tt.forward(p, tok, cfg, tp_axis=ax,
+                              tp_algorithm="ring").detach()
+
+    kr.fused_combine.launches = 0
+    got = _run(cuda, cfg, params, "tp", 2, fwd)
+    assert kr.fused_combine.launches == 2 * 2 * cfg.n_layers
+    want = _run(cuda, cfg, params, "tp", 2,
+                lambda ax, p: fwd(ax, p, grad=False))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def psum_max(ax, p):
+        # what still raises: psum's min/max has no backward (lax.pmax has
+        # none), refused before any rank enters a collective
+        with torch.enable_grad():
+            return allreduce(torch.ones(3, device=cuda, requires_grad=True),
+                             ax, op="max", algorithm="psum")
 
     with pytest.raises(NotImplementedError, match="no backward"):
-        _run(cuda, cfg, params, "tp", 2, fwd)
+        _run(cuda, cfg, params, "tp", 2, psum_max)

@@ -96,6 +96,7 @@ def test_card_tests_are_scanned():
     """Every card-only test file is jax-free and in SOURCES."""
     gpu = [p.name for p in SOURCES if p.name.startswith("test_torch_gpu_")]
     assert sorted(gpu) == ["test_torch_gpu_bridge.py",
+                           "test_torch_gpu_collective_grads.py",
                            "test_torch_gpu_decode.py",
                            "test_torch_gpu_fabric.py",
                            "test_torch_gpu_flash.py",

@@ -259,38 +259,58 @@ def test_opt_state_pspecs_matches_jax(axis):
     assert any("ep" in s or "tp" in s for s in plain(got["exp_avg"]))
 
 
-# (id, config, mesh shape, axis names, global tokens, all_to_all, tol)
+# (id, config, mesh shape, axis names, global tokens, all_to_all, tol,
+#  tp_algorithm)
 FORWARD_GRADS = [
-    ("sp2_ring", {}, (2,), ("sp",), (2, 16), "xla", GRAD_TOL),
+    ("sp2_ring", {}, (2,), ("sp",), (2, 16), "xla", GRAD_TOL, "psum"),
     ("sp2_ulysses", dict(sp_attention="ulysses"), (2,), ("sp",), (2, 16),
-     "xla", GRAD_TOL),
-    ("tp2", GQA, (2,), ("tp",), (2, 16), "xla", TP_TOL),
-    ("ep2_xla", MOE, (2,), ("ep",), (4, 16), "xla", GRAD_TOL),
-    ("ep2_direct", MOE, (2,), ("ep",), (4, 16), "direct", GRAD_TOL),
-    ("ep2_ring", MOE, (2,), ("ep",), (4, 16), "ring", GRAD_TOL),
-    ("ep4_ring", MOE, (4,), ("ep",), (4, 16), "ring", GRAD_TOL),
+     "xla", GRAD_TOL, "psum"),
+    ("tp2", GQA, (2,), ("tp",), (2, 16), "xla", TP_TOL, "psum"),
+    ("ep2_xla", MOE, (2,), ("ep",), (4, 16), "xla", GRAD_TOL, "psum"),
+    ("ep2_direct", MOE, (2,), ("ep",), (4, 16), "direct", GRAD_TOL, "psum"),
+    ("ep2_ring", MOE, (2,), ("ep",), (4, 16), "ring", GRAD_TOL, "psum"),
+    ("ep4_ring", MOE, (4,), ("ep",), (4, 16), "ring", GRAD_TOL, "psum"),
     ("ep2_direct_dropping", dict(MOE, capacity_factor=1.0), (2,), ("ep",),
-     (4, 16), "direct", GRAD_TOL),
+     (4, 16), "direct", GRAD_TOL, "psum"),
+    ("tp2_ring", GQA, (2,), ("tp",), (2, 16), "xla", TP_TOL, "ring"),
+    ("tp2_bidir_ring", GQA, (2,), ("tp",), (2, 16), "xla", TP_TOL,
+     "bidir_ring"),
+    ("tp2_recursive_doubling", GQA, (2,), ("tp",), (2, 16), "xla", TP_TOL,
+     "recursive_doubling"),
+    ("tp2_halving_doubling", GQA, (2,), ("tp",), (2, 16), "xla", TP_TOL,
+     "halving_doubling"),
+    ("tp4_ring", {}, (4,), ("tp",), (2, 16), "xla", TP_TOL, "ring"),
+    ("tp4_halving_doubling", {}, (4,), ("tp",), (2, 16), "xla", TP_TOL,
+     "halving_doubling"),
+    ("sp2_tp2_ring", {}, (2, 2), ("sp", "tp"), (2, 16), "xla", TP_TOL,
+     "ring"),
+    ("tp2_ring_remat", dict(GQA, remat=True), (2,), ("tp",), (2, 16), "xla",
+     TP_TOL, "ring"),
 ]
 
 
-@pytest.mark.parametrize("cfg,shape,names,tshape,a2a,tol",
+@pytest.mark.parametrize("cfg,shape,names,tshape,a2a,tol,tp_alg",
                          [s[1:] for s in FORWARD_GRADS],
                          ids=[s[0] for s in FORWARD_GRADS])
-def test_forward_grad_matches_jax(cfg, shape, names, tshape, a2a, tol):
+def test_forward_grad_matches_jax(cfg, shape, names, tshape, a2a, tol,
+                                  tp_alg):
     """The gradient of sum(logits * c) (c a fixed random cotangent, the
     rank's block of it) through ``forward`` under grad mode, against
     ``jax.grad`` of the JAX package's ``forward`` under ``shard_jit``.
     The port's per-rank gradients are summed over the data-carrying axes
     a leaf is not split over (sp, ep), as vma typing sums them; every
-    all_to_all schedule differentiates to the JAX package's values."""
+    all_to_all schedule differentiates to the JAX package's values, and
+    so does every ``tp_algorithm``: a manual one's logits vary over tp,
+    so its gradient is that of the sum of every tp rank's loss."""
     jc, tc, jp, tp, tok = _setup(5, tshape, **cfg)
     c = np.random.default_rng(6).standard_normal(
         tshape + (BASE["vocab"],)).astype(np.float32)
     kw = _axis_kw(names)
+    tkw = {} if tp_alg == "psum" else dict(tp_algorithm=tp_alg)
 
     def jgrad(p, t, cc):
-        return jax.grad(lambda q: jnp.sum(jt.forward(q, t, jc, **kw) * cc))(p)
+        return jax.grad(lambda q: jnp.sum(jt.forward(q, t, jc, **kw, **tkw)
+                                          * cc))(p)
     specs = _specs(jt, jc, names)
     tspec = _token_spec(names)
     want = shard_jit(jgrad, make_mesh(shape, names),
@@ -305,7 +325,7 @@ def test_forward_grad_matches_jax(cfg, shape, names, tshape, a2a, tol):
         rows = _rank_tokens(tok, axes)
         cc = _rank_tokens(c, axes)
         logits = tt.forward(p, rows, tc, all_to_all_algorithm=a2a,
-                            **_axis_kw(names, axes))
+                            **_axis_kw(names, axes), **tkw)
         grads = torch.autograd.grad((logits * cc).sum(), leaves)
         out = []
         for g, spec in zip(grads, leaf_specs(p, tspecs)):
@@ -318,21 +338,28 @@ def test_forward_grad_matches_jax(cfg, shape, names, tshape, a2a, tol):
     _assert_close(got, want, tol)
 
 
-def test_forward_grad_with_a_manual_tp_schedule_raises():
-    """The manual tp schedules accumulate in place and have no backward:
-    ``forward`` with one under autograd raises; under ``no_grad`` it
-    runs."""
+@pytest.mark.parametrize("alg", ["ring", "bidir_ring", "recursive_doubling",
+                                 "halving_doubling"])
+def test_forward_grad_with_a_manual_tp_schedule_raises(alg):
+    """Every manual tp schedule differentiates: ``forward`` under
+    autograd gives the logits of ``no_grad`` bit for bit (the
+    out-of-place steps keep the in-place steps' order) and the same bits
+    on every rank, and its gradient of one rank's loss is finite."""
     jc, tc, jp, tp, tok = _setup(5, (2, 8))
     mesh = LocalMesh((2,), ("tp",), device="cpu")
     specs = tt.param_pspecs(tc, "tp")
 
     def body(axes, grad):
         p = shard_tree(tp, specs, axes)
-        for x in tt.tree_leaves(p):
-            x.requires_grad_(grad)
-        return tt.forward(p, torch.from_numpy(tok), tc, tp_axis=axes["tp"],
-                          tp_algorithm="ring")
-    with pytest.raises(NotImplementedError, match="no backward"):
-        mesh.run(body, [True, True])
-    out = mesh.run(body, [False, False])
+        leaves = [x.requires_grad_(grad) for x in tt.tree_leaves(p)]
+        logits = tt.forward(p, torch.from_numpy(tok), tc,
+                            tp_axis=axes["tp"], tp_algorithm=alg)
+        if grad:
+            assert all(torch.isfinite(g).all() for g in torch.autograd.grad(
+                logits.sum(), leaves))
+        return logits.detach()
+    live = mesh.run(body, [True, True])
+    with torch.no_grad():
+        out = mesh.run(body, [False, False])
     assert torch.equal(out[0], out[1])
+    assert all(torch.equal(a, b) for a, b in zip(live, out))

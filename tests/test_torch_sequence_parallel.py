@@ -29,6 +29,7 @@ from rlo_tpu_torch.convert import params_from_numpy
 from rlo_tpu_torch.models import transformer as tt
 from rlo_tpu_torch.ops import ring_attention as tr
 from rlo_tpu_torch.ops import ulysses as tu
+from rlo_tpu_torch.ops.device_collectives import allreduce
 from rlo_tpu_torch.parallel.mesh import LocalMesh
 from rlo_tpu_torch.parallel.sharding import shard_tree
 
@@ -224,10 +225,11 @@ def test_forward_with_an_axis_under_grad_raises(axis):
     """Grad mode on: forward with an axis differentiates on a CPU
     LocalMesh (each rank's backward runs on its own thread, with the
     collectives' transposes inside it) and gives the logits it gives
-    under no_grad; what still raises under autograd is a manual tp
-    schedule (its steps accumulate in place and have no backward),
-    refused before any rank enters a collective, so the LocalMesh
-    neither runs nor hangs."""
+    under no_grad, and so does a manual tp schedule (its steps run out
+    of place under autograd); what still raises under autograd is a psum
+    min/max (``lax.pmax`` has no differentiation rule), refused before
+    any rank enters a collective, so the LocalMesh neither runs nor
+    hangs."""
     cfg = tt.TransformerConfig(**dict(BASE, n_experts=4) if axis == "ep_axis"
                                else BASE)
     params = tt.init_params(cfg, device="cpu")
@@ -248,8 +250,16 @@ def test_forward_with_an_axis_under_grad_raises(axis):
         want = mesh.run(lambda axes: run(axes, False, **{axis: axes["x"]}))
     got = mesh.run(lambda axes: run(axes, True, **{axis: axes["x"]}))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if axis == "tp_axis":
+        with torch.no_grad():
+            want = mesh.run(lambda axes: run(axes, False, tp_axis=axes["x"],
+                                             tp_algorithm="ring"))
+        got = mesh.run(lambda axes: run(axes, True, tp_axis=axes["x"],
+                                        tp_algorithm="ring"))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(NotImplementedError, match="no backward"):
-        mesh.run(lambda axes: run(axes, True, tt.param_pspecs(cfg, "x"),
-                                  tp_axis=axes["x"], tp_algorithm="ring"))
+        mesh.run(lambda axes: allreduce(
+            torch.ones(3, requires_grad=True), axes["x"], op="max",
+            algorithm="psum"))
     with torch.no_grad():
         assert torch.isfinite(tt.forward(params, tok, cfg)).all()

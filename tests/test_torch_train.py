@@ -27,6 +27,7 @@ import torch
 from rlo_tpu.models import transformer as jt
 from rlo_tpu_torch.convert import params_from_numpy, params_to_numpy
 from rlo_tpu_torch.models import transformer as tt
+from rlo_tpu_torch.ops.device_collectives import allreduce
 from rlo_tpu_torch.parallel.mesh import LocalMesh
 
 SEQ = 32
@@ -263,9 +264,10 @@ def test_model_parallel_training_refused(axis):
     refuses, for dense and MoE layers alike: under every axis an int8
     ``dcn_algorithm`` (the JAX package's vma path sums dp and dcn
     plainly and refuses it too); under sp a striped split (the JAX
-    package's sp loss is contiguous only); under tp a manual
-    ``tp_algorithm`` under autograd (its schedules have no backward).
-    An MoE loss on one card runs."""
+    package's sp loss is contiguous only); under tp a psum min/max under
+    autograd (``lax.pmax`` has no differentiation rule), while a manual
+    ``tp_algorithm`` under autograd differentiates and gives the no-grad
+    logits. An MoE loss on one card runs."""
     jc, tc = _cfgs(**SMALL)
     _, tp = _params(jc, 9)
     tok = torch.zeros((2, SEQ), dtype=torch.int32)
@@ -282,15 +284,29 @@ def test_model_parallel_training_refused(axis):
             with pytest.raises(ValueError, match="contiguous split"):
                 tt.loss_fn(params, tok, striped, sp_axis=object())
         if axis == "tp_axis":
-            def ring_forward(axes, params=params, cfg=cfg):
-                live = tt._rebuild(params, iter(
-                    t.detach().requires_grad_(True)
-                    for t in tt.tree_leaves(params)))
-                return tt.forward(live, tok, cfg, tp_axis=axes["tp"],
-                                  tp_algorithm="ring")
+            def ring_forward(axes, params=params, cfg=cfg, grad=True):
+                leaves = [t.detach().requires_grad_(grad)
+                          for t in tt.tree_leaves(params)]
+                logits = tt.forward(tt._rebuild(params, iter(leaves)), tok,
+                                    cfg, tp_axis=axes["tp"],
+                                    tp_algorithm="ring")
+                if grad:
+                    grads = torch.autograd.grad(logits.sum(), leaves,
+                                                allow_unused=True)
+                    assert all(g is None or torch.isfinite(g).all()
+                               for g in grads)
+                return logits.detach()
             mesh = LocalMesh((1,), ("tp",), device="cpu")
+            (got,) = mesh.run(ring_forward)
+            (want,) = mesh.run(lambda axes: ring_forward(axes, grad=False))
+            assert torch.equal(got, want)
+
+            def psum_max(axes, params=params):
+                return allreduce(tt.tree_leaves(params)[0].detach()
+                                 .requires_grad_(), axes["tp"], op="max",
+                                 algorithm="psum")
             with pytest.raises(NotImplementedError, match="no backward"):
-                mesh.run(ring_forward)
+                mesh.run(psum_max)
 
 
 def test_training_reduces_loss():
