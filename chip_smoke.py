@@ -9,10 +9,12 @@ expert-parallel training as processes on the card, the rootless
 serving fabric over fleets of the card's DecodeServers, the host
 facades (native, loopback, mpi, tcp) fed card tensors, and the
 developer tools (the static analyzers, the byte pinning, the hostile
-probes of the decode kernels, rlo-scope and rlo-trace), and the
+probes of the decode kernels, rlo-scope and rlo-trace), the
 collectives' backward (K1 with a backward, every differentiable
 collective and ``forward``'s gradient under a manual tp schedule as
-processes on the card).
+processes on the card), every kernel past CUDA's 65,535 blocks on
+grid.y/z, and TP/EP generation and the pipelines as processes on the
+card.
 
     python3 chip_smoke.py
 
@@ -148,13 +150,13 @@ Phases, each printing its own lines:
 13. Tensor-, expert- and sequence-parallel inference at full width,
    each rank a thread of a ``LocalMesh`` on the one card, the params cut
    by ``param_pspecs``/``shard_tree``: (a) TP ``generate`` (tp 4, the
-   flagship at batch 32 / plen 1024 / 16 new, bf16) against the one-rank
+   flagship at batch 32 / plen 1024 / 8 new, bf16) against the one-rank
    generate by the near-tie rule, and GQA+RoPE ``decode_step`` and T = 4
    ``block_decode`` at tp 2 with a bf16 and an int8 cache, logits within
    PAR_REL_BF16 of one rank's; (b) the TP forward (tp 4, ring allreduce:
    K1) on 4 x 1024, logits within PAR_REL_BF16; (c) EP ``generate`` at
    phase 12's widths (ep 4, 2 experts and 8 rows a rank, drop-free,
-   plen 1024, 16 new) with the 'xla' and 'direct' all_to_alls, which
+   plen 1024, 8 new) with the 'xla' and 'direct' all_to_alls, which
    must give the same tokens bit for bit, each row held against the
    one-rank generate with both runs' router records (``routes_against``:
    router log-probabilities within ROUTER_TOL up to the row's first
@@ -192,20 +194,22 @@ Phases, each printing its own lines:
    on one card: not a figure for pipelining across cards).
 15. The consensus-gated bridge and several processes on the card:
    (a) ``rlo_tpu_torch.init(backend="hybrid", world_size=8)`` with 256
-   MB fp32 a rank: gated allreduce (ring), reduce_scatter and all_gather
+   MB fp32 a rank (the gate: the C engines' judged round, as the JAX
+   package's bridge): gated allreduce (ring), reduce_scatter and all_gather
    from proposer 5, bit-identical to the ungated ``TorchBackend`` calls;
    a shape and a dtype veto (decision 0, and their profiled windows hold
    no kernel at all); ``device_judge`` vetoes from a NaN in rank 6's
    tensor and in the proposer's own; the wall time of a gated and an
-   ungated allreduce and the host time of one consensus round at ws 8;
+   ungated allreduce and the host time of one consensus round at ws 8
+   and of one judged round on the C engines and on the Python engines;
    K1's launch count set to 0 before the phase and read after it. (b)
    four processes on the one card, each a ``MultiHostContext`` (engine
    over the TCP transport, data group gloo, local tensors and judges on
    the card), run the multihost demo's rounds 1-4 and each prints
    ``MULTIHOST-OK``. (c) The gated rounds of (a) run inside
    ``utils.tracing.annotate``: the profiler window records the range with
-   every K1 kernel inside it; one gated round's ``TRACER`` events equal
-   the same round's on the CPU.
+   every K1 kernel inside it; one gated round's C-engine events (the C
+   core's trace ring) equal the same round's on the CPU.
 16. Sequence-, tensor- and expert-parallel training at full width as
    four processes on the one card (``chip_smoke.py
    --train-parallel-worker``), each one rank over gloo (``DistAxis`` on
@@ -286,12 +290,13 @@ Phases, each printing its own lines:
    GB/s of each step; rlo-trace over phase 17's span dumps: no
    incomplete trace.
 20. The collectives' backward (``phase_grad_parallel``): (a) K1 with a
-   backward, ``FusedCombine``, against autograd through its plain version
+   backward, ``FusedCombine``, against its plain path (``use_kernel=False``,
+   JAX's min/max rule: a winning NaN gives neither operand a share)
    on the same card tensors (f32/bf16 x sum/min/max at 32 MB and a
    ragged size, integer-valued operands with ties and NaNs): the forward
    and both gradients bit-identical, one K1 launch a forward and none in
    the backward, the forward + backward timed against the plain
-   version's; then four ``chip_smoke.py --grad-parallel-worker``
+   path's; then four ``chip_smoke.py --grad-parallel-worker``
    processes over gloo on the one card: (b) every differentiable
    collective at 1 MB f32 a rank (the four manual allreduces with sum
    and max, reduce-scatter ring and halving, all-gather xla, ring and
@@ -308,8 +313,24 @@ Phases, each printing its own lines:
    process, K1 launched layers x 2 sums x the schedule's combines in the
    forward and K2/K4/K5 once a layer; each schedule's wall, peak and
    bytes staged through the host a process.
-21. One JSON line of kernel figures, each with the path whose launches
-   it counts (and ``launches_by_path`` for phases 11-20), then the last
+21. Past CUDA's 65,535 blocks on grid.y/z and the model-parallel paths
+   as processes: (a) ``phase_grid_limits``: K2 and K3-K5 at 65,536 and
+   70,001 folded heads (bf16 and f32, Lq = Lk = 16, D 16) within phases
+   5's and 7's tolerances of their plain versions, K8 and K11 at 65,536
+   and 70,001 (row, head) blocks bit-equal to indexed assignment, K6 over
+   65,536 * 256 + 1 positions (4.3 GB of bf16 cache; the entry widens the
+   split to 512) and over 65,536 row tiles within phase 5's tolerance,
+   each call one launch a chunk of 65,535 blocks (counted) and timed by
+   events; (b) ``phase_proc_parallel``: four ``chip_smoke.py
+   --proc-parallel-worker`` processes over gloo on the one card run
+   phase 13's TP generate (tp 4, the ring tp schedule, 32 x 1024, 8 new
+   tokens) and EP generate (ep 4, bf16, 'xla' all_to_all) and one GPipe
+   and one 1F1B step at pp 4 (phase 14's 8 x 1024); tokens, stage updates
+   and losses bit-equal to the same runs on a ``LocalMesh`` on the card;
+   walls, launches of K1, K2, K4-K7 and bytes staged through the host a
+   process.
+22. One JSON line of kernel figures, each with the path whose launches
+   it counts (and ``launches_by_path`` for phases 11-21), then the last
    line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-writes
@@ -330,6 +351,11 @@ flagship decode shape, 289 pages in turns with K6, GQA batch 4, a
 
 likewise times K3 alone at the training shape, causal and not, by
 events and device time, with a digest of its counts (``time_k3``).
+
+    python3 chip_smoke.py --time-flash
+
+likewise times K2 at the prefill shape and K4/K5 at the training shape,
+with a digest of each output (``time_flash``).
 
 Every profiled window (``profiled``: device times, the kernels a call
 runs) opens with 64 launches of a spin kernel that it leaves out (the
@@ -2943,6 +2969,53 @@ def time_k3(dev) -> dict:
     return out
 
 
+def time_flash(dev) -> dict:
+    """K2 at the prefill shape (512 folded heads x 1024 x 64, bf16,
+    causal, from the initial state) and K4/K5 at the training shape
+    (``BWD_SHAPE``, bf16, causal, fast mode: route 0): CUDA-event ms a
+    launch in runs of 10 and device ms by the profiler, with a digest of
+    each output (equal digests: equal bits). Calls only what the parent
+    tree has too (``--time-flash``)."""
+    import hashlib
+    import torch
+    from rlo_tpu_torch.kernels import flash as kf
+
+    def digest(*ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    out = {}
+    for tag, (h, n) in (("K2 prefill", (512, 1024)), ("K4/K5", BWD_SHAPE)):
+        q, k, v = (torch.randn(h, n, 64, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        m = torch.full((h, 1, n), kf.NEG, device=dev)
+        state = (m, torch.zeros_like(m), torch.zeros(h, n, 64, device=dev))
+        pos = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, n)
+        kw = dict(causal=True, scale=0.125)
+        with torch.no_grad():
+            fwd = lambda: kf.flash_block_update_hld(  # noqa: E731
+                q, k, v, *state, pos, pos, **kw)
+            m2 = fwd()
+        if tag == "K2 prefill":
+            out[tag] = dict(ms=time_ms(fwd, iters=10, per=10),
+                            device_ms=device_ms(fwd, 20), sha1=digest(*m2))
+            continue
+        dl2, do2 = (torch.randn(h, 1, n, generator=gen, device=dev),
+                    torch.randn(h, n, 64, generator=gen, device=dev))
+        ops = (q, k, v, m2[0], dl2, do2, torch.zeros_like(dl2), pos, pos)
+        for name, f in (("K4", lambda: kf.bwd_dq(*ops, **kw)),
+                        ("K5", lambda: kf.bwd_dkv(*ops, **kw))):
+            r = f()
+            out[name] = dict(ms=time_ms(f, iters=10, per=10),
+                             device_ms=device_ms(f, 20),
+                             sha1=digest(*(r if isinstance(r, tuple)
+                                           else (r,))))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: the VJP in its three modes
 # ---------------------------------------------------------------------------
@@ -3675,10 +3748,10 @@ def phase_moe(dev, flash_fns) -> dict:
 #: phase 13's shapes: TP decode at the flagship serving shape; a GQA+RoPE
 #: decode step and T = 4 block; the TP forward through K1; EP decode at
 #: phase 12's MoE widths; one long sequence split over sp
-TP_DECODE = dict(tp=4, batch=32, plen=1024, max_new=16)
+TP_DECODE = dict(tp=4, batch=32, plen=1024, max_new=8)
 TP_GQA = dict(tp=2, batch=4, plen=128, block=4)
 TP_FORWARD = dict(tp=4, batch=4, seq=1024, algorithm="ring")
-EP_DECODE = dict(ep=4, batch=32, plen=1024, max_new=16)
+EP_DECODE = dict(ep=4, batch=32, plen=1024, max_new=8)
 SP_FORWARD = dict(sp=4, seq=4096)
 #: a model-parallel run's logits against one rank's, as the relative L2
 #: norm of their difference: bf16 (the row-parallel sums round each
@@ -4456,14 +4529,17 @@ def _device_kernels(prof):
 
 def phase_bridge(dev, n: int) -> dict:
     """(a) the hybrid facade's gated collectives at ``n`` fp32 a rank
-    against the ungated ``TorchBackend`` calls, the vetoes, the times;
-    (c) the gated rounds inside an annotation, and one round's engine
-    events on the device against the CPU's."""
+    against the ungated ``TorchBackend`` calls, the vetoes, the times (the
+    gate's judged round on the C engines and, beside it, on the Python
+    engines); (c) the gated rounds inside an annotation, and one round's
+    C-engine events (the C core's trace ring) on the device against the
+    CPU's."""
     import torch
     import rlo_tpu_torch
     from rlo_tpu_torch.bridge import HybridBackend, run_judged_proposal
     from rlo_tpu_torch.kernels import reduce as k1
-    from rlo_tpu_torch.utils.tracing import TRACER, annotate
+    from rlo_tpu_torch.native import bindings as native
+    from rlo_tpu_torch.utils.tracing import annotate
 
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -4598,14 +4674,17 @@ def phase_bridge(dev, n: int) -> dict:
     stats["consensus_round_host_us"] = host_us(
         lambda: h.consensus([1] * WS, proposer=p), n=50)
     stats["judged_round_host_us"] = host_us(
+        lambda: native.run_judged_proposal(WS, b"{}", p), n=50)
+    stats["python_judged_round_host_us"] = host_us(
         lambda: run_judged_proposal(WS, b"{}", p), n=50)
     print(f"[bridge] 256 MB allreduce (ring) wall: gated "
           f"{stats['gated_allreduce_ms']:.3f} ms, ungated "
           f"{stats['ungated_allreduce_ms']:.3f} ms; one consensus round "
-          f"at ws {WS} (the facade's engines) "
+          f"at ws {WS} (the facade's C engines) "
           f"{stats['consensus_round_host_us']:.1f} host us, one judged "
-          f"round on a fresh engine world "
-          f"{stats['judged_round_host_us']:.1f} host us")
+          f"round on a fresh world of C engines (the gate) "
+          f"{stats['judged_round_host_us']:.1f} host us, of the Python "
+          f"engines {stats['python_judged_round_host_us']:.1f} host us")
     del xs
 
     # (c) one gated round's engine events on the device and on the CPU
@@ -4613,26 +4692,30 @@ def phase_bridge(dev, n: int) -> dict:
              for _ in range(WS)]
 
     def events(backend, ys):
-        TRACER.clear()
-        with TRACER.enable():
+        native.trace_clear()
+        native.trace_set(True)
+        try:
             d, _ = backend.propose_collective(
                 "allreduce", ys, proposer=p, device_judge=finite,
                 algorithm="ring")
-        evs = [(e.kind.name, e.rank, e.a, e.b, e.c, e.d)
-               for e in TRACER.events()]
-        TRACER.clear()
+        finally:
+            native.trace_set(False)
+        evs = [(e["kind"], e["rank"], e["a"], e["b"], e["c"], e["d"])
+               for e in native.trace_drain()]
+        native.trace_clear()
         check(d == 1, "the traced round was vetoed")
         return evs
     on_dev = gated_call(lambda: events(h, small))
     on_cpu = events(HybridBackend(world_size=WS, device="cpu"),
                     [t.cpu() for t in small])
     check(on_dev == on_cpu and len(on_dev) > 0,
-          f"the round's TRACER events on {dev} differ from the CPU's")
+          f"the round's C-engine events on {dev} differ from the CPU's")
     check(stats["k1_gated_launches"] > 0,
           "K1 was not launched on the gated path")
     stats["trace_events"] = len(on_dev)
-    print(f"[bridge] one gated ws-{WS} round's TRACER events (kind, rank, "
-          f"a, b, c, d): {len(on_dev)} on {dev}, equal to the CPU's")
+    print(f"[bridge] one gated ws-{WS} round's C-engine events (kind, "
+          f"rank, a, b, c, d; the C core's trace ring): {len(on_dev)} on "
+          f"{dev}, equal to the CPU's")
     h.close()
     b.close()
     return stats
@@ -6314,12 +6397,14 @@ GRAD_TP_ALGORITHMS = ("ring", "bidir_ring", "recursive_doubling",
 
 def phase_k1_grad(dev) -> dict:
     """20a: ``FusedCombine`` (K1 out of place, with a backward) against
-    autograd through ``fused_combine_plain`` on the same card tensors:
+    its plain path (``FusedCombine.apply(..., use_kernel=False)``: the
+    plain forward, JAX's min/max rule backward) on the same card tensors:
     f32/bf16 x sum/min/max at 32 MB and at a ragged size, integer-valued
     operands (ties everywhere) with NaNs in both. The forward's bits and
-    both gradients' must be the plain version's, the forward one K1
-    launch and the backward none. Then the forward and backward at 32 MB
-    f32 max against the plain version's, by events."""
+    both gradients' must be the plain path's, the forward one K1 launch
+    and the backward none, and where a NaN won min/max neither operand
+    gets a share. Then the forward and backward at 32 MB f32 max against
+    the plain path's, by events."""
     import torch
     from rlo_tpu_torch.kernels import reduce as k1
 
@@ -6338,6 +6423,9 @@ def phase_k1_grad(dev) -> dict:
         y = fn(la, lb, op)
         return (y,) + torch.autograd.grad(y, (la, lb), ct)
 
+    def plain(a, b, op):
+        return k1.FusedCombine.apply(a, b, op, False)
+
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         esize = torch.empty((), dtype=dtype).element_size()
@@ -6350,25 +6438,30 @@ def phase_k1_grad(dev) -> dict:
                 check(k1.fused_combine.launches == before + 1,
                       f"FusedCombine {op} {dtype} n={n} launched K1 "
                       f"{k1.fused_combine.launches - before} times, not once")
-                want = grads(k1.fused_combine_plain, a, b, ct, op)
+                want = grads(plain, a, b, ct, op)
                 torch.cuda.synchronize()
                 for what, g, w in zip(("forward", "grad a", "grad b"), got,
                                       want):
                     check(same_bits(g.detach(), w.detach()),
                           f"FusedCombine {op} {dtype} n={n}: {what} is not "
-                          f"bit-identical to the plain version's")
+                          f"bit-identical to the plain path's")
+                if op != "sum":
+                    nan = a.isnan() | b.isnan()
+                    check(all(bool((g[nan] == 0).all()) for g in got[1:]),
+                          f"FusedCombine {op} {dtype} n={n}: a winning NaN "
+                          f"passed the cotangent on (JAX gives no share)")
                 cases += 1
     a, b, ct = operands(GRAD_K1["nbytes"] // 4, torch.float32)
     ms = time_ms(lambda: grads(k1.FusedCombine.apply, a, b, ct, "max"),
                  iters=10)
-    plain_ms = time_ms(lambda: grads(k1.fused_combine_plain, a, b, ct,
-                                     "max"), iters=10)
+    plain_ms = time_ms(lambda: grads(plain, a, b, ct, "max"), iters=10)
     print(f"[k1-grad] 20a {cases} cases (f32/bf16 x sum/min/max x 32 MB and "
           f"{GRAD_K1['ragged']} elements, integer-valued operands with ties "
           f"and NaNs): FusedCombine's forward one K1 launch and bit-identical "
-          f"to fused_combine_plain, both gradients bit-identical to its "
-          f"autograd's; forward + backward at 32 MB f32 max {ms:.4f} ms, the "
-          f"plain version's {plain_ms:.4f} ms (events)")
+          f"to fused_combine_plain, both gradients bit-identical to the "
+          f"plain path's (JAX's rule: no share to either where a NaN "
+          f"won); forward + backward at 32 MB f32 max {ms:.4f} ms, the "
+          f"plain path's {plain_ms:.4f} ms (events)")
     return {"cases": cases, "fwd_bwd_ms_32MB_max": ms,
             "plain_fwd_bwd_ms_32MB_max": plain_ms}
 
@@ -6741,6 +6834,547 @@ def phase_grad_parallel(dev) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: past CUDA's grid.y/z limit (21a); TP/EP generate and the
+# pipelines as processes on the card (21b)
+# ---------------------------------------------------------------------------
+
+#: 21a's shapes, each past CUDA's 65,535 blocks on grid.y or grid.z: K2-K5
+#: folded heads (Lq = Lk = ``flash_l``, D 16), K8/K11 (row, head) blocks
+#: (D 16), K6 cache positions (b 1, one kv head, D 64, bf16, T 1: 65,537
+#: splits of 256) and K6 query rows (b 1, one kv head, 32 query heads, D
+#: 16, T 65,536 over ``k6_rows_l`` positions: 65,536 row tiles of 32)
+GRID = dict(heads=(65536, 70001), flash_l=16, blocks=(65536, 70001),
+            k6_positions=65536 * 256 + 1, k6_rows_t=65536, k6_rows_l=384,
+            iters=5)
+#: CUDA's limit on grid.y and grid.z
+MAX_GRID_YZ = 65535
+#: the wrappers whose launches each 21a case counts, by its tag's first word
+GRID_KERNELS = {"K2-K5": ("flash_block_update_hld", "rowstats", "bwd_dq",
+                          "bwd_dkv"),
+                "K8": ("write_kv_block",), "K11": ("write_kv_page_block",),
+                "K6": ("flash_block_decode",)}
+
+
+def _launches_past(n: int) -> int:
+    """Launches a call makes for ``n`` blocks on grid.y."""
+    return -(-n // MAX_GRID_YZ)
+
+
+def phase_grid_limits(dev) -> dict:
+    """21a: every kernel whose grid.y or grid.z is a count the caller
+    chooses, past 65,535, against its plain version: K2 and K3-K5 at
+    65,536 and 70,001 folded heads in bf16 and f32 (phase 5's and 7's
+    tolerances: rtol 1e-4 / atol 1e-4 per unit, K3's counts exactly);
+    K8 and K11 at 65,536 and 70,001 (row, head) blocks, k/v pairs,
+    bit-equal to indexed assignment; K6 over 65,536 * 256 + 1 positions
+    (its entry widens the split) with three planted keys, the last alone
+    in the last split, and over 65,536 row tiles (phase 5's rtol 1e-3 /
+    atol 2e-3). Each call makes one launch a chunk of 65,535 (one for
+    K6's widened split), counted; each is timed by events."""
+    import torch
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.kernels import flash as kf
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 210)
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def launched(fn, call):
+        before = fn.launches
+        res = call()
+        torch.cuda.synchronize()
+        return res, fn.launches - before
+
+    def timed(call):
+        return time_ms(call, iters=GRID["iters"], warmup=1)
+
+    # K2 forward, K3-K5 backward past 65,535 folded heads
+    L, d, kw = GRID["flash_l"], 16, dict(causal=True, scale=0.25)
+    pos = torch.arange(L, dtype=torch.int32, device=dev).reshape(1, L)
+    for h in GRID["heads"]:
+        for dtype in (bf, f32):
+            tag = f"K2-K5 {h} heads {str(dtype).split('.')[1]}"
+            q, k, v = (torch.randn(h, L, d, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            m = torch.full((h, 1, L), kf.NEG, device=dev)
+            l, o = (torch.zeros(h, 1, L, device=dev),
+                    torch.zeros(h, L, d, device=dev))
+            fwd = (q, k, v, m, l, o, pos, pos)
+            with torch.no_grad():
+                got, n2 = launched(kf.flash_block_update_hld, lambda: (
+                    kf.flash_block_update_hld(*fwd, **kw)))
+                want = kf.flash_block_update_hld_plain(*fwd, **kw)
+            for name, g, w in zip("mlo", got, want):
+                check(bool(torch.isfinite(g).all()) and
+                      _close(g, w, 1e-4, 1e-4),
+                      f"21a {tag}: K2 {name} differs from its plain version")
+            m2k, m2p = got[0], want[0]
+            dl2, do2, route = (torch.randn(h, 1, L, generator=gen,
+                                           device=dev),
+                               torch.randn(h, L, d, generator=gen,
+                                           device=dev),
+                               torch.randn(h, 1, L, generator=gen,
+                                           device=dev))
+            ops = (q, k, v, m2k, dl2, do2, route, pos, pos)
+            pops = (q, k, v, m2p, dl2, do2, route, pos, pos)
+            cnt, n3 = launched(kf.rowstats, lambda: kf.rowstats(
+                q, k, m2k, pos, pos, **kw))
+            dq, n4 = launched(kf.bwd_dq, lambda: kf.bwd_dq(*ops, **kw))
+            (dk, dv), n5 = launched(kf.bwd_dkv,
+                                    lambda: kf.bwd_dkv(*ops, **kw))
+            check(torch.equal(cnt, kf.rowstats_plain(q, k, m2p, pos, pos,
+                                                     **kw)),
+                  f"21a {tag}: K3 counts differ from the plain counts")
+            pdq = kf.bwd_dq_plain(*pops, **kw)
+            pdk, pdv = kf.bwd_dkv_plain(*pops, **kw)
+            err = 0.0
+            for what, g, w in (("dq", dq, pdq), ("dk", dk, pdk),
+                               ("dv", dv, pdv)):
+                check(bool(torch.isfinite(g).all()) and
+                      _close(g, w, 1e-4, 1e-4),
+                      f"21a {tag}: {what} differs from its plain version")
+                err = max(err, abs_err(g, w))
+            want_n = _launches_past(h)
+            check([n2, n3, n4, n5] == [want_n] * 4,
+                  f"21a {tag}: launches K2/K3/K4/K5 {[n2, n3, n4, n5]}, "
+                  f"not {want_n} each")
+            with torch.no_grad():
+                ms2 = timed(lambda: kf.flash_block_update_hld(*fwd, **kw))
+            ms345 = timed(lambda: (kf.rowstats(q, k, m2k, pos, pos, **kw),
+                                   kf.bwd_dq(*ops, **kw),
+                                   kf.bwd_dkv(*ops, **kw)))
+            out[tag] = dict(launches=want_n, k2_ms=ms2, k345_ms=ms345,
+                            max_abs_err=max(err, abs_err(got[2], want[2])))
+            print(f"[grid] 21a {tag} (Lq = Lk = {L}, D {d}, causal): K2 "
+                  f"m/l/o and K4/K5 within rtol 1e-4 of the plain versions "
+                  f"(max |err| {out[tag]['max_abs_err']:.3g}), K3's counts "
+                  f"equal; {want_n} launches a call each; K2 {ms2:.4f} ms, "
+                  f"K3 + K4 + K5 {ms345:.4f} ms (events)")
+            del q, k, v, m, l, o, got, want, ops, pops, dq, dk, dv, pdq, \
+                pdk, pdv, do2
+
+    # K8 and K11 past 65,535 (row, head) blocks, k/v pairs
+    D, T, Lc = 16, 8, 32
+    for nb, hk in ((GRID["blocks"][0], 1), (1, GRID["blocks"][1])):
+        tag = f"K8 {nb} rows x {hk} heads"
+        caches = [torch.randn(nb, hk, D, Lc, generator=gen, device=dev)
+                  .to(bf) for _ in range(2)]
+        rows = [torch.randn(nb, hk, D, T, generator=gen, device=dev).to(bf)
+                for _ in range(2)]
+        at = torch.randint(0, Lc - T + 1, (nb,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        got = [c.clone() for c in caches]
+        want = [c.clone() for c in caches]
+        _, n8 = launched(kd.write_kv_block, lambda: kd.write_kv_block(
+            got[0], rows[0], at, got[1], rows[1]))
+        kd.write_kv_block_plain(want[0], rows[0], at, want[1], rows[1])
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"21a {tag}: K8 differs from indexed assignment")
+        check(n8 == _launches_past(nb * hk),
+              f"21a {tag}: K8 made {n8} launches")
+        ms = timed(lambda: kd.write_kv_block(got[0], rows[0], at, got[1],
+                                             rows[1]))
+        out[tag] = dict(launches=n8, ms=ms)
+        print(f"[grid] 21a {tag} (D {D}, T {T}, k/v pair, bf16): bit-equal "
+              f"to indexed assignment, {n8} launches, {ms:.4f} ms (events)")
+        del caches, rows, got, want
+    for hk in GRID["blocks"]:
+        tag = f"K11 {hk} heads"
+        pools = [torch.randn(3, hk, D, Lc, generator=gen, device=dev).to(bf)
+                 for _ in range(2)]
+        rows = [torch.randn(hk, D, T, generator=gen, device=dev).to(bf)
+                for _ in range(2)]
+        got = [p.clone() for p in pools]
+        want = [p.clone() for p in pools]
+        _, n11 = launched(kd.write_kv_page_block, lambda: (
+            kd.write_kv_page_block(got[0], rows[0], 1, 5, T - 1, got[1],
+                                   rows[1])))
+        kd.write_kv_page_block_plain(want[0], rows[0], 1, 5, T - 1, want[1],
+                                     rows[1])
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"21a {tag}: K11 differs from indexed assignment")
+        check(n11 == _launches_past(hk), f"21a {tag}: K11 made {n11} "
+                                         f"launches")
+        ms = timed(lambda: kd.write_kv_page_block(got[0], rows[0], 1, 5,
+                                                  T - 1, got[1], rows[1]))
+        out[tag] = dict(launches=n11, ms=ms)
+        print(f"[grid] 21a {tag} (a {T}-token chunk, {T - 1} valid, into "
+              f"page 1 of 3 at lane 5, k/v pair, bf16): bit-equal to indexed "
+              f"assignment, {n11} launches, {ms:.4f} ms (events)")
+        del pools, rows, got, want
+
+    # K6 past 65,535 splits: three planted keys carry the weight, the last
+    # alone in the last split
+    Lk, hd, scale = GRID["k6_positions"], 64, 0.125
+    q = torch.randn(1, 1, 1, hd, generator=gen, device=dev).to(bf)
+    kc = torch.randn(1, 1, hd, Lk, generator=gen, device=dev, dtype=bf)
+    vc = torch.randn(1, 1, hd, Lk, generator=gen, device=dev, dtype=bf)
+    planted = (100, Lk - 300, Lk - 1)
+    for j in planted:
+        kc[0, 0, :, j] = q[0, 0, 0] * 4
+    got, n6 = launched(kd.flash_block_decode, lambda: kd.flash_block_decode(
+        q, kc, vc, Lk - 1, scale))
+    want = kd.flash_block_decode_plain(q, kc, vc, Lk - 1, scale,
+                                       block_k=1 << 20, split_k=None)
+    closed = vc[0, 0][:, list(planted)].float().mean(-1)
+    err = abs_err(got, want)
+    check(bool(torch.isfinite(got).all()) and
+          torch.allclose(got, want, rtol=1e-3, atol=2e-3),
+          f"21a K6 over {Lk} positions differs from its plain version "
+          f"(max |err| {err:.3g})")
+    check(torch.allclose(got[0, 0, 0], closed, rtol=1e-3, atol=1e-3),
+          f"21a K6 over {Lk} positions: not the mean of the planted keys' "
+          f"values (the last split missed?)")
+    check(n6 == 1, f"21a K6 over {Lk} positions made {n6} launches")
+    ms6 = timed(lambda: kd.flash_block_decode(q, kc, vc, Lk - 1, scale))
+    nbytes = 2 * kc.numel() * kc.element_size()
+    out["K6 positions"] = dict(positions=Lk, launches=n6, ms=ms6,
+                               bound_ms=nbytes / PEAK_HBM_BYTES_S * 1e3,
+                               max_abs_err=err, cache_bytes=nbytes)
+    print(f"[grid] 21a K6 over {Lk} positions (b 1, one kv head, D {hd}, "
+          f"bf16, T 1; {nbytes / 2 ** 30:.2f} GiB of cache; "
+          f"{-(-Lk // kd.SPLIT_K)} splits of {kd.SPLIT_K} widened to "
+          f"{-(-Lk // (2 * kd.SPLIT_K))} of {2 * kd.SPLIT_K}): within rtol "
+          f"1e-3 / atol 2e-3 of the plain version (max |err| {err:.3g}) and "
+          f"of the planted keys' mean value; {n6} launch, {ms6:.4f} ms "
+          f"(events; bound {out['K6 positions']['bound_ms']:.4f})")
+    del q, kc, vc, got, want
+
+    # K6 past 65,535 row tiles
+    T6, L6 = GRID["k6_rows_t"], GRID["k6_rows_l"]
+    q = torch.randn(1, T6, 32, 16, generator=gen, device=dev).to(bf)
+    kc = torch.randn(1, 1, 16, L6, generator=gen, device=dev).to(bf)
+    vc = torch.randn(1, 1, 16, L6, generator=gen, device=dev).to(bf)
+    got, n6 = launched(kd.flash_block_decode, lambda: kd.flash_block_decode(
+        q, kc, vc, 0, 0.25))
+    want = kd.flash_block_decode_plain(q, kc, vc, 0, 0.25)
+    err = abs_err(got, want)
+    check(bool(torch.isfinite(got).all()) and
+          torch.allclose(got, want, rtol=1e-3, atol=2e-3),
+          f"21a K6 over {T6 * 32} query rows differs from its plain version "
+          f"(max |err| {err:.3g})")
+    want_n = _launches_past(-(-T6 * 32 // 32))
+    check(n6 == want_n, f"21a K6 over {T6 * 32} query rows made {n6} "
+                        f"launches, not {want_n}")
+    ms6 = timed(lambda: kd.flash_block_decode(q, kc, vc, 0, 0.25))
+    out["K6 rows"] = dict(rows=T6 * 32, launches=n6, ms=ms6,
+                          max_abs_err=err)
+    print(f"[grid] 21a K6 over {T6 * 32} query rows ({T6} tokens x 32 "
+          f"query heads on one kv head, D 16, {L6} positions in "
+          f"{-(-L6 // kd.SPLIT_K)} splits, bf16): within rtol 1e-3 / atol "
+          f"2e-3 of the plain version (max |err| {err:.3g}); {n6} launches "
+          f"of at most 65,535 row tiles, {ms6:.4f} ms (events)")
+    del q, kc, vc, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+#: 21b: four gloo processes on the one card, each a rank of a
+#: ``DistAxis``: phase 13's TP generate (tp 4, the flagship, batch 32 /
+#: plen 1024, ``max_new`` new tokens, the ring tp schedule) and EP
+#: generate (ep 4, phase 12's widths, bf16, 'xla' all_to_all), and one
+#: GPipe and one 1F1B step at pp 4 (phase 14's flagship at 8 x 1024), each
+#: held against the same run on a ``LocalMesh`` on the card
+PROC_PARALLEL = dict(procs=4, timeout_s=400.0, max_new=8,
+                     tp_algorithm="ring", all_to_all="xla")
+
+
+def _proc_parallel_consts() -> dict:
+    """The module settings 21b reads, carried to the worker processes in
+    the plan (a rehearsal shrinks them in the parent only)."""
+    return dict(serve=dict(SERVE_CFG), tp=dict(TP_DECODE),
+                ep=dict(EP_DECODE), pipe=dict(PIPE), experts=MOE_EXPERTS,
+                run=dict(PROC_PARALLEL))
+
+
+def _proc_parallel_runs(dev, c):
+    """21b's configurations and inputs (settings ``c``), made alike in the
+    parent (for the ``LocalMesh`` references) and in every worker
+    process: {name: (cfg, a maker of the full params, pspecs, inputs)};
+    the params from the seed on ``dev``."""
+    import dataclasses
+
+    import torch
+    from rlo_tpu_torch.models import pipeline as pl
+    from rlo_tpu_torch.models import transformer as tt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 211)
+    cfg = tt.TransformerConfig(**c["serve"])
+    b, plen = c["tp"]["batch"], c["tp"]["plen"]
+    runs = {"tp": (cfg, lambda: tt.init_params(cfg, seed=SEED + 21,
+                                               device=dev),
+                   tt.param_pspecs(cfg, "tp"),
+                   torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                                 device=dev, dtype=torch.int32))}
+    mcfg = dataclasses.replace(tt.TransformerConfig(
+        **c["serve"], n_experts=c["experts"],
+        capacity_factor=float(c["experts"])), dtype="bfloat16")
+    runs["ep"] = (mcfg, lambda: tt.cast_params(tt.init_params(
+        mcfg, seed=SEED + 24, device=dev), mcfg.act_dtype),
+        tt.param_pspecs(mcfg, ep_axis="ep"),
+        torch.randint(0, mcfg.vocab, (c["ep"]["batch"], c["ep"]["plen"]),
+                      generator=gen, device=dev, dtype=torch.int32))
+    runs["pipe"] = (cfg, lambda: pl.stack_layers(tt.init_params(
+        cfg, seed=SEED, device=dev)), pl.pipeline_pspecs("pp", cfg),
+        torch.randint(0, cfg.vocab, (c["pipe"]["batch"], c["pipe"]["seq"]),
+                      generator=gen, device=dev, dtype=torch.int32))
+    return runs
+
+
+def _proc_parallel_call(name, cfg, p, inputs, ax, c, fn=None):
+    """One 21b run on this rank (settings ``c``): TP generate (the whole
+    prompt), EP generate (this rank's rows) or a pipelined step ``fn``."""
+    from rlo_tpu_torch.models import generate as G
+    run = c["run"]
+    if name == "tp":
+        return G.generate(p, inputs, cfg, max_new=run["max_new"],
+                          tp_axis=ax, tp_algorithm=run["tp_algorithm"])
+    if name == "ep":
+        rows = inputs.chunk(ax.size)[ax.index]
+        return G.generate(p, rows, cfg, max_new=run["max_new"], ep_axis=ax,
+                          all_to_all_algorithm=run["all_to_all"])
+    return fn(p, inputs, cfg, ax, c["pipe"]["n_micro"], lr=SGD_LR)
+
+
+def _proc_parallel_plan(dev, tmp) -> dict:
+    """The ``LocalMesh`` references of 21b on the card, saved to ``tmp``
+    (tokens a rank, each pipelined step's new stage params a rank and
+    loss), their walls, and the plan the worker processes read."""
+    import os
+
+    import torch
+    from rlo_tpu_torch.models import pipeline as pl
+    from rlo_tpu_torch.parallel.mesh import LocalMesh
+    from rlo_tpu_torch.parallel.sharding import shard_tree
+
+    nproc = PROC_PARALLEL["procs"]
+    c = _proc_parallel_consts()
+    plan = {"count_plain": dev.type == "cpu", "walls": {}, "refs": {},
+            "consts": c}
+    for name, (cfg, make, specs, inputs) in _proc_parallel_runs(
+            dev, c).items():
+        mesh = LocalMesh((nproc,), ("x",), device=dev)
+        full = make()
+        shards = [shard_tree(full, specs, {name if name != "pipe" else "pp":
+                                           mesh.axes(r)["x"]})
+                  for r in range(nproc)]
+        del full
+        steps = {"gpipe": pl.pipeline_train_step,
+                 "1f1b": pl.pipeline_1f1b_train_step} \
+            if name == "pipe" else {name: None}
+        for tag, fn in steps.items():
+            def body(axes, p, tag=tag, fn=fn):
+                with contextlib.ExitStack() as st:
+                    if name != "pipe":
+                        st.enter_context(torch.no_grad())
+                    return _proc_parallel_call(name, cfg, p, inputs,
+                                               axes["x"], c, fn)
+            _sync(dev)
+            t0 = time.perf_counter()
+            outs = mesh.run(body, shards)
+            _sync(dev)
+            plan["walls"][tag] = (time.perf_counter() - t0) * 1e3
+            path = os.path.join(tmp, f"ref_{tag}.pt")
+            if name == "pipe":
+                torch.save([([t.cpu() for t in _leaves(o[0])],
+                             o[1].cpu()) for o in outs], path)
+            else:
+                torch.save([o.cpu() for o in outs], path)
+            plan["refs"][tag] = path
+            del outs
+        del shards, mesh
+        _empty(dev)
+    return plan
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree) -> list:
+    from rlo_tpu_torch.models import transformer as tt
+    return tt.tree_leaves(tree)
+
+
+def proc_parallel_worker(argv) -> int:
+    """One process of 21b: rank, world size, store path, device type, plan
+    path. Runs TP generate, EP generate, a GPipe and a 1F1B step as one
+    rank of a gloo ``DistAxis`` and prints a ``PROC-PARALLEL`` JSON line
+    for each: whether its result equals the ``LocalMesh`` run's bit for
+    bit, the wall, the launches and the bytes staged through the host."""
+    rank, ws, store, devtype, plan_path = (int(argv[0]), int(argv[1]),
+                                           argv[2], argv[3], argv[4])
+    import torch
+    if devtype == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device in a phase-21 process",
+              file=sys.stderr)
+        return 2
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.kernels import flash as kf
+    from rlo_tpu_torch.kernels import reduce as k1
+    from rlo_tpu_torch.models import pipeline as pl
+    from rlo_tpu_torch.parallel.mesh import dist_mesh_axes
+    from rlo_tpu_torch.parallel.sharding import shard_tree
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    with open(plan_path) as f:
+        plan = json.load(f)
+    counted = (k1.fused_combine, kf.flash_block_update_hld, kf.bwd_dq,
+               kf.bwd_dkv, kd.flash_block_decode, kd.write_kv_row)
+    if plan["count_plain"]:
+        # a rehearsal on the CPU: the plain versions count in their
+        # wrappers' place
+        for mod, wrapper in zip((k1, kf, kf, kf, kd, kd), counted):
+            def bump(*a, _orig=getattr(mod, wrapper.__name__ + "_plain"),
+                     _w=wrapper, **kw):
+                _w.launches += 1
+                return _orig(*a, **kw)
+            setattr(mod, wrapper.__name__ + "_plain", bump)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if devtype == "cuda" else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, ws), rank=rank, world_size=ws,
+        timeout=timedelta(seconds=PROC_PARALLEL["timeout_s"] / 2))
+    c = plan["consts"]
+    try:
+        ax = dist_mesh_axes((ws,), ("x",), device=dev)["x"]
+        # gloo's first collectives set up its pairs: not in a run's wall
+        ax.all_reduce(torch.ones(8, device=dev), "sum")
+        ax.ppermute(torch.ones(8, device=dev),
+                    [(r, (r + 1) % ws) for r in range(ws)])
+        for name, (cfg, make, specs, inputs) in _proc_parallel_runs(
+                dev, c).items():
+            p0 = shard_tree(make(), specs,
+                            {name if name != "pipe" else "pp": ax})
+            steps = {"gpipe": pl.pipeline_train_step,
+                     "1f1b": pl.pipeline_1f1b_train_step} \
+                if name == "pipe" else {name: None}
+            for tag, fn in steps.items():
+                ref = torch.load(plan["refs"][tag], mmap=True)[rank]
+                for f in counted:
+                    f.launches = 0
+                staged0 = ax.staged_bytes
+                _sync(dev)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with contextlib.ExitStack() as st:
+                    if name != "pipe":
+                        st.enter_context(torch.no_grad())
+                    got = _proc_parallel_call(name, cfg, p0, inputs, ax, c,
+                                              fn)
+                _sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+                line = dict(tag=tag, rank=rank, wall_ms=wall,
+                            staged_bytes=ax.staged_bytes - staged0,
+                            launches={f.__name__: f.launches
+                                      for f in counted},
+                            peak_gib=torch.cuda.max_memory_allocated()
+                            / 2 ** 30 if dev.type == "cuda" else 0.0)
+                if name == "pipe":
+                    # the step again, warm: the first carries the
+                    # process's first backward
+                    _sync(dev)
+                    t1 = time.perf_counter()
+                    _proc_parallel_call(name, cfg, p0, inputs, ax, c, fn)
+                    _sync(dev)
+                    line["warm_wall_ms"] = (time.perf_counter() - t1) * 1e3
+                    new, loss = got
+                    leaves = [t.cpu() for t in _leaves(new)]
+                    old = [t.cpu() for t in _leaves(p0)]
+                    line["equal"] = bool(torch.equal(loss.cpu(), ref[1])) \
+                        and all(torch.equal(g, w)
+                                for g, w in zip(leaves, ref[0]))
+                    line["update_rel_l2_max"] = max(
+                        float((g.double() - w.double()).norm()
+                              / max(float((w.double() - o.double()).norm()),
+                                    1e-300))
+                        for g, w, o in zip(leaves, ref[0], old))
+                    line["loss"] = float(loss)
+                else:
+                    line["equal"] = bool(torch.equal(got.cpu(), ref))
+                    line["tokens"] = list(got.shape)
+                print("PROC-PARALLEL " + json.dumps(line), flush=True)
+                del got
+            del p0
+            _empty(dev)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_proc_parallel(dev) -> dict:
+    """21b (see the module docstring): the ``LocalMesh`` references here,
+    then ``PROC_PARALLEL['procs']`` processes ``chip_smoke.py
+    --proc-parallel-worker`` over gloo on the one card; every process's
+    tokens (TP, EP) and stage update and loss (GPipe, 1F1B) bit-equal to
+    the reference's."""
+    nproc = PROC_PARALLEL["procs"]
+    plan, lines, t_ref, t_procs = _rank_processes(
+        dev, _proc_parallel_plan, "--proc-parallel-worker", nproc,
+        PROC_PARALLEL["timeout_s"], 21, "PROC-PARALLEL")
+    stats = {}
+    for tag in ("tp", "ep", "gpipe", "1f1b"):
+        got = sorted((x for x in lines if x["tag"] == tag),
+                     key=lambda x: x["rank"])
+        check(len(got) == nproc, f"21b {tag}: {len(got)} of {nproc} "
+                                 f"processes reported")
+        for x in got:
+            check(x["equal"], f"21b {tag}: process {x['rank']}'s result is "
+                              f"not the LocalMesh run's bits"
+                              + (f" (update relative L2 "
+                                 f"{x['update_rel_l2_max']:.3g})"
+                                 if "update_rel_l2_max" in x else ""))
+        launches = got[0]["launches"]
+        if tag in ("tp", "ep"):
+            for k in ("flash_block_update_hld", "flash_block_decode",
+                      "write_kv_row"):
+                check(all(x["launches"][k] > 0 for x in got),
+                      f"21b {tag}: {k} was not launched in every process")
+        if tag == "tp":
+            check(all(x["launches"]["fused_combine"] > 0 for x in got),
+                  "21b tp: K1 was not launched in every process")
+        if tag in ("gpipe", "1f1b"):
+            for k in ("flash_block_update_hld", "bwd_dq", "bwd_dkv"):
+                check(all(x["launches"][k] > 0 for x in got),
+                      f"21b {tag}: {k} was not launched in every process")
+        walls = [x["wall_ms"] for x in got]
+        warm = [x["warm_wall_ms"] for x in got if "warm_wall_ms" in x]
+        stats[tag] = dict(wall_ms_max=max(walls), wall_ms_min=min(walls),
+                          warm_wall_ms_max=max(warm, default=None),
+                          local_mesh_ms=plan["walls"][tag],
+                          staged_bytes=[x["staged_bytes"] for x in got],
+                          peak_gib_max=max(x["peak_gib"] for x in got),
+                          launches=[x["launches"] for x in got])
+        print(f"[proc-parallel] 21b {tag} over {nproc} gloo processes: "
+              f"bit-equal to the LocalMesh run's on every process; wall "
+              f"{min(walls):.1f}-{max(walls):.1f} ms a process"
+              + (f" (again, warm: up to {max(warm):.1f} ms)" if warm else "")
+              + f" (the LocalMesh {plan['walls'][tag]:.1f} ms); staged "
+              f"through the "
+              f"host {stats[tag]['staged_bytes']} bytes a process; peak "
+              f"{stats[tag]['peak_gib_max']:.2f} GiB; launches a process "
+              f"{json.dumps(stats[tag]['launches'])}")
+    stats["reference_s"], stats["processes_s"] = t_ref, t_procs
+    print(f"[proc-parallel] the LocalMesh references {t_ref:.1f} s, the "
+          f"{nproc} processes {t_procs:.1f} s (start included)")
+    return stats
+
+
 def _to_device(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
@@ -6863,6 +7497,8 @@ def main() -> int:
         return multihost_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--train-parallel-worker"]:
         return train_parallel_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--proc-parallel-worker"]:
+        return proc_parallel_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--grad-parallel-worker"]:
         return grad_parallel_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--host-worker"]:
@@ -6904,6 +7540,13 @@ def main() -> int:
         build.load("flash")
         times = time_k3(dev)
         windows_line("time-k3")
+        print(json.dumps(times))
+        return 0
+    if sys.argv[1:] == ["--time-flash"]:
+        from rlo_tpu_torch.kernels import build
+        build.load("flash")
+        times = time_flash(dev)
+        windows_line("time-flash")
         print(json.dumps(times))
         return 0
     if sys.argv[1:] == ["--time-writes"]:
@@ -7098,6 +7741,13 @@ def main() -> int:
     t0 = time.perf_counter()
     grads = phase_grad_parallel(dev)
     print(f"[grad-parallel] phase 20 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid = phase_grid_limits(dev)
+    print(f"[grid] phase 21a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    proc_par = phase_proc_parallel(dev)
+    print(f"[proc-parallel] phase 21b took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"facade_allreduce": facade, "serving": serving,
                       "paged_serving": paged,
@@ -7108,7 +7758,8 @@ def main() -> int:
                       "multihost": multihost,
                       "train_parallel": train_par, "fabric": fabric,
                       "host_facades": host, "tools": tools,
-                      "collective_grads": grads}))
+                      "collective_grads": grads, "grid_limits": grid,
+                      "proc_parallel": proc_par}))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     # the path whose run counted each kernel's launches
     facade_p, serve_p = "facade (phase 3)", "dense serving (phase 5)"
@@ -7151,6 +7802,14 @@ def main() -> int:
             out["20b differentiable collectives, each process, forwards "
                 "(phase 20)"] = sum(c["k1_forward"]
                                     for c in grads["20b"].values())
+        for tag, st in grid.items():
+            if name in GRID_KERNELS.get(tag.split()[0], ()):
+                out[f"21a {tag}, a call (phase 21)"] = st["launches"]
+        for tag in ("tp", "ep", "gpipe", "1f1b"):
+            n = [x.get(name, 0) for x in proc_par[tag]["launches"]]
+            if any(n):
+                out[f"21b {tag} over {PROC_PARALLEL['procs']} processes, "
+                    f"each (phase 21)"] = n
         return {"launches_by_path": out} if out else {}
     print(json.dumps({"kernels": [
         kernel_entry("K1 fused_combine", K1_SOURCE, K1_REPLACES, launches,
@@ -7199,7 +7858,7 @@ def main() -> int:
                      **by_path("write_kv_page_block")),
         kernel_entry("K3 rowstats", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:249", vjp["k3_launches"],
-                     k345_stats["K3"], chain_p),
+                     k345_stats["K3"], chain_p, **by_path("rowstats")),
         kernel_entry("K4 bwd_dq", FLASH_SOURCE,
                      "rlo_tpu/pallas/flash.py:296",
                      train_launches["bwd_dq"], k345_stats["K4"], train_p,

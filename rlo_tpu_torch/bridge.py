@@ -6,9 +6,10 @@ rank judges, the votes AND-merge up the tree and the decision
 broadcasts (``RLO_submit_proposal``, rootless_ops.c:876; judgement :698;
 action :842). Here that split is literal:
 
-  - **control plane**: the port's progress engines
-    (``rlo_tpu_torch.engine``, byte frames over the loopback world) run
-    the rootless broadcast and the IAR consensus;
+  - **control plane**: the port's copy of the native C engines
+    (``rlo_tpu_torch.native``, through ctypes: ``NativeBackend`` and
+    ``native.bindings.run_judged_proposal``) run the rootless broadcast
+    and the IAR consensus, as the JAX package's bridge runs its C core;
   - **data plane**: ``TorchBackend``'s collectives over a ``LocalMesh``
     on the card (K1 in the ring, halving and doubling schedules).
 
@@ -30,13 +31,12 @@ cache.
 from __future__ import annotations
 
 import json
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from rlo_tpu_torch.convert import from_numpy, to_numpy
-from rlo_tpu_torch.ops.collectives import _pack_array, _unpack_array
+from rlo_tpu_torch.convert import from_numpy
 
 
 def _dtype_name(x) -> str:
@@ -58,12 +58,14 @@ def _describe(op: str, reduce_op: str, x) -> bytes:
 def run_judged_proposal(world_size: int, payload: bytes, proposer: int,
                         judge_for: Optional[Callable] = None,
                         action_cb: Optional[Callable] = None) -> int:
-    """One complete IAR round on a fresh world of the port's engines:
-    rank ``proposer`` submits ``payload``, every rank judges it with
-    ``judge_for(rank)`` (None approves), and the approving passive ranks
-    fire ``action_cb(rank, payload)``; returns the decision (0/1). The
-    counterpart of ``rlo_tpu/native/bindings.py:run_judged_proposal``,
-    which runs the same round on the C engines."""
+    """One complete IAR round on a fresh world of the port's Python
+    engines (``rlo_tpu_torch.engine``): rank ``proposer`` submits
+    ``payload``, every rank judges it with ``judge_for(rank)`` (None
+    approves), and the approving passive ranks fire ``action_cb(rank,
+    payload)``; returns the decision (0/1). ``HybridBackend`` gates on
+    the C engines' round (``native.bindings.run_judged_proposal``); this
+    one stays so that the tests can hold the C core's round against the
+    Python engines' on the same proposers and vetoes."""
     from rlo_tpu_torch.engine import EngineManager, ProgressEngine, drain
     from rlo_tpu_torch.transport.loopback import LoopbackWorld
 
@@ -92,92 +94,10 @@ def run_judged_proposal(world_size: int, payload: bytes, proposer: int,
             e.cleanup()
 
 
-class EngineBackend:
-    """The control-plane facade: ``world_size`` of the port's engines on
-    one loopback world (the engine half of the JAX package's
-    ``LoopbackBackend``). ``bcast`` sends a packed array through the
-    rootless broadcast; ``consensus`` runs one IAR round on these same
-    engines, each judging with its slot of the round's votes."""
-
-    def __init__(self, world_size: int = 4):
-        from rlo_tpu_torch.engine import EngineManager, ProgressEngine
-        from rlo_tpu_torch.transport.loopback import LoopbackWorld
-
-        self.world_size = world_size
-        self._world = LoopbackWorld(world_size)
-        self._manager = EngineManager()
-        self._votes = [1] * world_size
-        self._engines = [
-            ProgressEngine(self._world.transport(r),
-                           judge_cb=lambda payload, ctx, i=r:
-                               self._votes[i],
-                           manager=self._manager)
-            for r in range(world_size)]
-
-    def _drain(self) -> None:
-        from rlo_tpu_torch.engine import drain
-        drain([self._world], self._engines)
-
-    def bcast(self, origin: int, x) -> list:
-        """Every rank gets rank ``origin``'s ``x`` through the engines
-        (a tensor travels as a host copy and comes back on its device)."""
-        if not 0 <= origin < self.world_size:
-            raise ValueError(f"origin {origin} outside world of "
-                             f"{self.world_size}")
-        is_tensor = isinstance(x, torch.Tensor)
-        a = to_numpy([x])[0] if is_tensor else np.asarray(x)
-        self._engines[origin].bcast(_pack_array(a))
-        self._drain()
-        out: List = [None] * self.world_size
-        for r, e in enumerate(self._engines):
-            if r == origin:
-                out[r] = x.clone() if is_tensor else a.copy()
-                continue
-            msg = e.pickup_next()
-            if msg is None:
-                raise RuntimeError(f"rank {r} missed the broadcast")
-            got = _unpack_array(msg.data)
-            out[r] = from_numpy([got], x.device)[0] if is_tensor else got
-        return out
-
-    def consensus(self, votes: Sequence[int], proposer: int = 0) -> int:
-        """One IAR round on the facade's own engines: rank ``proposer``
-        submits, rank i judges with ``votes[i]``; returns the AND."""
-        from rlo_tpu_torch.wire import Tag
-
-        votes = list(votes)
-        if len(votes) != self.world_size:
-            raise ValueError("need one vote per rank")
-        self._votes[:] = [int(v) for v in votes]
-        eng = self._engines[proposer]
-        eng.submit_proposal(b"facade", pid=proposer)
-        for _ in range(1_000_000):
-            self._manager.progress_all()
-            if eng.vote_my_proposal() != -1:
-                break
-        decision = eng.vote_my_proposal()
-        if decision == -1:
-            raise RuntimeError("consensus did not complete")
-        self._drain()
-        for i, e in enumerate(self._engines):
-            if i == proposer:
-                continue
-            msg = e.pickup_next()
-            if msg is None or msg.type != int(Tag.IAR_DECISION):
-                raise RuntimeError(
-                    f"member {i} expected the decision pickup, got "
-                    f"{msg!r}")
-        return int(decision)
-
-    def close(self) -> None:
-        for e in self._engines:
-            e.cleanup()
-
-
 class HybridBackend:
-    """The port's engines decide; the card executes.
+    """The port's C engines decide; the card executes.
 
-    ``bcast``/``consensus`` run on the engines (``EngineBackend``);
+    ``bcast``/``consensus`` run on ``NativeBackend`` (the C core);
     ``allreduce``/``reduce_scatter``/``all_gather``/``all_to_all``/
     ``barrier`` run on ``TorchBackend``'s ``LocalMesh`` on ``device``
     (None: the card). ``propose_collective`` chains them: an IAR round
@@ -188,21 +108,21 @@ class HybridBackend:
     name = "hybrid"
 
     def __init__(self, world_size: int = 8, device=None):
-        from rlo_tpu_torch.backend import TorchBackend
+        from rlo_tpu_torch.backend import NativeBackend, TorchBackend
 
         self._torch = TorchBackend(world_size=world_size, device=device)
         self.world_size = world_size
         self.device = self._torch.device
         self.mesh = self._torch.mesh
-        self._engines = EngineBackend(world_size=world_size)
+        self._native = NativeBackend(world_size=world_size)
         self._consensus = None
 
-    # ---- control plane (the engines) ----
+    # ---- control plane (the C engines) ----
     def bcast(self, origin: int, x) -> list:
-        return self._engines.bcast(origin, x)
+        return self._native.bcast(origin, x)
 
     def consensus(self, votes: Sequence[int], proposer: int = 0) -> int:
-        return self._engines.consensus(votes, proposer=proposer)
+        return self._native.consensus(votes, proposer=proposer)
 
     # ---- data plane (the card) ----
     def allreduce(self, xs, op: str = "sum", algorithm: str = "auto",
@@ -246,12 +166,16 @@ class HybridBackend:
         and dtype must agree, on the host, before any device work. With
         ``device_judge`` (``tensor -> {0,1}``) each rank's vote also
         needs its own device tensor to pass, so one rank's non-finite
-        shard vetoes. The votes go through an IAR round on the engines;
-        only on approval does the collective run (``algorithm`` picks
-        the allreduce schedule).
+        shard vetoes. The votes go through an IAR round on a fresh world
+        of the C engines (``native.bindings.run_judged_proposal``, whose
+        events go to the C core's trace ring); only on approval does the
+        collective run (``algorithm`` picks the allreduce schedule).
 
         Returns (1, per-rank outputs) on approval, (0, None) on a veto.
         """
+        from rlo_tpu_torch.native.bindings import run_judged_proposal \
+            as native_round
+
         if op not in ("allreduce", "reduce_scatter", "all_gather"):
             raise ValueError(f"unknown collective {op!r}")
         if not 0 <= proposer < self.world_size:
@@ -283,7 +207,7 @@ class HybridBackend:
             return judge
 
         approved = []  # the action fires on every approving rank (:842)
-        rc = run_judged_proposal(
+        rc = native_round(
             self.world_size, payload, proposer, judge_for=judge_for,
             action_cb=lambda rank, p: approved.append(rank))
         if rc == 0:
@@ -301,7 +225,7 @@ class HybridBackend:
         return 1, self.all_gather(xs)
 
     def close(self) -> None:
-        self._engines.close()
+        self._native.close()
         self._torch.close()
 
     def __enter__(self):

@@ -25,9 +25,11 @@
 //   - Partition. The cache axis is cut into splits of S positions (S =
 //     split_k, a multiple of BK: decode.py's SPLIT_K), fixed in absolute
 //     positions: split s is [s*S, (s+1)*S), the same for every T, batch, L,
-//     dtype and for K6 and K9. The grid is (b * kvh, row tiles of RT query
-//     rows, splits); a split past its row tile's last attended position
-//     returns at once. A block walks its split's BK tiles in order with the
+//     dtype and for K6 and K9 (past kMaxGridYZ splits the entry widens S by
+//     the smallest whole factor that fits grid.z). The grid is (b * kvh, row
+//     tiles of RT query rows, splits), at most kMaxGridYZ row tiles a
+//     launch; a split past its row tile's last attended position returns
+//     at once. A block walks its split's BK tiles in order with the
 //     online softmax above, from m = -1e30, l = 0, o = 0.
 //   - Loads. A tile's K and V rows (and the int8 scales) are copied by
 //     16-byte cp.async into a ring of 2 shared-memory stages (1 where two do
@@ -152,6 +154,9 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int BK = 128;  // rlo-prover: lane-pinned (a cache tile; BLOCK_K)
 constexpr int kWarps = BK / 32;  // warps of a row group
+// CUDA's limit on grid.y and grid.z: a call past it runs one launch a chunk
+// (K6/K9's row tiles, K8/K11's (row, head) blocks) or a wider split (K6/K9)
+constexpr int kMaxGridYZ = 65535;
 
 // Threads of a block: one row group of BK threads, two for the large row
 // tiles (each thread then runs half of the tile's rows).
@@ -209,6 +214,7 @@ struct DecodeArgs {
   int mp, ps, P;
   int b, nkv, R, r, T, L, pos_stride, split_k, nsplit, q_bf16, vec;
   float scale;
+  int rt0;                          // the launch's first row tile
 };
 
 // The shared-memory plan of one instantiation: a ring of NST stages (K and
@@ -256,7 +262,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
   // tile, column t of a cache tile; lane and warp within the row group
   const int tid = threadIdx.x, g = tid / BK, t = tid - g * BK;
   const int lane = t & 31, warp = t >> 5, rg0 = g * RR;
-  const int bh = blockIdx.x, rt = blockIdx.y, split = blockIdx.z;
+  const int bh = blockIdx.x, rt = blockIdx.y + a.rt0, split = blockIdx.z;
   const int row0 = rt * RT;
   const int bi = bh / a.nkv, hh = bh - bi * a.nkv;
   const int R = a.R, r = a.r, L = a.L, S = a.split_k;
@@ -546,7 +552,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
   }
   __threadfence();
   __syncthreads();
-  int* cnt = a.cnt + (size_t)bh * gridDim.y + rt;
+  int* cnt = a.cnt + (size_t)bh * gridDim.y + blockIdx.y;
   if (tid == 0) last_s[0] = atomicAdd(cnt, 1) == n_live - 1;
   __syncthreads();
   if (!last_s[0]) return;
@@ -602,9 +608,17 @@ int launch(const DecodeArgs& a, const Scratch& sc, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(a.b * a.nkv, nrt, a.nsplit);
-  kern<<<grid, threads_of<RT>(), smem, s>>>(a);
-  return (int)cudaGetLastError();
+  // at most kMaxGridYZ row tiles a launch; the arrival counters are the
+  // launch's own (each launch leaves them zero)
+  DecodeArgs c = a;
+  for (int rt0 = 0; rt0 < nrt; rt0 += kMaxGridYZ) {
+    const int nrc = nrt - rt0 < kMaxGridYZ ? nrt - rt0 : kMaxGridYZ;
+    c.rt0 = rt0;
+    dim3 grid(a.b * a.nkv, nrc, a.nsplit);
+    kern<<<grid, threads_of<RT>(), smem, s>>>(c);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 template <typename C, int HD, bool QUANT, bool BF16DOT, bool PAGED>
@@ -712,6 +726,7 @@ struct BlockWrite {
   int col0_stride;                //   col0[bi * col0_stride]
   const int* n_valid;             // tokens to write (one value); null: T
   int H, D, T, Lc, nrow, n_t_tiles;
+  int y0;                         // the launch's first (row, head) block
 };
 
 template <typename E>
@@ -723,7 +738,8 @@ write_block_kernel(BlockWrite a) {
   constexpr int NS = WT * WD / kWThreads;               // scalars a thread
   __shared__ __align__(16) E tile[WD * WRS];
   const int pair = blockIdx.z;
-  const int bi = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int y = blockIdx.y + a.y0;
+  const int bi = y / a.H, h = y % a.H;
   const int t0 = (blockIdx.x % a.n_t_tiles) * WT;
   const int d0 = (blockIdx.x / a.n_t_tiles) * WD;
   const int nd = a.D - d0 < WD ? a.D - d0 : WD;
@@ -856,9 +872,18 @@ bool pairs_alias(uint64_t dst0, uint64_t dst1, uint64_t dn, uint64_t src0,
 template <typename E>
 int launch_block_write(const BlockWrite& a, int nb, int pairs,
                        cudaStream_t s) {
-  dim3 grid(a.n_t_tiles * ((a.D + WD - 1) / WD), nb * a.H, pairs);
-  write_block_kernel<E><<<grid, kWThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  // at most kMaxGridYZ (row, head) blocks a launch
+  const int ny = nb * a.H;
+  BlockWrite c = a;
+  for (int y0 = 0; y0 < ny; y0 += kMaxGridYZ) {
+    const int nyc = ny - y0 < kMaxGridYZ ? ny - y0 : kMaxGridYZ;
+    c.y0 = y0;
+    dim3 grid(a.n_t_tiles * ((a.D + WD - 1) / WD), nyc, pairs);
+    write_block_kernel<E><<<grid, kWThreads, 0, s>>>(c);
+    const int e = (int)cudaGetLastError();
+    if (e) return e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -875,9 +900,9 @@ int launch_block_write(const BlockWrite& a, int nb, int pairs,
 // (paged 0): caches (b, nkv, HD, L), scales (b, nkv, L). Paged: pools (P,
 // nkv, HD, ps), scale pools (P, nkv, ps), table (b, mp) int32, L = mp * ps.
 // split_k: the partition's width (decode.py's SPLIT_K), a positive multiple
-// of 128. With more than one split, ws holds ws_cap f32 and cnt cnt_cap int32
-// counters, all zero (each launch leaves them zero); -3 when they are too
-// small.
+// of 128, widened past 65,535 splits. With more than one split, ws holds
+// ws_cap f32 and cnt cnt_cap int32 counters, all zero (each launch leaves
+// them zero); -3 when they are too small.
 struct DecodeParams {
   uint64_t q, k, v, ks, vs, pos, out, table, ws, cnt;
   int64_t qsb, qst, qsh, qsd, ws_cap, cnt_cap;
@@ -902,8 +927,17 @@ extern "C" int rlo_decode_attend(const void* params, void* stream) {
     L = (long long)p.mp * p.ps;
   }
   if (L <= 0 || L > 0x7fffffffLL - p.split_k) return -1;
-  const long long nsplit = (L + p.split_k - 1) / p.split_k;
-  if (nsplit > 65535 || (long long)p.b * p.nkv > 0x7fffffffLL) return -1;
+  long long split_k = p.split_k;
+  long long nsplit = (L + split_k - 1) / split_k;
+  if (nsplit > kMaxGridYZ) {
+    // grid.z takes at most kMaxGridYZ splits: widen the split by the
+    // smallest whole factor that fits (the merge runs inside the launch, so
+    // splits cannot go to separate launches)
+    split_k *= (nsplit + kMaxGridYZ - 1) / kMaxGridYZ;
+    nsplit = (L + split_k - 1) / split_k;
+    if (L > 0x7fffffffLL - split_k) return -1;
+  }
+  if ((long long)p.b * p.nkv > 0x7fffffffLL) return -1;
   const int esize = p.cache_code == 1 ? 4 : (p.cache_code == 2 ? 2 : 1);
   const bool quant = p.cache_code == 3;
   // rlo-prover: lane-pinned (16-byte chunks: rows start on 16 bytes)
@@ -920,7 +954,7 @@ extern "C" int rlo_decode_attend(const void* params, void* stream) {
                static_cast<float*>(ptr(p.ws)), static_cast<int*>(ptr(p.cnt)),
                static_cast<const int*>(ptr(p.table)), p.mp, p.ps, p.P,
                p.b, p.nkv, p.T * p.r, p.r, p.T, (int)L,
-               p.pos_per_row ? 1 : 0, p.split_k, (int)nsplit,
+               p.pos_per_row ? 1 : 0, (int)split_k, (int)nsplit,
                p.q_code == 2 ? 1 : 0, vec ? 1 : 0, p.scale};
   const Scratch sc{p.ws_cap, p.cnt_cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1000,7 +1034,7 @@ extern "C" int rlo_write_kv_block_cols(const void* params, void* stream) {
   memcpy(&p, params, sizeof p);
   if (p.nb <= 0 || p.H <= 0 || p.D <= 0 || p.T <= 0 || p.Lc <= 0) return 0;
   if (p.nrow <= 0 || (!p.row && p.nb != p.nrow) || !p.dst0 || !p.src0 ||
-      (!p.dst1) != (!p.src1) || (long long)p.nb * p.H > 65535)
+      (!p.dst1) != (!p.src1) || (long long)p.nb * p.H > 0x7fffffffLL)
     return -1;
   if (p.dst1) {
     auto end = [&](uint64_t s, int64_t sb, int64_t sh, int64_t sd,

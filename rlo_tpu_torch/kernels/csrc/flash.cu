@@ -672,29 +672,41 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// A launch takes at most kMaxGridYZ heads on grid.y (CUDA's limit); a
+// call with more runs one launch a chunk of heads, each with its per-head
+// operands offset to the chunk's first head. The positions carry no head
+// axis. A call within the limit is one launch, as before.
+constexpr int kMaxGridYZ = 65535;
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* m,
            const float* l, const float* o, const int* qp, const int* kp,
            float* m2, float* l2, float* o2, int H, int Lq, int Lk,
            int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((Lq + BQ - 1) / BQ, H);
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
   int e;
-  if constexpr (kTensor<T>) {
-    constexpr size_t smem = mma_smem_bytes<D>();
-    if ((e = set_smem(flash_fwd_mma_kernel<D>, smem))) return e;
-    flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), m, l, o, qp, kp, m2, l2, o2, Lq, Lk,
-        causal, scale);
-  } else {
-    constexpr size_t smem = smem_bytes<D>();
-    if ((e = set_smem(flash_fwd_f32_kernel<D>, smem))) return e;
-    flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), m, l, o, qp, kp, m2, l2, o2, Lq, Lk,
-        causal, scale);
+  for (int h0 = 0; h0 < H; h0 += kMaxGridYZ) {
+    const int hn = H - h0 < kMaxGridYZ ? H - h0 : kMaxGridYZ;
+    const dim3 grid((Lq + BQ - 1) / BQ, hn);
+    const size_t oq = (size_t)h0 * Lq, ok = (size_t)h0 * Lk;
+    if constexpr (kTensor<T>) {
+      constexpr size_t smem = mma_smem_bytes<D>();
+      if ((e = set_smem(flash_fwd_mma_kernel<D>, smem))) return e;
+      flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+          tq + oq * D, tk + ok * D, tv + ok * D, m + oq, l + oq, o + oq * D,
+          qp, kp, m2 + oq, l2 + oq, o2 + oq * D, Lq, Lk, causal, scale);
+    } else {
+      constexpr size_t smem = smem_bytes<D>();
+      if ((e = set_smem(flash_fwd_f32_kernel<D>, smem))) return e;
+      flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+          tq + oq * D, tk + ok * D, tv + ok * D, m + oq, l + oq, o + oq * D,
+          qp, kp, m2 + oq, l2 + oq, o2 + oq * D, Lq, Lk, causal, scale);
+    }
+    if ((e = (int)cudaGetLastError())) return e;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 template <typename T>
@@ -1821,64 +1833,78 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 }
 
 // The three backward launches for one (dtype, head_dim). `which` is 3 (K3),
-// 4 (K4) or 5 (K5); unused pointers may be null.
+// 4 (K4) or 5 (K5); unused pointers may be null. As K2's, a call with more
+// than kMaxGridYZ heads runs one launch a chunk of heads, every per-head
+// operand (q, k, v, m2, dl2, do2, route and the outputs) offset to the
+// chunk's first head.
 template <typename T, int D>
 int launch_bwd(int which, const void* q, const void* k, const void* v,
                const float* m2, const float* dl2, const float* do2,
                const float* route, const int* qp, const int* kp, float* out0,
                float* out1, int H, int Lq, int Lk, int causal, float scale,
                cudaStream_t stream) {
+  if (which < 3 || which > 5) return -1;
+  if (which == 5 && Lk <= 0) return 0;
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
-  dim3 qgrid((Lq + BQ - 1) / BQ, H), kgrid((Lk + BK - 1) / BK, H);
   int e;
-  if (which == 3) {
-    if constexpr (kTensor<T>) {
-      constexpr size_t smem = rowstats_mma_smem_bytes<D>();
-      if ((e = set_smem(flash_rowstats_mma_kernel<D>, smem))) return e;
-      flash_rowstats_mma_kernel<D>
-          <<<dim3((Lq + K3Q - 1) / K3Q, H), kK3Threads, smem, stream>>>(
-              tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
+  for (int h0 = 0; h0 < H; h0 += kMaxGridYZ) {
+    const int hn = H - h0 < kMaxGridYZ ? H - h0 : kMaxGridYZ;
+    const dim3 qgrid((Lq + BQ - 1) / BQ, hn), kgrid((Lk + BK - 1) / BK, hn);
+    const size_t oq = (size_t)h0 * Lq, ok = (size_t)h0 * Lk;
+    const T* cq = tq + oq * D;
+    const T* ck = tk + ok * D;
+    const T* cv = tv ? tv + ok * D : tv;
+    const float* cm2 = m2 + oq;
+    const float* cdl2 = dl2 ? dl2 + oq : dl2;
+    const float* cdo2 = do2 ? do2 + oq * D : do2;
+    const float* croute = route ? route + oq : route;
+    if (which == 3) {
+      if constexpr (kTensor<T>) {
+        constexpr size_t smem = rowstats_mma_smem_bytes<D>();
+        if ((e = set_smem(flash_rowstats_mma_kernel<D>, smem))) return e;
+        flash_rowstats_mma_kernel<D>
+            <<<dim3((Lq + K3Q - 1) / K3Q, hn), kK3Threads, smem, stream>>>(
+                cq, ck, cm2, qp, kp, out0 + oq, Lq, Lk, causal, scale);
+      } else {
+        constexpr size_t smem = bwd_smem_bytes<D>(2, 0);
+        if ((e = set_smem(flash_rowstats_f32_kernel<D>, smem))) return e;
+        flash_rowstats_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
+            cq, ck, cm2, qp, kp, out0 + oq, Lq, Lk, causal, scale);
+      }
+    } else if (which == 4) {
+      if constexpr (kTensor<T>) {
+        constexpr size_t smem = dq_mma_smem_bytes<D>();
+        if ((e = set_smem(flash_bwd_dq_mma_kernel<D>, smem))) return e;
+        flash_bwd_dq_mma_kernel<D><<<qgrid, kMmaThreads, smem, stream>>>(
+            cq, ck, cv, cm2, cdl2, cdo2, croute, qp, kp, out0 + oq * D, Lq,
+            Lk, causal, scale);
+      } else {
+        constexpr size_t smem = bwd_smem_bytes<D>(4, 1);
+        if ((e = set_smem(flash_bwd_dq_f32_kernel<D>, smem))) return e;
+        flash_bwd_dq_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
+            cq, ck, cv, cm2, cdl2, cdo2, croute, qp, kp, out0 + oq * D, Lq,
+            Lk, causal, scale);
+      }
     } else {
-      constexpr size_t smem = bwd_smem_bytes<D>(2, 0);
-      if ((e = set_smem(flash_rowstats_f32_kernel<D>, smem))) return e;
-      flash_rowstats_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
-          tq, tk, m2, qp, kp, out0, Lq, Lk, causal, scale);
+      if constexpr (kTensor<T>) {
+        constexpr size_t smem = dkv_mma_smem_bytes<D>();
+        if ((e = set_smem(flash_bwd_dkv_mma_kernel<D>, smem))) return e;
+        flash_bwd_dkv_mma_kernel<D><<<kgrid, kDkvThreads, smem, stream>>>(
+            cq, ck, cv, cm2, cdl2, cdo2, croute, qp, kp, out0 + ok * D,
+            out1 + ok * D, Lq, Lk, causal, scale);
+      } else {
+        constexpr size_t smem = bwd_smem_bytes<D>(4, 2);
+        if ((e = set_smem(flash_bwd_dkv_f32_kernel<D>, smem))) return e;
+        flash_bwd_dkv_f32_kernel<D><<<kgrid, kThreads, smem, stream>>>(
+            cq, ck, cv, cm2, cdl2, cdo2, croute, qp, kp, out0 + ok * D,
+            out1 + ok * D, Lq, Lk, causal, scale);
+      }
     }
-  } else if (which == 4) {
-    if constexpr (kTensor<T>) {
-      constexpr size_t smem = dq_mma_smem_bytes<D>();
-      if ((e = set_smem(flash_bwd_dq_mma_kernel<D>, smem))) return e;
-      flash_bwd_dq_mma_kernel<D><<<qgrid, kMmaThreads, smem, stream>>>(
-          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal,
-          scale);
-    } else {
-      constexpr size_t smem = bwd_smem_bytes<D>(4, 1);
-      if ((e = set_smem(flash_bwd_dq_f32_kernel<D>, smem))) return e;
-      flash_bwd_dq_f32_kernel<D><<<qgrid, kThreads, smem, stream>>>(
-          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, Lq, Lk, causal,
-          scale);
-    }
-  } else if (which == 5) {
-    if (Lk <= 0) return 0;
-    if constexpr (kTensor<T>) {
-      constexpr size_t smem = dkv_mma_smem_bytes<D>();
-      if ((e = set_smem(flash_bwd_dkv_mma_kernel<D>, smem))) return e;
-      flash_bwd_dkv_mma_kernel<D><<<kgrid, kDkvThreads, smem, stream>>>(
-          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
-          scale);
-    } else {
-      constexpr size_t smem = bwd_smem_bytes<D>(4, 2);
-      if ((e = set_smem(flash_bwd_dkv_f32_kernel<D>, smem))) return e;
-      flash_bwd_dkv_f32_kernel<D><<<kgrid, kThreads, smem, stream>>>(
-          tq, tk, tv, m2, dl2, do2, route, qp, kp, out0, out1, Lq, Lk, causal,
-          scale);
-    }
-  } else {
-    return -1;
+    if ((e = (int)cudaGetLastError())) return e;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 template <typename T>

@@ -50,8 +50,10 @@ probabilities after l is accumulated, V zeroed under the mask, out =
 o / l. The cache axis is cut into ``BLOCK_K``-wide tiles, and the tiles
 into splits of ``SPLIT_K`` positions fixed in absolute positions (split
 s is [s * SPLIT_K, (s + 1) * SPLIT_K)), the same for every T, batch,
-length and dtype: each split runs the online softmax over its tiles, and
-the splits' (m, l, o) merge in split order (M = max m_s, l = sum l_s *
+length and dtype (past 65,535 splits, CUDA's grid.z limit, the kernel's
+entry widens the split by the smallest whole factor that fits): each
+split runs the online softmax over its tiles, and the splits' (m, l, o)
+merge in split order (M = max m_s, l = sum l_s *
 e^(m_s - M), o = sum o_s * e^(m_s - M), out = o / l). A split wholly
 past a row's last position adds exactly 0, so T = 1 and T > 1 give a
 row the same bits. K9 cuts the LOGICAL cache axis the same way whatever
@@ -84,6 +86,10 @@ _CACHE_CODE = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
 _Q_CODE = {torch.float32: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
 
+#: CUDA's limit on grid.y and grid.z: a call with more row tiles (K6/K9)
+#: or (row, head) blocks (K8/K11) makes one launch a chunk of them
+MAX_GRID_YZ = 65535
+
 _count_lock = threading.Lock()
 _fns = {}
 
@@ -99,9 +105,14 @@ def _lib_fn(name, argtypes):
     return f
 
 
-def _count(fn) -> None:
+def _count(fn, n: int = 1) -> None:
     with _count_lock:
-        fn.launches += 1
+        fn.launches += n
+
+
+def _grid_launches(n_y: int) -> int:
+    """Launches a call makes for ``n_y`` blocks on grid.y."""
+    return max(1, -(-n_y // MAX_GRID_YZ))
 
 
 def _stream(dev) -> int:
@@ -301,7 +312,8 @@ def _scratch_for(dev, stream: int, n_ws: int, n_cnt: int):
 def _launch_attend(kind, counted, q, k, v, ks, vs, pos0, scale, L,
                    table=None):
     """One K6 (``table`` None: caches (b, kvh, hd, L)) or K9 (pools (P,
-    kvh, hd, ps) through ``table``) launch, split at ``SPLIT_K``; q is
+    kvh, hd, ps) through ``table``) call, split at ``SPLIT_K`` (wider past
+    65,535 splits), one launch a chunk of 65,535 row tiles; q is
     read in place. Checks the head dim, the cache type and that the
     caches (pools), scales and table are contiguous on q's device.
     Returns out (b, T, nh, hd) f32."""
@@ -350,7 +362,8 @@ def _launch_attend(kind, counted, q, k, v, ks, vs, pos0, scale, L,
         raise RuntimeError(f"{kind} decode attention launch failed: CUDA "
                            f"error {rc} (b={b}, kvh={nkv}, T={T}, nh={nh}, "
                            f"hd={d}, L={L}, {k.dtype})")
-    _count(counted)
+    # row tiles of 32 rows past 16 rows a (batch, kv head), else one
+    _count(counted, _grid_launches(-(-R // 32)))
     return out
 
 
@@ -499,7 +512,7 @@ def _launch_block(kind, counted, dst, src, dst2, src2, row, col0,
     if rc != 0:
         raise RuntimeError(f"{kind} block-write launch failed: CUDA error "
                            f"{rc} ({nb} x {H} x {D} x T {T}, {dst.dtype})")
-    _count(counted)
+    _count(counted, _grid_launches(nb * H))
 
 
 def _check_block(cache, rows, cache2, rows2) -> int:

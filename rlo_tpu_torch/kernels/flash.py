@@ -45,6 +45,10 @@ _HEAD_DIMS = (16, 32, 64, 128)
 #: the backward implementations (``bwd=``), as in the JAX package
 BWD_MODES = ("pallas", "pallas_fast", "xla")
 
+#: CUDA's limit on grid.y: a call with more (folded) heads makes one
+#: launch a chunk of them
+MAX_GRID_YZ = 65535
+
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fns: dict = {}
@@ -171,6 +175,11 @@ def _launch_operands(name: str, tensors: dict, d: int) -> dict:
     return out
 
 
+def _head_launches(h: int) -> int:
+    """Launches K2-K5 make for ``h`` folded heads (grid.y)."""
+    return -(-h // MAX_GRID_YZ)
+
+
 def _on_device(name: str, t) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one
     (take the plain version); any other device raises."""
@@ -210,7 +219,7 @@ def _forward(q, k, v, m, l, o, q_pos, k_pos, causal: bool, scale: float):
                            f"{rc} (H={h}, Lq={lq}, Lk={lk}, D={d}, "
                            f"{q.dtype})")
     with _count_lock:
-        flash_block_update_hld.launches += 1
+        flash_block_update_hld.launches += _head_launches(h)
     return m2, l2, o2
 
 
@@ -337,7 +346,7 @@ def _launch_bwd(wrapper, symbol: str, label: str, ops: dict, outs,
         raise RuntimeError(f"{label} launch failed: CUDA error {rc} (H={h}, "
                            f"Lq={lq}, Lk={lk}, D={d}, {q.dtype})")
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += _head_launches(h)
 
 
 def _grad_out(shape, ops: dict):

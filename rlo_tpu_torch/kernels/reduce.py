@@ -152,32 +152,35 @@ fused_combine.launches = 0
 class FusedCombine(torch.autograd.Function):
     """``fused_combine(a, b, op)`` out of place, with a backward: the
     differentiable step of the manual schedules (``FusedCombine.apply(a,
-    b, op)``). The forward is K1 on CUDA tensors and the plain version on
-    CPU tensors; the backward is the gradient autograd takes through
-    ``fused_combine_plain``, bit for bit: (g, g) for sum; for min/max the
-    cotangent goes to the operand that won, split in half where they tie
-    (as ``jnp.minimum``/``jnp.maximum`` split it), and where a NaN won
-    to both operands (torch's rule; JAX gives neither a share). and/or
-    take integers, which carry no gradient."""
+    b, op, use_kernel)``). The forward is K1 on CUDA tensors and the
+    plain version on CPU tensors, or the plain version everywhere with
+    ``use_kernel`` False. The backward is ``jax.grad``'s rule for
+    ``lax.add``/``lax.max``/``lax.min``: (g, g) for sum; for min/max,
+    with z = op(a, b), JAX's ``_balanced_eq``:
+    da = g [a == z] / (1 + [b == z]) and db = g [b == z] / (1 + [a == z]),
+    so the cotangent goes to the operand that won, split in half where
+    they tie, and to neither where a NaN won (NaN equals nothing). It is
+    computed in f32, as the plain version widens, and cast to the
+    operand's dtype. and/or take integers, which carry no gradient."""
 
     @staticmethod
-    def forward(ctx, a, b, op):
+    def forward(ctx, a, b, op, use_kernel=True):
         if op not in ("sum", "min", "max"):
             raise ValueError(f"op {op!r} has no gradient")
         ctx.op = op
         if op != "sum":
             ctx.save_for_backward(a, b)
-        return fused_combine(a, b, op)
+        return (fused_combine if use_kernel else fused_combine_plain)(
+            a, b, op)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.op == "sum":
-            return g, g, None
+            return g, g, None, None
         a, b = ctx.saved_tensors
-        # in f32, as autograd takes the plain version's widened operands
         af, bf, gf = a.float(), b.float(), g.float()
-        half = torch.where(af == bf, gf / 2, gf)
-        a_lost, b_lost = (af < bf, af > bf) if ctx.op == "max" \
-            else (af > bf, af < bf)
-        return (half.masked_fill(a_lost, 0).to(a.dtype),
-                half.masked_fill(b_lost, 0).to(b.dtype), None)
+        z = (torch.maximum if ctx.op == "max" else torch.minimum)(af, bf)
+        a_won, b_won = (af == z).float(), (bf == z).float()
+        # g times the share, as JAX multiplies (-0 for a negative g)
+        da, db = gf * (a_won / (1 + b_won)), gf * (b_won / (1 + a_won))
+        return da.to(a.dtype), db.to(b.dtype), None, None

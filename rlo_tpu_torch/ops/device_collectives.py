@@ -54,8 +54,8 @@ def _combiner(op: str, use_kernel: bool, grad: bool = False) -> Callable:
     differentiable."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
-    if grad and use_kernel:
-        return lambda a, b: FusedCombine.apply(a, b, op)
+    if grad:
+        return lambda a, b: FusedCombine.apply(a, b, op, use_kernel)
     fn = fused_combine if use_kernel else fused_combine_plain
     return functools.partial(fn, op=op)
 

@@ -85,10 +85,12 @@ Usage:
 
 Exit codes: 0 clean, 1 findings, 2 bad invocation / unparseable
 inputs. Soundness caveats: P3 proves geometry for the committed
-bindings in ``P3_PROBES``, not for all shapes. K2–K5's grid.y is the
-head count and K6/K9's the row tiles of a call; neither entry point
-bounds it, so a call past 65,535 fails at launch with the CUDA error
-its wrapper raises, and the hostile set stops at the limit. P1/P2
+bindings in ``P3_PROBES``, not for all shapes. A launch inside a chunk
+loop (K2–K5 over heads, K6/K9 over row tiles, K8/K11 over (row, head)
+blocks, at most 65,535 a launch) is checked at the loop's first
+iteration, its largest chunk; the hostile set goes past 65,535 (heads
+65,536 and 70,001, nb·H 65,536 and 70,001, K6 at 65,536 · 256 + 1
+positions, whose entry widens the split). P1/P2
 verify the schedule *generators*, not the executed program
 (tests/test_torch_tools_static.py's oracle cross-check pins the
 symbolic model to ``ops/device_collectives.py`` on a CPU
@@ -1428,7 +1430,17 @@ class CuFile:
                                conds + [(st.toks, False)], scope, attrs,
                                out)
             elif st.kind == "loop":
-                self._walk(fn, st.body, conds, scope, attrs, out)
+                # a for loop's induction variable is bound to its first
+                # value: the launch checked is the loop's first (a chunk
+                # loop's first chunk is its largest)
+                inner = dict(scope)
+                head = st.toks or []
+                semi = next((k for k, t in enumerate(head)
+                             if t[1] == ";"), None)
+                if semi is not None:
+                    for name, val, dim3 in _declarators(head[:semi]):
+                        inner[name] = (val, dict(scope), dim3)
+                self._walk(fn, st.body, conds, inner, attrs, out)
             else:
                 toks = st.toks
                 for kern, val, line in _set_attr_calls(toks, self.helpers):
@@ -1679,9 +1691,13 @@ class Probe:
 
 def _decode_args(b, nkv, R, L, ps=0, split_k=256):
     """K6/K9's DecodeArgs fields that shape a launch (L = mp * ps for
-    a paged call)."""
-    return dict(b=b, nkv=nkv, R=R, nsplit=-(-L // split_k),
-                split_k=split_k, ps=ps)
+    a paged call), as ``rlo_decode_attend`` sets them: past 65,535
+    splits the split widens by the smallest whole factor that fits."""
+    nsplit = -(-L // split_k)
+    if nsplit > MAX_GRID_YZ:
+        split_k *= -(-nsplit // MAX_GRID_YZ)
+        nsplit = -(-L // split_k)
+    return dict(b=b, nkv=nkv, R=R, nsplit=nsplit, split_k=split_k, ps=ps)
 
 
 def _rt(R: int) -> int:
@@ -1700,10 +1716,10 @@ def _p3_probes() -> List[Probe]:
     shapes (PERF.md §4: the flagship's prefill and decode, the paged
     server, training's folded heads, the 256 MB ring), the
     counterparts of the JAX tool's P3_PROBES, and one hostile set
-    (the largest value each entry point admits where it checks one:
-    K1's int64 count, K6/K9's 65,535 splits, K8/K11's 65,535 (row,
-    head) blocks; elsewhere grid.y at its 65,535 limit, a one-token
-    page)."""
+    (K1's int64 count; past CUDA's 65,535 on grid.y/z: K2–K5 at
+    65,536 and 70,001 heads, K6 at 65,536 · 256 + 1 positions and
+    2^21 + 1 row tiles' worth of rows, K8/K11 at 65,536 and 70,001
+    (row, head) blocks; a one-token page)."""
     k1 = [dict(OP=0, DT=1, T=F32, n=n, aligned=1)
           for n in (67108864, 8388608, 524288, 1024)]
     k1 += [dict(OP=0, DT=2, T=BF16, n=1 << 25, aligned=1),
@@ -1715,7 +1731,8 @@ def _p3_probes() -> List[Probe]:
            for d, h, lq, lk in ((64, 512, 1024, 1024),
                                 (64, 64, 1024, 1024),
                                 (128, 8, 1024, 2048), (16, 4, 256, 256),
-                                (128, 65535, 64, 64),
+                                (128, 65536, 64, 64),
+                                (16, 70001, 16, 16),
                                 (32, 1, 1 << 24, 1 << 24))]
     bwd = [dict(fwd_b, which=w) for fwd_b in fwd for w in (3, 4, 5)]
     k6 = [
@@ -1736,9 +1753,11 @@ def _p3_probes() -> List[Probe]:
         _k6(F32, 128, 32, b=1, nkv=8, L=4096),
         _k6(F32, 128, 32, paged=1, b=1, nkv=8, L=4096, ps=128),
         _k6(I8, 128, 8, quant=1, b=4, nkv=8, L=2048),
-        # hostile: 65,535 splits, a one-token page, 65,536 query rows,
+        # hostile: 65,536 * 256 + 1 positions (a widened split), a
+        # one-token page, 65,536 query rows, 65,536 row tiles of 32,
         # 2^31 - 1 (batch, kv head) blocks
-        _k6(BF16, 128, 1, b=1, nkv=1, L=65535 * 256),
+        _k6(BF16, 64, 1, b=1, nkv=1, L=65536 * 256 + 1),
+        _k6(F32, 16, 65536 * 32, b=1, nkv=1, L=128),
         _k6(F32, 128, 32, paged=1, b=1, nkv=1, L=1024, ps=1),
         _k6(I8, 128, 65536, quant=1, paged=1, b=1, nkv=1, L=256,
             ps=16),
@@ -1761,7 +1780,9 @@ def _p3_probes() -> List[Probe]:
                   (U32, 1, 16, 1, 128, 2),
                   (U16, 4, 4, 64, 8, 1),      # the JAX (4, 4, 64, 8)
                   (U16, 4, 64, 16, 16, 1),
-                  (U16, 65535, 1, 128, 128, 2))]   # hostile: the guard
+                  # hostile: past grid.y's 65,535 (row, head) blocks
+                  (U16, 65536, 1, 128, 128, 2),
+                  (U16, 1, 70001, 16, 16, 2))]
     return [
         Probe(REDUCE_CU, "launch", k1),
         Probe(FLASH_CU, "launch", fwd),

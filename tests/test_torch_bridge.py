@@ -19,9 +19,9 @@ import torch
 import rlo_tpu
 import rlo_tpu_torch
 from rlo_tpu.native.bindings import run_judged_proposal as ref_round
-from rlo_tpu_torch.bridge import (EngineBackend, _describe,
-                                  run_judged_proposal)
-from rlo_tpu_torch.utils.tracing import TRACER
+from rlo_tpu_torch.backend import NativeBackend
+from rlo_tpu_torch.bridge import _describe, run_judged_proposal
+from rlo_tpu_torch.native import bindings as native
 
 WS = 4
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -203,29 +203,65 @@ class TestPortSurface:
                 assert sorted(acts[0]) == sorted(acts[1])
 
     def test_engine_backend_every_origin(self):
-        b = EngineBackend(world_size=7)
-        try:
+        """The hybrid's control plane (the C engines of ``NativeBackend``)
+        at ws 7: every origin's broadcast and a gated consensus."""
+        with rlo_tpu_torch.init(backend="hybrid", world_size=7,
+                                device="cpu") as b:
             x = np.arange(12, dtype=np.int64).reshape(3, 4)
             for origin in range(7):
                 assert all(np.array_equal(o, x) for o in b.bcast(origin, x))
             assert b.consensus([1] * 7, proposer=5) == 1
             assert b.consensus([1, 1, 1, 1, 1, 1, 0], proposer=5) == 0
-        finally:
-            b.close()
+
+    @pytest.mark.parametrize("proposer", range(WS))
+    def test_hybrid_decides_on_the_c_engines(self, ref, port, proposer,
+                                             monkeypatch):
+        """The control plane is ``NativeBackend`` and the gate is the C
+        core's round (``native.bindings.run_judged_proposal``, once a
+        proposal); every veto pattern (none, the proposer's own device
+        tensor, another rank's, a shape) decides as the JAX
+        ``HybridBackend`` does, with equal outputs on approval."""
+        assert isinstance(port._native, NativeBackend)
+        calls = []
+        real = native.run_judged_proposal
+
+        def counted(*a, **kw):
+            calls.append(a[2])
+            return real(*a, **kw)
+        monkeypatch.setattr(native, "run_judged_proposal", counted)
+        other = (proposer + 1) % WS
+        for veto in (None, proposer, other, "shape"):
+            xs = _ints(seed=50 + proposer)
+            xs = [x.astype(np.float32) for x in xs]
+            if veto == "shape":
+                xs[other] = xs[other][:32]
+            elif veto is not None:
+                xs[veto][3] = np.nan
+            want, got = both(ref, port, "allreduce", xs, proposer=proposer,
+                             device_judge=True)
+            assert got[0] == want[0] == int(veto is None)
+            if veto is None:
+                assert_outs(got[1], want[1], exact=True)
+        assert calls == [proposer] * 4
 
     def test_round_trace_is_deterministic(self, port):
-        """The events of one gated round (kind, rank, a..d) are the same
-        every time: what the card phase holds against the CPU's."""
+        """The C core's trace ring holds one gated round's events (kind,
+        rank, a..d), the same every time: what the card phase holds
+        against the CPU's."""
         xs = _xs(seed=40)
         streams = []
-        for _ in range(2):
-            TRACER.clear()
-            with TRACER.enable():
+        native.trace_set(True)
+        try:
+            for _ in range(2):
+                native.trace_clear()
                 port.propose_collective("allreduce", xs, proposer=5 % WS,
                                         device_judge=port_finite)
-            streams.append([(e.kind.name, e.rank, e.a, e.b, e.c, e.d)
-                            for e in TRACER.events()])
-        TRACER.clear()
+                streams.append([(e["kind"], e["rank"], e["a"], e["b"],
+                                 e["c"], e["d"])
+                                for e in native.trace_drain()])
+        finally:
+            native.trace_set(False)
+            native.trace_clear()
         assert streams[0] == streams[1]
         assert {"PROPOSAL_SUBMIT", "VOTE", "DECISION"} <= \
             {k for k, *_ in streams[0]}

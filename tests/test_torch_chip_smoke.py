@@ -598,6 +598,65 @@ def test_phase_grad_parallel_rehearsal(monkeypatch):
         assert st["replicated_copies_equal"] == 3 * 6
 
 
+def test_phase_grid_limits_rehearsal(monkeypatch):
+    """Phase 21a's logic at tiny shapes on the CPU (the plain versions
+    stand in for the kernels and count their wrappers' launches, one a
+    call, with the limit raised so that every call is one launch): K2-K5
+    within their tolerances, K3's counts equal, K8/K11 bit-equal to
+    indexed assignment, K6 over its planted keys and its rows."""
+    from rlo_tpu_torch.kernels import decode as kd
+    from rlo_tpu_torch.kernels import flash as kf
+    for mod, names in ((kf, ("flash_block_update_hld", "rowstats",
+                             "bwd_dq", "bwd_dkv")),
+                       (kd, ("write_kv_block", "write_kv_page_block",
+                             "flash_block_decode"))):
+        for name in names:
+            _count_plain(monkeypatch, mod, getattr(mod, name))
+    for name, value in (("synchronize", None), ("empty_cache", None)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value: _v)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "MAX_GRID_YZ", 1 << 30)
+    monkeypatch.setattr(cs, "GRID", dict(
+        heads=(5, 7), flash_l=16, blocks=(6, 9), k6_positions=3 * 256 + 1,
+        k6_rows_t=40, k6_rows_l=384, iters=1))
+    out = cs.phase_grid_limits(torch.device("cpu"))
+    assert sorted(out) == sorted(
+        [f"K2-K5 {h} heads {d}" for h in (5, 7)
+         for d in ("bfloat16", "float32")]
+        + ["K8 6 rows x 1 heads", "K8 1 rows x 9 heads", "K11 6 heads",
+           "K11 9 heads", "K6 positions", "K6 rows"])
+    assert all(st["launches"] == 1 for st in out.values())
+
+
+def test_phase_proc_parallel_rehearsal(monkeypatch):
+    """Phase 21b at a tiny size on the CPU: four ``chip_smoke.py
+    --proc-parallel-worker`` processes (gloo, device type cpu, the plain
+    versions counting their wrappers' launches) run TP generate (ring tp
+    schedule), EP generate and a GPipe and a 1F1B step at pp 4; tokens,
+    stage updates and losses bit-equal to the same runs on a CPU
+    ``LocalMesh``, K1 launched by the TP ring, K2/K6/K7 by both
+    generates and K2/K4/K5 by both steps."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "SERVE_CFG", dict(
+        vocab=64, d_model=32, n_heads=4, n_layers=8, d_ff=64,
+        dtype="float32"))
+    monkeypatch.setattr(cs, "TP_DECODE", dict(cs.TP_DECODE, batch=4,
+                                              plen=8))
+    monkeypatch.setattr(cs, "EP_DECODE", dict(cs.EP_DECODE, batch=4,
+                                              plen=8))
+    monkeypatch.setattr(cs, "PIPE", dict(cs.PIPE, batch=8, seq=16))
+    monkeypatch.setattr(cs, "MOE_EXPERTS", 4)
+    monkeypatch.setattr(cs, "PROC_PARALLEL", dict(cs.PROC_PARALLEL,
+                                                  max_new=3))
+    out = cs.phase_proc_parallel(torch.device("cpu"))
+    for tag in ("tp", "ep", "gpipe", "1f1b"):
+        assert len(out[tag]["launches"]) == 4
+        assert out[tag]["staged_bytes"] == [0] * 4     # CPU tensors
+    assert all(n["fused_combine"] > 0 for n in out["tp"]["launches"])
+    for tag in ("gpipe", "1f1b"):
+        assert all(n["bwd_dkv"] > 0 for n in out[tag]["launches"])
+
+
 def test_phase_grad_parallel_launch_arithmetic():
     """20c's K1 counts at the flagship config on the card (8 layers, tp 4,
     two sub-chunks a bidir row): 48, 192, 32 and 32 launches a forward."""

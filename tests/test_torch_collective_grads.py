@@ -79,8 +79,9 @@ def jax_grad(fn, x, ct, shape=None, names=("x",), invariant=None):
     return np.asarray(g).reshape(x.shape)
 
 
-def port_grad(fn, x, cts, shape=None, names=("x",)):
-    """Each rank r: y = fn(x[r], axes), grad of y against cts[r]."""
+def port_grad(fn, x, cts, shape=None, names=("x",), dtype=torch.float32):
+    """Each rank r: y = fn(x[r], axes), grad of y against cts[r]; x and
+    the cotangents cast to ``dtype`` first, the gradient back to f32."""
     shape = shape or (x.shape[0],)
     mesh = LocalMesh(shape, names, device="cpu", timeout=60)
 
@@ -89,10 +90,10 @@ def port_grad(fn, x, cts, shape=None, names=("x",)):
         y = fn(v, axes)
         (g,) = torch.autograd.grad(y, v, c)
         return g
-    outs = mesh.run(body, list(torch.from_numpy(x)),
-                    [torch.from_numpy(np.ascontiguousarray(c))
+    outs = mesh.run(body, [r.to(dtype) for r in torch.from_numpy(x)],
+                    [torch.from_numpy(np.ascontiguousarray(c)).to(dtype)
                      for c in cts])
-    return np.stack([o.numpy() for o in outs])
+    return np.stack([o.float().numpy() for o in outs])
 
 
 def _check(got, want, op):
@@ -347,24 +348,105 @@ def test_autodiff_all_gather_and_no_grad_bits():
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
 def test_fused_combine_grad_is_the_plain_versions(dtype, op):
     """K1's ``FusedCombine`` on CPU tensors (the plain version forward)
-    gives the gradient autograd takes through ``fused_combine_plain``,
-    bit for bit: ties split in half, a NaN passes the cotangent to both
-    operands (torch's rule), bf16 through f32 as the plain version
-    widens."""
+    gives ``jax.vjp`` of ``jnp.add``/``jnp.minimum``/``jnp.maximum`` bit
+    for bit: the winner takes the cotangent, ties split it in half, and
+    where a NaN wins neither operand gets a share (JAX's rule; torch's
+    autograd of the plain version gives it to both). Its forward is the
+    plain version's, bf16 through f32 as the plain version widens."""
     from rlo_tpu_torch.kernels.reduce import FusedCombine, \
         fused_combine_plain
     g = torch.Generator().manual_seed(3)
     a, b = (torch.randint(-3, 4, (257,), generator=g).to(dtype)
             for _ in range(2))
-    a[7], b[9] = float("nan"), float("nan")
+    a[7], b[9], a[11], b[11] = (float("nan"),) * 4
     ct = torch.randn(257, generator=g).to(dtype)
     ka, kb = a.clone().requires_grad_(), b.clone().requires_grad_()
-    pa, pb = a.clone().requires_grad_(), b.clone().requires_grad_()
-    got = torch.autograd.grad(FusedCombine.apply(ka, kb, op), (ka, kb), ct)
-    want = torch.autograd.grad(fused_combine_plain(pa, pb, op), (pa, pb), ct)
-    for x, y in zip(got, want):
+    y = FusedCombine.apply(ka, kb, op)
+    got = torch.autograd.grad(y, (ka, kb), ct)
+    assert torch.equal(_bits(y.detach()),
+                       _bits(fused_combine_plain(a, b, op)))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jfn = {"sum": jnp.add, "min": jnp.minimum, "max": jnp.maximum}[op]
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(t.float().numpy()).astype(jdt)
+                            for t in (a, b)))
+    want = vjp(jnp.asarray(ct.float().numpy()).astype(jdt))
+    for x, w in zip(got, want):
         assert x.dtype == dtype
-        assert torch.equal(x.view(torch.int16 if dtype == torch.bfloat16
-                                  else torch.int32),
-                           y.view(torch.int16 if dtype == torch.bfloat16
-                                  else torch.int32))
+        w = torch.tensor(np.asarray(w.astype(jnp.float32))).to(dtype)
+        assert torch.equal(_bits(x), _bits(w))
+    if op != "sum":
+        for x in got:       # the NaN elements: no share to either operand
+            assert (x[[7, 9, 11]] == 0).all()
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["kernel", "plain"])
+def test_f3_smallest_separating_input(use_kernel):
+    """F3's probe: ws 2, cotangent 1. Where a NaN wins a min/max, JAX
+    gives neither operand the cotangent: ``allreduce`` of x = [nan], [1]
+    by ring or recursive doubling gives [0, 0] (torch's rule gave
+    [2, 2]); ``reduce_scatter`` max of x = [nan, 1], [1, 2] by ring or
+    halving gives [[0, 0], [0, 1]] (torch's rule gave [[1, 0], [1, 1]])."""
+    x = np.array([[np.nan], [1.0]], np.float32)
+    ct = np.ones((2, 1), np.float32)
+    for alg in ("ring", "recursive_doubling"):
+        for op in ("max", "min"):
+            want = jax_grad(lambda v: tc.allreduce(
+                v, "x", op=op, algorithm=alg, use_pallas=False), x, ct)
+            got = port_grad(lambda v, a: dc.allreduce(
+                v, a["x"], op=op, algorithm=alg, use_kernel=use_kernel),
+                x, ct)
+            np.testing.assert_array_equal(want, [[0.0], [0.0]])
+            np.testing.assert_array_equal(got, want)
+    x = np.array([[np.nan, 1.0], [1.0, 2.0]], np.float32)
+    for alg in ("ring", "halving"):
+        want = jax_grad(lambda v: tc.reduce_scatter(
+            v, "x", op="max", algorithm=alg, use_pallas=False), x, ct)
+        got = port_grad(lambda v, a: dc.reduce_scatter(
+            v, a["x"], op="max", algorithm=alg, use_kernel=use_kernel),
+            x, ct)
+        np.testing.assert_array_equal(want, [[0.0, 0.0], [0.0, 1.0]])
+        np.testing.assert_array_equal(got, want)
+
+
+MINMAX = [(kind, alg, op, dt, path)
+          for kind, alg in (("allreduce", "ring"),
+                            ("allreduce", "bidir_ring"),
+                            ("allreduce", "recursive_doubling"),
+                            ("allreduce", "halving_doubling"),
+                            ("reduce_scatter", "ring"),
+                            ("reduce_scatter", "halving"))
+          for op in ("min", "max") for dt in ("f32", "bf16")
+          for path in ("kernel", "plain")]
+
+
+@pytest.mark.parametrize("kind,alg,op,dt,path", MINMAX,
+                         ids=["-".join(c) for c in MINMAX])
+def test_min_max_grad_with_nans_and_ties(kind, alg, op, dt, path):
+    """Every manual min/max schedule at ws 4, on the kernel path and with
+    ``use_kernel=False``, in f32 and bf16: integer-valued inputs with
+    ties and NaNs on several ranks (some elements NaN on two ranks), so
+    NaN wins some combines and ties split others. Equal to ``jax.vjp``
+    bit for bit in both dtypes: the values, the halves at a tie and the
+    integer cotangents are exact in bf16 too."""
+    import ml_dtypes
+    ws = 4
+    x, rng = _inputs(ws, op, 11)
+    x[0, 3] = x[2, 3] = x[1, 8] = x[3, 15] = x[2, 20] = np.nan
+    rows = -(-N // ws) if kind == "reduce_scatter" else N
+    ct = _cotangent(rng, (ws, rows), op)
+    jx = x.astype(ml_dtypes.bfloat16) if dt == "bf16" else x
+    jct = ct.astype(ml_dtypes.bfloat16) if dt == "bf16" else ct
+    jop = getattr(tc, kind)
+    want = jax_grad(lambda v: jop(v, "x", op=op, algorithm=alg,
+                                  use_pallas=False), jx, jct)
+    pop = getattr(dc, kind)
+    got = port_grad(lambda v, a: pop(v, a["x"], op=op, algorithm=alg,
+                                     use_kernel=path == "kernel"), x, ct,
+                    dtype=torch.bfloat16 if dt == "bf16" else torch.float32)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert (got[0, 3] == 0) and (got[2, 3] == 0)

@@ -1,5 +1,6 @@
 """K1's backward on the card: ``FusedCombine`` (the differentiable step of
-the manual schedules) against autograd through its plain version.
+the manual schedules) against its plain path (``use_kernel=False``: the
+plain forward, the same JAX rule backward).
 
 Card-only and jax-free, so the machine with the card runs it without the
 JAX package:
@@ -34,7 +35,8 @@ def _bits(t):
 def test_fused_combine_grad_matches_plain_on_card(cuda, n, dtype, op):
     """Integer-valued operands (ties everywhere) and a NaN in each: the
     forward launches K1 once and equals the plain version; both
-    gradients equal the plain version's autograd bit for bit."""
+    gradients equal the plain path's bit for bit, and a winning NaN
+    gives neither operand a share (JAX's rule)."""
     g = torch.Generator(device=cuda).manual_seed(n)
     a, b = (torch.randint(-3, 4, (n,), generator=g, device=cuda)
             .to(dtype) for _ in range(2))
@@ -46,7 +48,8 @@ def test_fused_combine_grad_matches_plain_on_card(cuda, n, dtype, op):
     before = k1.fused_combine.launches
     got = k1.FusedCombine.apply(ka, kb, op)
     assert k1.fused_combine.launches == before + 1
-    want = k1.fused_combine_plain(pa, pb, op)
+    want = k1.FusedCombine.apply(pa, pb, op, False)
+    assert k1.fused_combine.launches == before + 1
     assert torch.equal(_bits(got.detach()), _bits(want.detach()))
     gk = torch.autograd.grad(got, (ka, kb), ct)
     gp = torch.autograd.grad(want, (pa, pb), ct)
@@ -54,6 +57,8 @@ def test_fused_combine_grad_matches_plain_on_card(cuda, n, dtype, op):
     assert k1.fused_combine.launches == before + 1   # no kernel backward
     for x, y in zip(gk, gp):
         assert x.dtype == dtype and torch.equal(_bits(x), _bits(y))
+        if op != "sum":
+            assert x[n // 2] == 0 and x[-1] == 0
 
 
 @pytest.mark.gpu

@@ -101,6 +101,7 @@ def test_card_tests_are_scanned():
                            "test_torch_gpu_fabric.py",
                            "test_torch_gpu_flash.py",
                            "test_torch_gpu_flash_grad.py",
+                           "test_torch_gpu_grid_limits.py",
                            "test_torch_gpu_host_backends.py",
                            "test_torch_gpu_model_parallel_train.py",
                            "test_torch_gpu_moe.py",

@@ -97,8 +97,8 @@ PORT_ONLY = [
        "  cudaError_t e = cudaFuncSetAttribute(\n      decode_kernel<C, HD,"
        " RT, QUANT, BF16DOT>,")], "without a preceding"),
     ("p3_grid_y", "P3",
-     [(_DEC, "dim3 grid(a.b * a.nkv, nrt, a.nsplit);",
-       "dim3 grid(nrt, a.b * a.nkv, a.nsplit);")], "outside the launch"),
+     [(_DEC, "dim3 grid(a.b * a.nkv, nrc, a.nsplit);",
+       "dim3 grid(nrc, a.b * a.nkv, a.nsplit);")], "outside the launch"),
     ("p3_grid_x_uncapped", "P3",
      [(f"{_K}/csrc/reduce.cu", "  if (blocks > cap) blocks = cap;\n", "")],
      "outside the launch"),
