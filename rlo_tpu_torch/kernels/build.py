@@ -9,7 +9,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 The library lands in ``_build/`` beside this file (listed in
 ``.gitignore``), named by a hash of its source and flags, so an edited
 source rebuilds and an unchanged one loads what is there. Nothing here
-runs at import: ``load(name)`` builds on its first call.
+runs at import: ``load(name)`` builds on its first call. ``build_stats()``
+counts, per library, this process's builds, their ``nvcc`` seconds and
+its loads.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -33,6 +36,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: per library: {"builds", "nvcc_s", "loads"} in this process
+_stats: Dict[str, Dict[str, float]] = {}
+
+
+def _count(name: str, **add) -> None:
+    with _lock:
+        st = _stats.setdefault(name, {"builds": 0, "nvcc_s": 0.0,
+                                      "loads": 0})
+        for k, v in add.items():
+            st[k] += v
+
+
+def build_stats() -> Dict[str, Dict[str, float]]:
+    """{library: {"builds": nvcc runs, "nvcc_s": their seconds, "loads":
+    libraries loaded}} of this process: which kernel was built again,
+    and what it cost."""
+    with _lock:
+        return {k: dict(v) for k, v in _stats.items()}
 
 
 class KernelBuildError(RuntimeError):
@@ -72,9 +93,11 @@ def _build(name: str) -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     res = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _count(name, builds=1, nvcc_s=time.perf_counter() - t0)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(f"nvcc failed for csrc/{name}.cu "
@@ -103,4 +126,5 @@ def load(name: str) -> ctypes.CDLL:
                 raise KernelBuildError(
                     f"cannot load the built kernel library for {name}: "
                     f"{e}") from e
+            _count(name, loads=1)
         return _loaded[name]

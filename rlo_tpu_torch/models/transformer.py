@@ -40,10 +40,22 @@ parameter's gradient over every data-carrying axis (sp, ep, dp, dcn)
 that its spec does not split it over. A collective inside a backward
 runs on a CPU ``LocalMesh`` (each rank's backward on its own thread);
 on a card the ranks are processes.
+
+Spans (``utils.tracing.annotate``, named for a profile; a flag test and
+an NVTX range otherwise): ``rlo.train.step`` around
+``train_step_optim``, inside it ``rlo.train.forward`` (the loss),
+``rlo.train.backward`` (``torch.autograd.grad``) and
+``rlo.train.optimizer``; ``rlo.layer.attention`` and ``rlo.layer.ffn``
+in each layer of the training forward (``apply_layer(spans=True)``, as
+``_features`` calls it; the decode paths open none),
+``rlo.train.head`` around the head and its NLL, and
+``rlo.train.recompute`` around each of remat's recomputations, which
+autograd runs inside the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Iterator, Optional
@@ -54,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rlo_tpu_torch.models.moe import init_moe_params, moe_ffn
 from rlo_tpu_torch.parallel.autodiff import psum_invariant, pvary
+from rlo_tpu_torch.utils.tracing import annotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -333,7 +346,7 @@ def _sp_attention(q, k, v, cfg: TransformerConfig, sp_axis):
 def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
                 sp_axis=None, tp_axis=None, tp_algorithm: str = "psum",
                 ep_axis=None, all_to_all_algorithm: str = "xla",
-                attention=None, pos=None):
+                attention=None, pos=None, spans: bool = False):
     """One layer (attention + dense or MoE FFN) on ``x`` (b, blk, d);
     returns (x, aux), aux the MoE load-balancing term (a zero f32 scalar
     for dense layers). ``attention(q, k, v)`` gets q
@@ -358,7 +371,9 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
     ``ep_axis`` splits the experts (``models.moe``; its two all_to_alls
     take ``all_to_all_algorithm``: 'xla', 'direct' or 'ring'). Every rank
     must call this with the same shapes (the collectives pair up across
-    ranks)."""
+    ranks). ``spans`` opens the ``rlo.layer.attention`` and
+    ``rlo.layer.ffn`` ranges (the training forward's); the host-bound
+    decode step leaves them out."""
     b, blk, _ = x.shape
     dt = x.dtype
     hd = cfg.head_dim
@@ -383,43 +398,46 @@ def apply_layer(x, layer: dict, cfg: TransformerConfig, *,
         from rlo_tpu_torch.ops.device_collectives import allreduce
         return allreduce(t, tp_axis, algorithm=tp_algorithm).to(t.dtype)
 
-    h = act(_rmsnorm(x, shared(layer["ln1"]["g"])))
-    if cfg.kv_heads == cfg.n_heads:
-        w = layer["wqkv"].to(dt)           # (d, 3, local heads x hd)
-        q, k, v = torch.split(h @ w.reshape(w.shape[0], -1), nh * hd,
-                              dim=-1)
-    else:
-        q = h @ layer["wq"].to(dt)
-        wkv = layer["wkv"].to(dt)
-        k, v = torch.split(h @ wkv.reshape(wkv.shape[0], -1), nkv * hd,
-                           dim=-1)
-    q = q.reshape(b, blk, nh, hd)
-    k = k.reshape(b, blk, nkv, hd)
-    v = v.reshape(b, blk, nkv, hd)
-    if cfg.pos_encoding == "rope":
-        if pos is None:
-            raise ValueError("rope needs per-layer positions")
-        q = _rope(q, pos, cfg.rope_scaling, cfg.rope_scale)
-        k = _rope(k, pos, cfg.rope_scaling, cfg.rope_scale)
-    if attention is not None:
-        att = attention(q, k, v)
-    elif sp_axis is not None:
-        att = _sp_attention(q, k, v, cfg, sp_axis)
-    else:
-        att = _local_attention(q, k, v)
-    att = att.reshape(b, blk, nh * hd)
-    x = x + tp_sum(att @ layer["wo"].to(dt))
-    h = _rmsnorm(x, shared(layer["ln2"]["g"]))
-    if cfg.n_experts > 0:
-        moe = {k: shared(v) for k, v in layer["moe"].items()}
-        ffn, aux = moe_ffn(moe, h, cfg.n_experts,
-                           capacity_factor=cfg.capacity_factor,
-                           ep_axis=ep_axis,
-                           all_to_all_algorithm=all_to_all_algorithm)
-        return x + ffn, aux
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(act(h) @ layer["w1"].to(dt), approximate="tanh")
-    x = x + tp_sum(h @ layer["w2"].to(dt))
+    span = annotate if spans else _no_span
+    with span("rlo.layer.attention"):
+        h = act(_rmsnorm(x, shared(layer["ln1"]["g"])))
+        if cfg.kv_heads == cfg.n_heads:
+            w = layer["wqkv"].to(dt)           # (d, 3, local heads x hd)
+            q, k, v = torch.split(h @ w.reshape(w.shape[0], -1), nh * hd,
+                                  dim=-1)
+        else:
+            q = h @ layer["wq"].to(dt)
+            wkv = layer["wkv"].to(dt)
+            k, v = torch.split(h @ wkv.reshape(wkv.shape[0], -1), nkv * hd,
+                               dim=-1)
+        q = q.reshape(b, blk, nh, hd)
+        k = k.reshape(b, blk, nkv, hd)
+        v = v.reshape(b, blk, nkv, hd)
+        if cfg.pos_encoding == "rope":
+            if pos is None:
+                raise ValueError("rope needs per-layer positions")
+            q = _rope(q, pos, cfg.rope_scaling, cfg.rope_scale)
+            k = _rope(k, pos, cfg.rope_scaling, cfg.rope_scale)
+        if attention is not None:
+            att = attention(q, k, v)
+        elif sp_axis is not None:
+            att = _sp_attention(q, k, v, cfg, sp_axis)
+        else:
+            att = _local_attention(q, k, v)
+        att = att.reshape(b, blk, nh * hd)
+        x = x + tp_sum(att @ layer["wo"].to(dt))
+    with span("rlo.layer.ffn"):
+        h = _rmsnorm(x, shared(layer["ln2"]["g"]))
+        if cfg.n_experts > 0:
+            moe = {k: shared(v) for k, v in layer["moe"].items()}
+            ffn, aux = moe_ffn(moe, h, cfg.n_experts,
+                               capacity_factor=cfg.capacity_factor,
+                               ep_axis=ep_axis,
+                               all_to_all_algorithm=all_to_all_algorithm)
+            return x + ffn, aux
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(act(h) @ layer["w1"].to(dt), approximate="tanh")
+        x = x + tp_sum(h @ layer["w2"].to(dt))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -465,6 +483,18 @@ def nll_sum(logits, targets, valid):
     return (nll * valid).sum(), valid.sum()
 
 
+def _no_span(name: str):
+    """``annotate``'s stand-in where a layer opens no span."""
+    return contextlib.nullcontext()
+
+
+def _recompute_span():
+    """``checkpoint``'s ``context_fn``: nothing around the first forward,
+    the ``rlo.train.recompute`` range around autograd's recomputation
+    (on whatever thread runs the backward)."""
+    return contextlib.nullcontext(), annotate("rlo.train.recompute")
+
+
 def nll_sum_chunked(x, embed, targets, valid, chunk: int):
     """``nll_sum`` from the pre-head activations with the vocab axis
     streamed in ``chunk``-wide slices: nll = logsumexp(x . E^T) -
@@ -491,7 +521,7 @@ def nll_sum_chunked(x, embed, targets, valid, chunk: int):
 
     for c0 in range(0, v, chunk):
         m, s = checkpoint(step, m, s, ed[c0:c0 + chunk],
-                          use_reentrant=False)
+                          use_reentrant=False, context_fn=_recompute_span)
     nll = m + torch.log(s) - tgt_logit
     return (nll * valid).sum(), valid.sum()
 
@@ -539,11 +569,12 @@ def _features(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
         return apply_layer(x, layer, cfg, sp_axis=sp_axis, tp_axis=tp_axis,
                            tp_algorithm=tp_algorithm, ep_axis=ep_axis,
                            all_to_all_algorithm=all_to_all_algorithm,
-                           pos=pos)
+                           pos=pos, spans=True)
 
     for layer in params["layers"]:
         if cfg.remat:
-            x, aux = checkpoint(block, x, layer, use_reentrant=False)
+            x, aux = checkpoint(block, x, layer, use_reentrant=False,
+                                context_fn=_recompute_span)
         else:
             x, aux = block(x, layer)
         aux_total = aux_total + aux
@@ -617,12 +648,13 @@ def loss_fn(params: dict, tokens, cfg: TransformerConfig, sp_axis=None,
     else:
         targets, valid = _sp_targets(tokens, sp_axis)
     chunk = cfg.loss_vocab_chunk or 0
-    if chunk:
-        local, count = nll_sum_chunked(x, params["embed"], targets, valid,
-                                       chunk)
-    else:
-        logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
-        local, count = nll_sum(logits, targets, valid)
+    with annotate("rlo.train.head"):
+        if chunk:
+            local, count = nll_sum_chunked(x, params["embed"], targets,
+                                           valid, chunk)
+        else:
+            logits = (x @ params["embed"].t().to(cfg.act_dtype)).float()
+            local, count = nll_sum(logits, targets, valid)
     if sp_axis is not None:
         local = psum_invariant(local, sp_axis)
         count = sp_axis.all_reduce(count, "sum")
@@ -693,9 +725,11 @@ def grads_and_loss(params: dict, tokens, cfg: TransformerConfig,
             f"dcn sums are plain sums (the JAX package's vma path), which "
             f"cannot be compressed")
     live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-    loss = loss_fn(_rebuild(params, iter(live)), tokens, cfg, sp_axis,
-                   tp_axis, ep_axis)
-    grads = list(torch.autograd.grad(loss, live))
+    with annotate("rlo.train.forward"):
+        loss = loss_fn(_rebuild(params, iter(live)), tokens, cfg, sp_axis,
+                       tp_axis, ep_axis)
+    with annotate("rlo.train.backward"):
+        grads = list(torch.autograd.grad(loss, live))
     loss = loss.detach()
     if model_parallel:
         loss, grads = _model_parallel_combine(grads, loss, params, cfg,
@@ -747,18 +781,20 @@ def train_step_optim(params: dict, optimizer, tokens,
     to it as each leaf's ``.grad``, it steps, and the ``.grad`` fields
     are cleared again. Updates ``params`` in place; returns
     (params, loss)."""
-    loss, grads = grads_and_loss(params, tokens, cfg, sp_axis=sp_axis,
-                                 dp_axis=dp_axis, tp_axis=tp_axis,
-                                 ep_axis=ep_axis,
-                                 grad_algorithm=grad_algorithm,
-                                 dcn_axis=dcn_axis,
-                                 dcn_algorithm=dcn_algorithm)
-    leaves = tree_leaves(params)
-    for p, g in zip(leaves, tree_leaves(grads)):
-        p.grad = g
-    optimizer.step()
-    for p in leaves:
-        p.grad = None
+    with annotate("rlo.train.step"):
+        loss, grads = grads_and_loss(params, tokens, cfg, sp_axis=sp_axis,
+                                     dp_axis=dp_axis, tp_axis=tp_axis,
+                                     ep_axis=ep_axis,
+                                     grad_algorithm=grad_algorithm,
+                                     dcn_axis=dcn_axis,
+                                     dcn_algorithm=dcn_algorithm)
+        with annotate("rlo.train.optimizer"):
+            leaves = tree_leaves(params)
+            for p, g in zip(leaves, tree_leaves(grads)):
+                p.grad = g
+            optimizer.step()
+            for p in leaves:
+                p.grad = None
     return params, loss
 
 

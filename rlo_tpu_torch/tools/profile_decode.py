@@ -51,17 +51,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _group(name: str, groups=GROUPS) -> str:
+def _group(name: str) -> str:
     low = name.lower()
-    for label, frags in groups:
+    for label, frags in GROUPS:
         if any(f in low for f in frags):
             return label
     return "other"
 
 
-def trace(fn, groups=GROUPS) -> dict:
+def trace(fn) -> dict:
     """Profile one ``fn()`` (after which the device is synchronised),
-    with kernel times summed by ``groups`` (label, name fragments)."""
+    with kernel times summed by ``GROUPS`` (label, name fragments)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -85,7 +85,7 @@ def trace(fn, groups=GROUPS) -> dict:
         raise RuntimeError("the profiler recorded no device time")
     by_group = {}
     for k, v in kernels.items():
-        g = _group(k, groups)
+        g = _group(k)
         ms, n = by_group.get(g, (0.0, 0))
         by_group[g] = (ms + v / 1e3, n + calls[k])
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
@@ -93,7 +93,7 @@ def trace(fn, groups=GROUPS) -> dict:
     other = {}
     for evt in prof.events():
         for kern in getattr(evt, "kernels", ()):
-            if _group(kern.name, groups) == "other":
+            if _group(kern.name) == "other":
                 other[evt.key] = other.get(evt.key, 0.0) + kern.duration
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "idle_share": max(0.0, 1 - device_us / wall_us),

@@ -7,12 +7,13 @@ The port of ``rlo_tpu/utils/tracing.py``:
     semantics): the port's progress engine emits into this ``TRACER``,
     and one scenario gives the same event stream in both packages but
     for the wall-clock ``ts_usec``;
-  - device side: ``annotate(name)`` opens a ``torch.profiler``
-    ``record_function`` range (and an NVTX range once CUDA is up), so
-    the collectives launched inside it show up under that name in a
-    profile; ``profile(logdir)`` is a ``torch.profiler`` capture window
-    (CPU, and CUDA where there is a card) that writes a Chrome trace
-    into ``logdir``.
+  - device side: ``annotate(name)`` names a range: an NVTX range once
+    CUDA is up and, only while a ``torch.profiler`` records, a
+    ``record_function`` range, so the work launched inside it shows up
+    under that name in a profile, and the stream time of its path in
+    ``DEVICE_SPANS``; ``profile(logdir)`` is a ``torch.profiler``
+    capture window (CPU, and CUDA where there is a card) that writes a
+    Chrome trace into ``logdir``.
 """
 
 from __future__ import annotations
@@ -20,13 +21,15 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from enum import IntEnum
-from typing import Deque, Dict, Iterator, List, Optional
+from typing import Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class Ev(IntEnum):
@@ -172,17 +175,105 @@ TRACER = Tracer()
 # Device-side: torch.profiler hooks
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named range around device work: a ``record_function`` range in a
-    ``torch.profiler`` trace, and an NVTX range while CUDA is
-    initialised (for tools that read NVTX)."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_initialized():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
+class DeviceSpans:
+    """The stream time of every ``annotate`` range closed while a
+    ``torch.profiler`` recorded and CUDA was up, by path.
+
+    A range takes a CUDA event on the current stream where it opens and
+    where it closes, so its time is the stream's between the two: the
+    work launched inside it, and the device's idle gaps there. Its path
+    is the names of the ranges its own thread holds open, outermost
+    first: autograd's device thread runs the backward's work, remat's
+    recompute with it, while the main thread holds
+    ``rlo.train.backward``, so a recompute's path starts at
+    ``rlo.train.recompute`` and its time is also inside the backward's.
+    A closed range is folded into the totals as soon as the device has
+    passed its end, so a process that profiles and never reads keeps no
+    more than the ranges in flight. ``event`` makes an event (a test's
+    fake on the CPU)."""
+
+    def __init__(self, event: Optional[Callable] = None):
+        self._event = event or (lambda: torch.cuda.Event(enable_timing=True))
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._pending: Deque[Tuple[str, object, object]] = deque()
+        self._totals: Dict[str, Tuple[float, int]] = {}
+
+    @contextlib.contextmanager
+    def timed(self, name: str):
+        stack = self._local.__dict__.setdefault("stack", [])
+        stack.append(name)
+        path = "/".join(stack)
+        start = self._event()
+        start.record()
+        try:
             yield
+        finally:
+            end = self._event()
+            end.record()
+            stack.pop()
+            with self._lock:
+                self._pending.append((path, start, end))
+                self._fold(wait=False)
+
+    def _fold(self, wait: bool) -> None:
+        """Move the closed ranges the device has finished, oldest first,
+        into the totals (all of them, waiting, with ``wait``)."""
+        while self._pending:
+            path, start, end = self._pending[0]
+            if wait:
+                end.synchronize()
+            elif not (start.query() and end.query()):
+                return
+            self._pending.popleft()
+            secs, n = self._totals.get(path, (0.0, 0))
+            self._totals[path] = (secs + start.elapsed_time(end) * 1e-3,
+                                  n + 1)
+
+    def totals(self) -> Dict[str, Tuple[float, int]]:
+        """{path: (stream seconds, ranges)} over every range closed so
+        far in the process; waits for the device to reach their ends."""
+        with self._lock:
+            self._fold(wait=True)
+            return dict(self._totals)
+
+
+#: the stream time of the process's ``annotate`` ranges under a profiler
+DEVICE_SPANS = DeviceSpans()
+
+
+class annotate:
+    """Named range around device work: an NVTX range while CUDA is
+    initialised (for tools that read NVTX) and, only while a
+    ``torch.profiler`` records, a ``record_function`` range in its
+    trace and, with CUDA up, the range's stream time in
+    ``DEVICE_SPANS``. Outside a profile it costs a flag test and the
+    NVTX push and pop, called directly."""
+
+    __slots__ = ("name", "_nvtx", "_profiled")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._nvtx = torch.cuda.is_initialized()
+        self._profiled = None
+        if _autograd_profiler._is_profiler_enabled:
+            stack = contextlib.ExitStack()
+            stack.enter_context(torch.profiler.record_function(self.name))
+            if self._nvtx:
+                stack.enter_context(DEVICE_SPANS.timed(self.name))
+            self._profiled = stack
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self._profiled is not None:
+            self._profiled.__exit__(*exc)
+        return False
 
 
 @contextlib.contextmanager

@@ -215,24 +215,26 @@ def test_launch_operands_copy_views_and_misaligned_staged():
 
 def test_profilers_group_both_k2_routes():
     """The profilers file K2's two instantiated kernels (the bf16
-    tensor-core and the f32 CUDA-core route) under K2 by name."""
-    from rlo_tpu_torch.tools import profile_decode, profile_train
+    tensor-core and the f32 CUDA-core route) under K2 by name: the
+    decode profiler and the benchmark's trace."""
+    from portbench import trace
+    from rlo_tpu_torch.tools import profile_decode
     for name in ("void (anonymous namespace)::flash_fwd_mma_kernel<64>(...)",
                  "void (anonymous namespace)::flash_fwd_f32_kernel<64>(...)"):
         assert profile_decode._group(name) == "K2 flash"
-        assert profile_decode._group(name, profile_train.GROUPS) == \
-            "K2 flash forward"
+        assert trace.group(name) == "K2 flash forward"
 
 
 def test_profile_train_groups_both_backward_routes():
-    """profile_train files K4's and K5's instantiated kernels (the bf16
-    tensor-core and the f32 CUDA-core route) under K4 and K5 by name."""
-    from rlo_tpu_torch.tools import profile_decode, profile_train
+    """The benchmark's trace, which profiles the training step, files
+    K4's and K5's instantiated kernels (the bf16 tensor-core and the f32
+    CUDA-core route) under K4 and K5 by name."""
+    from portbench import trace
     for route in ("mma", "f32"):
         for kern, group in (("dq", "K4 flash dq"), ("dkv", "K5 flash dk/dv")):
             name = (f"void (anonymous namespace)::flash_bwd_{kern}_{route}"
                     f"_kernel<64>(...)")
-            assert profile_decode._group(name, profile_train.GROUPS) == group
+            assert trace.group(name) == group
 
 
 def test_forward_only():

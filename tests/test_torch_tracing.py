@@ -11,6 +11,7 @@ names a range the profiler records, ``profile`` writes a Chrome trace.
 """
 
 import json
+import threading
 
 import pytest
 import torch
@@ -154,3 +155,148 @@ def test_annotation_outside_a_profile_is_free():
     with annotate("no-profiler"):
         y = torch.arange(4).sum()
     assert int(y) == 6
+
+
+def _counting_record_function(monkeypatch):
+    entered = []
+    real = torch.profiler.record_function
+
+    class Counting(real):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    return entered
+
+
+def test_annotation_outside_a_profile_enters_no_record_function(
+        monkeypatch):
+    """Outside a profile ``annotate`` opens no ``record_function`` (it
+    costs ~6 us even with no profiler); inside one it does."""
+    entered = _counting_record_function(monkeypatch)
+    with annotate("rlo.off"):
+        torch.ones(2).sum()
+    assert entered == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with annotate("rlo.on"):
+            torch.ones(2).sum()
+    assert entered == ["rlo.on"]
+
+
+class _FakeEvent:
+    """A CUDA event's stand-in: each record is the next tick of one
+    clock, a millisecond apart; ``done`` says whether the device has
+    passed it."""
+    clock = [0]
+    done = True
+
+    def record(self):
+        _FakeEvent.clock[0] += 1
+        self.t = _FakeEvent.clock[0]
+
+    def query(self):
+        return _FakeEvent.done
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return float(end.t - self.t)
+
+
+def test_device_spans_path_across_threads():
+    """A range opened on another thread while the main thread holds one
+    is filed under its own thread's path (autograd's device thread runs
+    the backward and the recompute inside the main thread's backward),
+    and two threads that each hold a step keep their paths apart."""
+    spans = port_tracing.DeviceSpans(event=_FakeEvent)
+    with spans.timed("rlo.train.backward"):
+        th = threading.Thread(target=lambda: _nested(spans))
+        th.start()
+        th.join(timeout=30)
+        assert not th.is_alive()
+    tot = spans.totals()
+    # ticks: backward 1, recompute 2, ffn 3/4, recompute 5, backward 6
+    assert tot == {"rlo.train.backward": (5e-3, 1),
+                   "rlo.train.recompute": (3e-3, 1),
+                   "rlo.train.recompute/rlo.layer.ffn": (1e-3, 1)}
+    with spans.timed("rlo.train.optimizer"):
+        pass
+    assert spans.totals()["rlo.train.optimizer"] == (1e-3, 1)
+    assert len(spans.totals()) == 4
+
+    # two ranks' threads, each inside its own step, interleaved
+    spans = port_tracing.DeviceSpans(event=_FakeEvent)
+    opened = [threading.Barrier(2), threading.Barrier(2)]
+
+    def rank():
+        with spans.timed("rlo.train.step"):
+            opened[0].wait(timeout=30)
+            with spans.timed("rlo.train.forward"):
+                opened[1].wait(timeout=30)
+
+    ths = [threading.Thread(target=rank) for _ in range(2)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=30)
+    assert {p: n for p, (_, n) in spans.totals().items()} == {
+        "rlo.train.step": 2, "rlo.train.step/rlo.train.forward": 2}
+
+
+def _nested(spans):
+    with spans.timed("rlo.train.recompute"):
+        with spans.timed("rlo.layer.ffn"):
+            pass
+
+
+def test_device_spans_keep_only_the_ranges_in_flight(monkeypatch):
+    """A closed range whose events the device has passed is folded into
+    the totals when the next range closes; one it has not reached waits,
+    and ``totals`` waits for it."""
+    spans = port_tracing.DeviceSpans(event=_FakeEvent)
+    monkeypatch.setattr(_FakeEvent, "done", False)
+    for _ in range(3):
+        with spans.timed("rlo.layer.ffn"):
+            pass
+    assert len(spans._pending) == 3
+    monkeypatch.setattr(_FakeEvent, "done", True)
+    with spans.timed("rlo.layer.attention"):
+        pass
+    assert len(spans._pending) == 0
+    for _ in range(1000):
+        with spans.timed("rlo.layer.ffn"):
+            pass
+    assert len(spans._pending) == 0
+    tot = spans.totals()
+    assert sorted(tot) == ["rlo.layer.attention", "rlo.layer.ffn"]
+    assert tot["rlo.layer.ffn"][1] == 1003
+    assert tot["rlo.layer.ffn"][0] == pytest.approx(1.003)
+    assert tot["rlo.layer.attention"] == (1e-3, 1)
+
+
+def test_annotation_times_device_spans_only_in_a_profile(monkeypatch):
+    """With CUDA up, ``annotate`` files a range's stream time under its
+    path while a profiler records, and nothing outside one; its NVTX
+    range opens and closes either way."""
+    spans = port_tracing.DeviceSpans(event=_FakeEvent)
+    nvtx = []
+    monkeypatch.setattr(port_tracing, "DEVICE_SPANS", spans)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", nvtx.append)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop",
+                        lambda: nvtx.append("pop"))
+    with annotate("rlo.train.step"):
+        pass
+    assert spans.totals() == {}
+    assert nvtx == ["rlo.train.step", "pop"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with annotate("rlo.train.step"):
+            with annotate("rlo.train.forward"):
+                pass
+    assert spans.totals() == {"rlo.train.step": (3e-3, 1),
+                              "rlo.train.step/rlo.train.forward": (1e-3, 1)}
+    assert nvtx[2:] == ["rlo.train.step", "rlo.train.forward", "pop", "pop"]
