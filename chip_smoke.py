@@ -354,8 +354,9 @@ events and device time, with a digest of its counts (``time_k3``).
 
     python3 chip_smoke.py --time-flash
 
-likewise times K2 at the prefill shape and K4/K5 at the training shape,
-with a digest of each output (``time_flash``).
+likewise times K2 at the prefill shape, K4/K5 at the training shape
+and at the training cell's (``CELL_BWD``) and K5 at D 16 and 32, with a
+digest of each output (``time_flash``).
 
 Every profiled window (``profiled``: device times, the kernels a call
 runs) opens with 64 launches of a spin kernel that it leaves out (the
@@ -1415,6 +1416,15 @@ def _same_repeats(fn, dsts, srcs, args, what, n=50) -> None:
         first = first or a
         check(same_bits(a[0], first[0]) and same_bits(a[1], first[1]),
               f"{what}: a repeat launch gave other bits")
+
+
+def _one_prep_a_k5(launches: dict, where: str) -> None:
+    """A bf16 K5 call under 65,536 heads is one launch of K5 after one of
+    its prepass (``bwd_dkv_prep``): on a path that runs no f32 backward
+    the two counts are equal."""
+    check(launches["bwd_dkv_prep"] == launches["bwd_dkv"],
+          f"K5's prepass launched {launches['bwd_dkv_prep']} times on "
+          f"{where}, K5 {launches['bwd_dkv']} times")
 
 
 def _same_pair(fn_k, fn_p, dsts, srcs, args, what) -> None:
@@ -2711,7 +2721,10 @@ def phase_k345(dev) -> dict:
     score ties its own m': bf16 scores come from the tensor cores in the
     kernels and from cuBLAS in the plain versions, whose last bits differ)
     and must agree within rtol 1e-4 and atol 1e-4 per unit of the largest
-    |value|: f32 sums of up to 1024 products in another order."""
+    |value|: f32 sums of up to 1024 products in another order. Then
+    every bf16 head dim, and the training cell's GQA fold at D 128 cut to
+    L 512 (dead query tiles inside K5's causal spans), with K5's prepass
+    held bit-equal to its plain version."""
     import torch
     import torch.nn.functional as F
     from rlo_tpu_torch.kernels import flash as kf
@@ -2812,50 +2825,72 @@ def phase_k345(dev) -> dict:
 
     # every bf16 head dim: K3 recomputes K2's tensor-core scores, so each
     # row from the initial state ties K2's m'; K4/K5 (every product on the
-    # tensor cores) against their plain versions, each side on its own m'
+    # tensor cores) against their plain versions, each side on its own m';
+    # K5's prepass bit-equal to its plain twin, one launch a K5 launch.
+    # (heads, D, groups, rows a group, Lk): the last is the training
+    # cell's GQA fold at D 128 cut to L 512, positions repeating 12 times
+    # along Lq, so each 128-key block past the first has dead query tiles
+    # inside its causal span
+    shapes = [(8, dd, 1, lq, lk) for dd in (16, 32, 128)
+              for lq, lk in ((33, 7), (129, 77), (256, 256))]
+    shapes.append((16, 128, 12, 512, 512))
     n_dims = 0
-    for dd in (16, 32, 128):
-        for lq, lk in ((33, 7), (129, 77), (256, 256)):
-            q, k, v = (torch.randn(8, ll, dd, generator=gen,
-                                   device=dev).to(torch.bfloat16)
-                       for ll in (lq, lk, lk))
-            m = torch.full((8, 1, lq), kf.NEG, device=dev)
-            state = (m, torch.zeros_like(m), torch.zeros(8, lq, dd,
-                                                         device=dev))
-            qp = torch.arange(lk - lq, lk, dtype=torch.int32,
-                              device=dev).reshape(1, lq)
-            kp = torch.arange(lk, dtype=torch.int32, device=dev).reshape(1,
-                                                                         lk)
-            dl2, do2, route = rand(8, 1, lq), rand(8, lq, dd), rand(8, 1, lq)
-            for causal in (True, False):
-                kw = dict(causal=causal, scale=scale)
-                with torch.no_grad():
-                    m2 = kf.flash_block_update_hld(q, k, v, *state, qp, kp,
-                                                   **kw)[0]
-                    m2p = kf.flash_block_update_hld_plain(q, k, v, *state,
-                                                          qp, kp, **kw)[0]
-                cnt = kf.rowstats(q, k, m2, qp, kp, **kw)
-                check(bool((cnt >= 1).all()),
-                      f"K3 found no tie with K2's m' on some row (bf16, "
-                      f"D={dd}, {lq} x {lk}, causal={causal})")
-                ops = (q, k, v, m2, dl2, do2, route, qp, kp)
-                pops = (q, k, v, m2p, dl2, do2, route, qp, kp)
-                got = (kf.bwd_dq(*ops, **kw), *kf.bwd_dkv(*ops, **kw))
-                want = (kf.bwd_dq_plain(*pops, **kw),
-                        *kf.bwd_dkv_plain(*pops, **kw))
-                torch.cuda.synchronize()
-                for what, g, w, key in zip(("dq", "dk", "dv"), got, want,
-                                           (4, 5, 5)):
-                    check(bool(torch.isfinite(g).all()) and
-                          _close(g, w, 1e-4, 1e-4),
-                          f"K{key} {what} differs from its plain version "
-                          f"(bf16, D={dd}, {lq} x {lk}, causal={causal})")
-                    worst[key] = max(worst[key], abs_err(g, w))
-                n_dims += 1
-    print(f"[k3-k5] bf16 at D 16/32/128 (33 x 7, 129 x 77, 256 x 256, "
-          f"causal and not; {n_dims} cases): K3 ties K2's m' on every row; "
-          f"K4/K5 within rtol 1e-4 of the plain versions; max |err| K4 "
-          f"{worst[4]:.3g}, K5 {worst[5]:.3g}")
+    for hh, dd, groups, lq, lk in shapes:
+        nq = groups * lq
+        q, k, v = (torch.randn(hh, ll, dd, generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for ll in (nq, lk, lk))
+        m = torch.full((hh, 1, nq), kf.NEG, device=dev)
+        state = (m, torch.zeros_like(m), torch.zeros(hh, nq, dd,
+                                                     device=dev))
+        qp = torch.arange(lk - lq, lk, dtype=torch.int32,
+                          device=dev).repeat(groups).reshape(1, nq)
+        kp = torch.arange(lk, dtype=torch.int32, device=dev).reshape(1, lk)
+        dl2, do2, route = rand(hh, 1, nq), rand(hh, nq, dd), rand(hh, 1, nq)
+        prep = kf.bwd_dkv_prep(do2, qp)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(prep, kf.bwd_dkv_prep_plain(do2, qp))),
+              f"K5's prepass differs from its plain version (D={dd}, "
+              f"{groups} x {lq} x {lk})")
+        for causal in (True, False):
+            what = (f"bf16, D={dd}, {groups} x {lq} x {lk}, "
+                    f"causal={causal}")
+            kw = dict(causal=causal, scale=scale)
+            with torch.no_grad():
+                m2 = kf.flash_block_update_hld(q, k, v, *state, qp, kp,
+                                               **kw)[0]
+                m2p = kf.flash_block_update_hld_plain(q, k, v, *state,
+                                                      qp, kp, **kw)[0]
+            cnt = kf.rowstats(q, k, m2, qp, kp, **kw)
+            check(bool((cnt >= 1).all()),
+                  f"K3 found no tie with K2's m' on some row ({what})")
+            ops = (q, k, v, m2, dl2, do2, route, qp, kp)
+            pops = (q, k, v, m2p, dl2, do2, route, qp, kp)
+            before = (kf.bwd_dkv.launches, kf.bwd_dkv_prep.launches)
+            got = (kf.bwd_dq(*ops, **kw), *kf.bwd_dkv(*ops, **kw))
+            check((kf.bwd_dkv.launches - before[0],
+                   kf.bwd_dkv_prep.launches - before[1]) == (1, 1),
+                  f"K5 and its prepass launched "
+                  f"{kf.bwd_dkv.launches - before[0]} and "
+                  f"{kf.bwd_dkv_prep.launches - before[1]} times, not once "
+                  f"each ({what})")
+            want = (kf.bwd_dq_plain(*pops, **kw),
+                    *kf.bwd_dkv_plain(*pops, **kw))
+            torch.cuda.synchronize()
+            for name, g, w, key in zip(("dq", "dk", "dv"), got, want,
+                                       (4, 5, 5)):
+                check(bool(torch.isfinite(g).all()) and
+                      _close(g, w, 1e-4, 1e-4),
+                      f"K{key} {name} differs from its plain version "
+                      f"({what})")
+                worst[key] = max(worst[key], abs_err(g, w))
+            n_dims += 1
+    print(f"[k3-k5] bf16 at D 16/32/128 (33 x 7, 129 x 77, 256 x 256) and "
+          f"the GQA fold at D 128 (16 heads, 12 x 512 x 512), causal and "
+          f"not; {n_dims} cases: K3 ties K2's m' on every row; K4/K5 within "
+          f"rtol 1e-4 of the plain versions; K5's prepass equals its plain "
+          f"version, one launch a K5 launch; max |err| K4 {worst[4]:.3g}, "
+          f"K5 {worst[5]:.3g}")
 
     # no atomics: two launches give the same bits; views (a transposed
     # q, k and v one bf16 element into their storage, a misaligned do')
@@ -2974,8 +3009,12 @@ def time_flash(dev) -> dict:
     causal, from the initial state) and K4/K5 at the training shape
     (``BWD_SHAPE``, bf16, causal, fast mode: route 0): CUDA-event ms a
     launch in runs of 10 and device ms by the profiler, with a digest of
-    each output (equal digests: equal bits). Calls only what the parent
-    tree has too (``--time-flash``)."""
+    each output (equal digests: equal bits); then K4/K5 at the training
+    cell's shape (``CELL_BWD``), each beside its bound (``_bwd_bound``:
+    3 or 4 products) and its executed rate (5 or 8 bf16 products of the
+    split precision over the device time); then K5 at the training
+    shape with D 16 and 32. Calls only what the parent tree has too
+    (``--time-flash``)."""
     import hashlib
     import torch
     from rlo_tpu_torch.kernels import flash as kf
@@ -3013,6 +3052,56 @@ def time_flash(dev) -> dict:
                              device_ms=device_ms(f, 20),
                              sha1=digest(*(r if isinstance(r, tuple)
                                            else (r,))))
+    # the training cell's shape (sc2-3b-train-4k): 16 folded KV heads,
+    # 12 query heads a group over positions 0..4095, Lk 4096, D 128
+    h, groups, n, d = CELL_BWD
+    lq = groups * n
+    q = torch.randn(h, lq, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(h, n, d, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    kpos = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, n)
+    qpos = kpos.repeat(1, groups)
+    m = torch.full((h, 1, lq), kf.NEG, device=dev)
+    state = (m, torch.zeros_like(m), torch.zeros(h, lq, d, device=dev))
+    kw = dict(causal=True, scale=d ** -0.5)
+    with torch.no_grad():
+        m2 = kf.flash_block_update_hld(q, k, v, *state, qpos, kpos, **kw)[0]
+    dl2, do2 = (torch.randn(h, 1, lq, generator=gen, device=dev),
+                torch.randn(h, lq, d, generator=gen, device=dev))
+    ops = (q, k, v, m2, dl2, do2, torch.zeros_like(dl2), qpos, kpos)
+    pairs = h * groups * n * (n + 1) // 2
+    for name, which, runs, f in (
+            ("K4 cell", 4, 5, lambda: kf.bwd_dq(*ops, **kw)),
+            ("K5 cell", 5, 8, lambda: kf.bwd_dkv(*ops, **kw))):
+        r = f()
+        dms = device_ms(f, 5)
+        bound, by = _bwd_bound(which, h, lq, n, d, 2, pairs)
+        out[name] = dict(ms=time_ms(f, iters=5, per=2), device_ms=dms,
+                         bound_ms=bound, bound_by=by,
+                         executed_tflops=runs * 2 * d * pairs / dms / 1e9,
+                         sha1=digest(*(r if isinstance(r, tuple)
+                                       else (r,))))
+    # K5 at the training shape's heads and length at the small head dims
+    h, n = BWD_SHAPE
+    pos = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, n)
+    for d in (16, 32):
+        q, k, v = (torch.randn(h, n, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        m = torch.full((h, 1, n), kf.NEG, device=dev)
+        state = (m, torch.zeros_like(m), torch.zeros(h, n, d, device=dev))
+        kw = dict(causal=True, scale=d ** -0.5)
+        with torch.no_grad():
+            m2 = kf.flash_block_update_hld(q, k, v, *state, pos, pos,
+                                           **kw)[0]
+        dl2, do2 = (torch.randn(h, 1, n, generator=gen, device=dev),
+                    torch.randn(h, n, d, generator=gen, device=dev))
+        ops = (q, k, v, m2, dl2, do2, torch.zeros_like(dl2), pos, pos)
+        f = lambda: kf.bwd_dkv(*ops, **kw)  # noqa: E731
+        r = f()
+        bound, by = _bwd_bound(5, h, n, n, d, 2, h * n * (n + 1) // 2)
+        out[f"K5 D{d}"] = dict(ms=time_ms(f, iters=10, per=10),
+                               device_ms=device_ms(f, 20), bound_ms=bound,
+                               bound_by=by, sha1=digest(*r))
     return out
 
 
@@ -3140,6 +3229,8 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 #: (folded heads, length) of phases 7 and 8: the training path's
 #: attention (batch 4 x 16 heads, L 1024)
 BWD_SHAPE = (64, 1024)
+#: K4/K5 at the training cell's shape: (folded KV heads, GQA group, L, D)
+CELL_BWD = (16, 12, 4096, 128)
 #: phase 7's repeat launches of K3-K5, each held bit-equal to the first
 REPEATS = 100
 #: per-tensor relative L2 error of the kernel path's grads against the
@@ -5111,7 +5202,7 @@ def train_parallel_worker(argv) -> int:
             walls = []
             for i in range(plan["reps"]):
                 staged0 = sum(a.staged_bytes for a in axes.values())
-                for fn in counted:
+                for fn in (*counted, kf.bwd_dkv_prep):
                     fn.launches = 0
                 sync()
                 t0 = time.perf_counter()
@@ -5122,6 +5213,7 @@ def train_parallel_worker(argv) -> int:
                 if i == 0:
                     first = (new, loss)
                     launches = {fn.__name__: fn.launches for fn in counted}
+                    prep_launches = kf.bwd_dkv_prep.launches
                     staged = sum(a.staged_bytes
                                  for a in axes.values()) - staged0
                 del new
@@ -5145,7 +5237,7 @@ def train_parallel_worker(argv) -> int:
             print("TRAIN-PARALLEL " + json.dumps(dict(
                 tag=run["tag"], rank=rank, loss=float(loss), walls=walls,
                 peak_gib=peak, staged_bytes=staged, launches=launches,
-                leaves=leaves)), flush=True)
+                prep_launches=prep_launches, leaves=leaves)), flush=True)
             del params, new, first, ref, leaves
         dist.barrier()
     finally:
@@ -5168,8 +5260,8 @@ def phase_train_parallel(dev) -> dict:
     DP_REL_LIMIT relative L2 per tensor, every process's loss the same
     bits, every replicated leaf the same bits on every process holding
     it, and K2, K4 and K5 launched the path's own count a step on every
-    process (layers x ring steps). Then 16f: K4/K5 at a ring step's
-    shapes (``ring_step_bwd``)."""
+    process (layers x ring steps), K5's prepass once a bf16 K5 launch.
+    Then 16f: K4/K5 at a ring step's shapes (``ring_step_bwd``)."""
     nproc = TRAIN_PARALLEL["procs"]
     plan, lines, t_ref, t_procs = _rank_processes(
         dev, _train_parallel_plan, "--train-parallel-worker", nproc,
@@ -5195,10 +5287,16 @@ def phase_train_parallel(dev) -> dict:
         ring = cfg.get("sp_attention", "ring") == "ring" and "sp" in names
         steps = run["shape"][names.index("sp")] if ring else 1
         want = cfg["n_layers"] * steps
+        # K5's prepass: one launch a bf16 K5 launch (none on the CPU)
+        bf16 = dev.type == "cuda" and cfg["dtype"] == "bfloat16"
         for x in got:
             check(x["launches"] == dict.fromkeys(x["launches"], want),
                   f"{tag}: process {x['rank']} launched {x['launches']} in "
                   f"a step, not {want} each")
+            check(x["prep_launches"] == (want if bf16 else 0),
+                  f"{tag}: process {x['rank']} launched K5's prepass "
+                  f"{x['prep_launches']} times in a step, not "
+                  f"{want if bf16 else 0}")
         walls = [statistics.median(x["walls"]) for x in got]
         st = dict(loss=losses[0], loss_rel=lrel, update_rel_l2_max=max(rel),
                   update_rel_l2_median=statistics.median(rel),
@@ -7422,10 +7520,11 @@ def build_all() -> None:
 
 def check_tensor_cores() -> None:
     """K2-K5's bf16 instantiations run on the tensor cores and their f32
-    ones on the CUDA cores: count HMMA instructions per kernel in the
-    SASS of the built flash library (``cuobjdump`` beside ``nvcc``). K4
-    and K5 run every product there, K3 only its scores: each bf16 K4/K5
-    must hold more HMMA than K3 at the same head dim."""
+    ones on the CUDA cores: count tensor-core instructions (HMMA, and
+    HGMMA for wgmma) per kernel in the SASS of the built flash library
+    (``cuobjdump`` beside ``nvcc``). K4 and K5 run every product there,
+    K3 only its scores: each bf16 K4/K5 must hold more of them than K3
+    at the same head dim."""
     import re
     from pathlib import Path
     from rlo_tpu_torch.kernels import build
@@ -7440,12 +7539,14 @@ def check_tensor_cores() -> None:
         if m:
             fn = m.group(1)
             hmma[fn] = 0
-        elif fn and "HMMA" in line:
+        elif fn and ("HMMA" in line or "HGMMA" in line):
             hmma[fn] += 1
     kinds = {"K2": "flash_fwd_", "K3": "flash_rowstats_",
              "K4": "flash_bwd_dq_", "K5": "flash_bwd_dkv_"}
     seen = {}
     for fn, n in hmma.items():
+        if "flash_bwd_dkv_prep_kernel" in fn:
+            continue  # K5's prepass: no products, no head-dim instance
         for k, frag in kinds.items():
             if frag in fn:
                 bf16 = "mma_kernel" in fn or "__nv_bfloat16" in fn
@@ -7621,7 +7722,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the training path: the full-width step and the dp combine
     trained = (k1.fused_combine, k2.flash_block_update_hld, k2.bwd_dq,
-               k2.bwd_dkv)
+               k2.bwd_dkv, k2.bwd_dkv_prep)
     for fn in trained:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -7635,6 +7736,7 @@ def main() -> int:
     for fn in trained:
         check(train_launches[fn.__name__] > 0,
               f"{fn.__name__} was not launched on the training path")
+    _one_prep_a_k5(train_launches, "the training path")
     del train["params"], train["grads"]
     torch.cuda.empty_cache()
 
@@ -7678,13 +7780,15 @@ def main() -> int:
           "write_kv_block was not launched on the TP block decode")
     torch.cuda.empty_cache()
     pipe_counted = (k2.flash_block_update_hld, k2.bwd_dq, k2.bwd_dkv)
-    for fn in pipe_counted:
+    for fn in (*pipe_counted, k2.bwd_dkv_prep):
         fn.launches = 0
     t0 = time.perf_counter()
     pipe = phase_pipeline(dev, pipe_counted)
-    pipe_launches = {fn.__name__: fn.launches for fn in pipe_counted}
+    pipe_launches = {fn.__name__: fn.launches
+                     for fn in (*pipe_counted, k2.bwd_dkv_prep)}
     print(f"[pipeline] phase 14 took {time.perf_counter() - t0:.1f} s, "
           f"launches {json.dumps(pipe_launches)}")
+    _one_prep_a_k5(pipe_launches, "the pipelined paths")
     for fn in pipe_counted:
         check(pipe_launches[fn.__name__] > 0,
               f"{fn.__name__} was not launched on the pipelined paths")

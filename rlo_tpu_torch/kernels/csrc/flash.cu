@@ -51,6 +51,7 @@
 //   score bits, so all four f32 kernels form scores with tile_dots' fmaf
 //   chain from f32 tiles in shared memory.
 
+#include <cuda.h>  // CUtensorMap (K5's TMA)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -743,12 +744,13 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 //
 // The TPU kernels ran a sequential grid axis with the sums in VMEM scratch;
 // here K3 and K4 own (head, 64 query rows) and loop over the K tiles, K5
-// owns (head, 64 key rows) and loops over the Q tiles, each carrying its
-// sums in registers, so no two blocks write one output and no atomics are
-// needed: gradients are the same bits from run to run. A causal tile that
-// no row of the block can see is skipped: its ds~ and p are 0. K3 counts
-// such a tile in closed form instead: every position there is masked, so
-// s~ = -1e30 and it ties exactly the rows whose m' is -1e30.
+// owns (head, 64 key rows; bf16: 128) and loops over the Q tiles, each
+// carrying its sums in registers, so no two blocks write one output and no
+// atomics are needed: gradients are the same bits from run to run. A
+// causal tile that no row of the block can see is skipped: its ds~ and p
+// are 0. K3 counts such a tile in closed form instead: every position
+// there is masked, so s~ = -1e30 and it ties exactly the rows whose m' is
+// -1e30.
 //
 // The score tile fixes the tie bits. bf16 operands form it with K2's
 // routine, mma_scores (tensor-core m16n8k16 steps over d from a zero
@@ -774,8 +776,8 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 //   multiply by scale and the compare with m' run, and each lane keeps its
 //   share of a row's count in a register (no shared score tile, one barrier
 //   a tile).
-// - bf16 K4 and K5 run every product on the tensor cores (mma.sync
-//   m16n8k16, f32 accumulation). The f32 operands do', ds~ and p are split
+// - bf16 K4 and K5 run every product on the tensor cores (K4 on mma.sync
+//   m16n8k16, K5 on wgmma; f32 accumulation). The f32 operands do', ds~ and p are split
 //   exactly into bf16 hi + lo (split_bf16: ~16 bits, against bf16's 8,
 //   whose one rounding would move the result ~2^-9 relative), so
 //   dP = do'_hi.v^T + do'_lo.v^T, dq = ds~_hi.k + ds~_lo.k,
@@ -788,14 +790,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 //   double-buffered by cp.async. Scores and dP land in mma C fragments,
 //   ds~ is formed there, and the ds~ fragments become the A operand of
 //   ds~ . k as K2's p does (K from the same tile by ldmatrix.trans).
-//   K5 (flash_bwd_dkv_mma_kernel): 8 warps own 64 keys (K and V tiles
-//   loaded once) and loop over Q tiles, whose Q, f32 do' and row values
-//   the next tile's cp.async copies while this one computes. Per tile,
-//   warp w first forms the scores, dP, p and ds~ of query rows 16 (w % 4)
-//   against keys 32 (w / 4) and stages p and ds~ as bf16 hi/lo tiles in
-//   shared memory; then it accumulates dk and dv for keys 16 (w % 4) and
-//   head-dim columns (w / 4) D/2 on, reading p^T and ds~^T back by
-//   ldmatrix.trans as A fragments (the contraction is over query rows).
+//   K5 (flash_bwd_dkv_mma_kernel): the Hopper design of its own note
+//   below (128 keys a block, the live query tiles only, a TMA ring,
+//   dP, dk and dv on wgmma, the scores on mma_scores).
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -1289,9 +1286,6 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 // K4 and K5, bf16 route: tensor cores (see the section header).
 // ---------------------------------------------------------------------------
 
-constexpr int kDkvThreads = 256;  // K5: 8 warps
-constexpr int PS = BK + 8;        // bf16 row stride of K5's p and ds~ tiles
-
 // The rows of one query row pair (hf = 0, 1: rows g and g + 8 of a warp's
 // 16) that ds_frags reads.
 struct RowVals {
@@ -1581,266 +1575,648 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5, bf16 route: the Hopper design (flash_bwd_dkv_mma_kernel).
+//
+// Replaces rlo_tpu/pallas/flash.py:320 (_bwd_dkv_kernel) for bf16 q, k, v.
+// Bound at the training cell's shape (StarCoder2-3B, 8 x 4096 packed rows:
+// 16 folded KV heads, Lq 12 x 4096 = 49,152 query rows whose positions
+// repeat 0..4095 once a GQA group, Lk 4,096, D 128, causal): the four
+// products the roofline counts (s, dP, dv, dk) are 4 x 4.12e11 FLOPs a
+// layer, 1.67 ms at 989 TFLOP/s; the bytes (q, f32 do', k, v and the row
+// values read once, f32 dk, dv written) 0.21 ms at 3.35 TB/s. The products
+// bound it; this design takes 9.1-9.2 ms there (18 % of the bound, 360
+// TFLOP/s of executed products). The split
+// precision runs 8 bf16 products where the roofline counts 4: s once, dP
+// = do'_hi.v^T + do'_lo.v^T, dv = p_hi^T.do'_hi + p_hi^T.do'_lo +
+// p_lo^T.do'_hi, dk = ds~_hi^T.q + ds~_lo^T.q (the dropped lo.lo terms are
+// ~2^-16 relative).
+//
+// Design:
+// - A block owns K5K = 128 keys of one head: a producer warpgroup and two
+//   consumer warpgroups of 64 keys each (384 threads, one block an SM), so
+//   every query tile that crosses memory feeds two warpgroups' products.
+//   Blocks run the smallest key positions first (the longest walks): the
+//   linear block index takes the head fastest.
+// - Live tiles only. A prepass (flash_bwd_dkv_prep_kernel, once a call)
+//   writes the largest position of each 64-row query tile; the producer
+//   walks those maxima 32 at a time by ballot and hands on only the tiles
+//   whose largest position reaches the block's smallest key position
+//   (causal; all tiles otherwise). Under the GQA fold the positions repeat,
+//   so a block's causal span holds dead tiles: they cost neither a load
+//   nor a barrier. The walk reads positions, never the fold's group count
+//   (ring, Ulysses and pipeline callers pass any positions).
+// - do' is split once a call by the same prepass (hi = bf16(x), lo =
+//   bf16(x - hi), split_bf16's rule) and streams as two bf16 tiles.
+// - TMA ring. The producer warp keeps kK5Stages stages of (q, do'_hi,
+//   do'_lo) tiles in flight by TMA (128-byte-swizzled boxes for D >= 64,
+//   the row's own width below; rows past Lq read as zeros) through full and
+//   empty mbarriers, and writes each tile's row values (m', dl', route,
+//   positions) beside them. v arrives once by TMA; k by cp.async into the
+//   padded layout of the score routine.
+// - Scores stay on mma.sync: each consumer warp forms its 16 query rows'
+//   scores against its warpgroup's 64 keys with mma_scores (m16n8k16 over
+//   d from a zero accumulator, then __fmul_rn by scale), by the tie rule:
+//   K3-K5 must recompute K2's score bits for the m' tie test, and a wgmma
+//   score route would have to move K2-K5 together.
+// - The products on wgmma (sm_90a), f32 accumulation in registers. dP =
+//   do'.v^T is m64n64k16 with both operands K-major in shared memory; warp
+//   w of a warpgroup holds query rows 16w.. in its dP accumulator exactly
+//   as in its mma_scores fragments, so ds_frags combines the two in
+//   registers. p and ds~ are split into bf16 hi/lo and staged as
+//   [query row][key] tiles, read by wgmma as transposed (MN-major) A
+//   operands of dk += ds~^T.q and dv += p^T.do' (m64nDk16), with q and do'
+//   as MN-major B operands straight from the ring. ds~ and then p share
+//   one staging pair a warpgroup (the dk products finish before p lands).
+//   setmaxnreg gives the consumers 232 registers (a warpgroup's dk and dv
+//   accumulators, 64 keys x D in f32, and a tile's scores and dP) and the
+//   producer warpgroup 40. That is all they hold: one 64-bit value more
+//   kept live across the tile loop made ptxas spill and serialise every
+//   wgmma (check nvcc -Xptxas -v after a change).
+// - No atomics: each block owns its key rows, so gradients repeat bit for
+//   bit.
+// ---------------------------------------------------------------------------
+
+constexpr int K5K = 128;          // keys of a block: two warpgroups of 64
+constexpr int K5Q = 64;           // query rows of a tile
+constexpr int kK5Stages = 2;      // depth of the (q, do'_hi, do'_lo) ring
+constexpr int kK5Threads = 384;   // a producer + two consumer warpgroups
+
+// The shared-memory layout of K5 for head_dim D (byte offsets from a
+// 1024-byte-aligned base). Every D-wide bf16 tile is CB column blocks of
+// rows x SW bytes, each block swizzled as TMA writes it (16-byte chunk
+// index ^= address bits 7.., SW / 16 chunks a period).
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  // K, V, 2 Q, do'_hi, do'_lo (bf16, 64 x (D + 8) each); p_hi, p_lo,
-  // ds~_hi, ds~_lo (bf16, BQ x PS each); the f32 do' tile (BQ x D)
-  return sizeof(bf16) * ((size_t)6 * 64 * (D + 8) + (size_t)4 * BQ * PS) +
-         sizeof(float) * (size_t)BQ * D;
+struct K5Tiles {
+  static constexpr int SW = 2 * D < 128 ? 2 * D : 128;  // swizzle span
+  static constexpr int BOX = SW / 2;                     // bf16 a box row
+  static constexpr int CB = 2 * D / SW;
+  static constexpr uint64_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int QT = K5Q * 2 * D;                 // a query tile
+  static constexpr int PT = K5Q * 64 * 2;                // a staged tile
+  static constexpr int RING = 0;  // stages x (q, do'_hi, do'_lo)
+  static constexpr int VT = RING + kK5Stages * 3 * QT;   // v, K5K rows
+  static constexpr int STG = VT + 2 * QT;   // 2 warpgroups x (hi, lo)
+  static constexpr int KS = STG + 4 * PT;   // k, K5K rows of D + 8
+  static constexpr int ROWF = KS + K5K * (D + 8) * 2;  // m', dl', route
+  static constexpr int ROWP = ROWF + kK5Stages * 3 * K5Q * 4;  // q_pos
+  static constexpr int KP = ROWP + kK5Stages * K5Q * 4;  // key positions
+  static constexpr int TILE = KP + K5K * 4;  // each stage's tile index
+  static constexpr int BAR = TILE + 16;  // full[stages], empty[stages], v
+  static constexpr int BYTES = BAR + (2 * kK5Stages + 1) * 8;
+};
+
+// K5's dynamic shared memory: its layout and 1024 bytes to align the base.
+template <int D>
+constexpr size_t dkv_tma_smem_bytes() {
+  return (size_t)K5Tiles<D>::BYTES + 1024;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of TMA traffic in this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// a barrier of `n` threads on hardware barrier `id` (0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// the generic proxy's shared-memory writes, seen by wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's accumulators
+// across the asynchronous products (issue ... wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, layout type (1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+// swizzle).
+__device__ __forceinline__ uint64_t gdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo, uint64_t mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (mode << 62);
+}
+
+// K-major operand (rows x D, d contiguous) of a tile with R rows a column
+// block, at the 16-wide step kc of d.
+template <int D, int R>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kc) {
+  using L = K5Tiles<D>;
+  const int b = 32 * kc;
+  return gdesc(tile + (b / L::SW) * (R * L::SW) + b % L::SW, 16, 8 * L::SW,
+               L::MODE);
+}
+
+// MN-major B operand (query rows x D, d contiguous; K = query rows) of a
+// query tile, at the 16-row step kq: d repeats every column block.
+template <int D>
+__device__ __forceinline__ uint64_t ndesc(uint32_t tile, int kq) {
+  using L = K5Tiles<D>;
+  return gdesc(tile + kq * 16 * L::SW, K5Q * L::SW, 8 * L::SW, L::MODE);
+}
+
+// MN-major A operand (keys x query rows, keys contiguous) of a staged
+// [query row][64 keys] tile, at the 16-row step kq.
+__device__ __forceinline__ uint64_t pdesc(uint32_t tile, int kq) {
+  return gdesc(tile + kq * 16 * 128, 1024, 1024, 1);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 . bf16, both operands from shared
+// memory; TA / TB = 1: that operand is MN-major. d holds the accumulator
+// as mma.sync's C fragments, 8 columns after 8: d[4j + e] is row
+// 16 (warp % 4) + g + 8 (e >> 1), column 8j + 2 t4 + (e & 1).
+template <int N>
+struct Wgmma;
+
+// Eight accumulator operands of Wgmma<N>::run, d[i] .. d[i + 7].
+#define RLO_WG_D8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// Wgmma<N>: REGS names its N / 2 accumulators in the PTX, A .. TB_ are
+// the numbers of the operands after them (a, b, acc, TA, TB), and the
+// rest are the accumulators' constraints.
+#define RLO_WGMMA(N, REGS, A, B, ACC, TA_, TB_, ...)                    \
+  template <>                                                           \
+  struct Wgmma<N> {                                                     \
+    template <int TA, int TB>                                           \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],       \
+                                               uint64_t a, uint64_t b,  \
+                                               int acc) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ACC ", 0;\n"  \
+                   "wgmma.mma_async.sync.aligned.m64n" #N               \
+                   "k16.f32.bf16.bf16 {" REGS "}, %" #A ", %" #B        \
+                   ", p, 1, 1, %" #TA_ ", %" #TB_ ";\n}\n"              \
+                   : __VA_ARGS__                                        \
+                   : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));       \
+    }                                                                   \
+  };
+
+RLO_WGMMA(16,
+          "%0, %1, %2, %3, %4, %5, %6, %7",
+          8, 9, 10, 11, 12,
+          RLO_WG_D8(0))
+RLO_WGMMA(32,
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15",
+          16, 17, 18, 19, 20,
+          RLO_WG_D8(0), RLO_WG_D8(8))
+RLO_WGMMA(64,
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31",
+          32, 33, 34, 35, 36,
+          RLO_WG_D8(0), RLO_WG_D8(8), RLO_WG_D8(16), RLO_WG_D8(24))
+RLO_WGMMA(128,
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63",
+          64, 65, 66, 67, 68,
+          RLO_WG_D8(0), RLO_WG_D8(8), RLO_WG_D8(16), RLO_WG_D8(24),
+          RLO_WG_D8(32), RLO_WG_D8(40), RLO_WG_D8(48), RLO_WG_D8(56))
+
+#undef RLO_WGMMA
+#undef RLO_WG_D8
+
+// Byte offset of (row, byte column) in a swizzled tile of K5Tiles<D> with
+// R rows a column block.
+template <int D, int R>
+__device__ __forceinline__ uint32_t sw_off(int row, int col_bytes) {
+  constexpr int SW = K5Tiles<D>::SW;
+  const uint32_t o = (col_bytes / SW) * (R * SW) + row * SW + col_bytes % SW;
+  return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// load_q_frags over a swizzled query tile: the mma A fragments of rows
+// r0.. (16) for every 16-wide step of d.
+template <int D>
+__device__ __forceinline__ void load_q_frags_sw(uint32_t (&qf)[D / 16][4],
+                                                const unsigned char* tile,
+                                                int r0, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldsm_x4(qf[kc], reinterpret_cast<const bf16*>(
+                        tile + sw_off<D, K5Q>(r0 + (lane & 15),
+                                              32 * kc + 16 * (lane >> 4))));
+}
+
+// x (mma C fragments: query rows 16w + g (+8), keys 8j + 2 t4 (+1)) split
+// into bf16 hi and lo [query row][64 keys] tiles of 128-byte rows, their
+// 16-byte chunks swizzled by the row as wgmma's 128-byte pattern reads
+// them (row & 7 == g).
+__device__ __forceinline__ void stage_split(unsigned char* hi,
+                                            const float (&x)[8][4], int w,
+                                            int g, int t4) {
+  unsigned char* lo = hi + K5Q * 64 * 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int o = (16 * w + g + 8 * hf) * 128 + ((j ^ g) << 4) + 4 * t4;
+      uint32_t h, l;
+      split_bf16(x[j][2 * hf], x[j][2 * hf + 1], h, l);
+      *reinterpret_cast<uint32_t*>(hi + o) = h;
+      *reinterpret_cast<uint32_t*>(lo + o) = l;
+    }
+}
+
+// K5's prepass: do' split into bf16 hi + lo (split_bf16's rule; n4 groups
+// of 4 values), and the largest position of every K5Q-row query tile
+// (warp i of the grid takes tile i), the live-tile walk's input.
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_prep_kernel(const float* __restrict__ do2,
+                          const int* __restrict__ qpos, bf16* __restrict__ hi,
+                          bf16* __restrict__ lo, int* __restrict__ tmax,
+                          size_t n4, int Lq) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n4) {
+    const float4 x = reinterpret_cast<const float4*>(do2)[i];
+    uint32_t h0, l0, h1, l1;
+    split_bf16(x.x, x.y, h0, l0);
+    split_bf16(x.z, x.w, h1, l1);
+    reinterpret_cast<uint2*>(hi)[i] = make_uint2(h0, h1);
+    reinterpret_cast<uint2*>(lo)[i] = make_uint2(l0, l1);
+  }
+  const size_t t = i >> 5;
+  const int lane = threadIdx.x & 31;
+  if (t < (size_t)(Lq + K5Q - 1) / K5Q) {  // one warp a tile
+    int m = INT_MIN;
+    for (int r = (int)t * K5Q + lane; r < Lq && r < ((int)t + 1) * K5Q;
+         r += 32)
+      m = max(m, qpos[r]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = max(m, __shfl_xor_sync(kFull, m, off));
+    if (lane == 0) tmax[t] = m;
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDkvThreads, D <= 64 ? 2 : 1)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+__global__ void __launch_bounds__(kK5Threads, 1)
+flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap thi,
+                         const __grid_constant__ CUtensorMap tlo,
+                         const __grid_constant__ CUtensorMap tv,
                          const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
                          const float* __restrict__ m2,
                          const float* __restrict__ dl2,
-                         const float* __restrict__ do2,
                          const float* __restrict__ route,
                          const int* __restrict__ qpos,
+                         const int* __restrict__ tmax,
                          const int* __restrict__ kpos, float* __restrict__ dk,
-                         float* __restrict__ dv, int Lq, int Lk, int causal,
-                         float scale) {
-  constexpr int DS = D + 8;   // bf16 row stride of the D-wide tiles
-  constexpr int CH = D / 8;   // 16-byte bf16 chunks per row
-  constexpr int C4 = D / 4;   // 16-byte f32 chunks per row
-  constexpr int NA = D / 16;  // accumulator fragments: D/2 columns a warp
+                         float* __restrict__ dv, int H, int Lq, int Lk,
+                         int causal, float scale) {
+  using L = K5Tiles<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // BK x DS
-  bf16* vs = ks + BK * DS;                        // BK x DS
-  bf16* qs = vs + BK * DS;                        // 2 x BQ x DS
-  bf16* dhi = qs + 2 * BQ * DS;                   // BQ x DS
-  bf16* dlo = dhi + BQ * DS;                      // BQ x DS
-  bf16* phi = dlo + BQ * DS;                      // BQ x PS
-  bf16* plo = phi + BQ * PS;                      // BQ x PS
-  bf16* shi = plo + BQ * PS;                      // BQ x PS
-  bf16* slo = shi + BQ * PS;                      // BQ x PS
-  float* dof = reinterpret_cast<float*>(slo + BQ * PS);  // BQ x D
-  __shared__ float rows_f[2][3][BQ];  // m', dl', route of a Q tile's rows
-  __shared__ int rows_p[2][BQ];       // their positions
-  __shared__ int kp_s[BK];
-  __shared__ int span_s[3];  // min key position; first, last live Q tile
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  float* rowf = reinterpret_cast<float*>(base + L::ROWF);
+  int* rowp = reinterpret_cast<int*>(base + L::ROWP);
+  int* tile_s = reinterpret_cast<int*>(base + L::TILE);
+  const uint32_t ring = smem_addr(base + L::RING);
+  const uint32_t full = smem_addr(base + L::BAR);
+  const uint32_t empty = full + 8 * kK5Stages, vbar = empty + 8 * kK5Stages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.y, k0 = blockIdx.x * BK;
+  // the head fastest: every head's smallest key positions (the longest
+  // walks) first
+  const int h = blockIdx.x % H, k0 = (blockIdx.x / H) * K5K;
   const size_t hq = (size_t)h * Lq, hk = (size_t)h * Lk;
 
-  for (int i = tid; i < BK * CH; i += kDkvThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = k0 + r < Lk;
-    const size_t src = (hk + (ok ? k0 + r : 0)) * D + c;
-    cp_async16(ks + r * DS + c, k + src, ok);
-    cp_async16(vs + r * DS + c, v + src, ok);
+  if (tid == 0) {
+    for (int s = 0; s < kK5Stages; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, 2);  // one thread a consumer warpgroup
+    }
+    mbar_init(vbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // the producer warpgroup: one warp works, three leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != 0) return;
+    int kmin = INT_MAX;  // the block's smallest key position
+    for (int i = lane; i < K5K; i += 32)
+      if (k0 + i < Lk) kmin = min(kmin, kpos[k0 + i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      kmin = min(kmin, __shfl_xor_sync(kFull, kmin, off));
+    if (lane == 0) {
+      mbar_arrive_tx(vbar, K5K * 2 * D);
+      for (int c = 0; c < L::CB; ++c)
+        tma_load_3d(smem_addr(base + L::VT) + c * K5K * L::SW, &tv, vbar,
+                    c * L::BOX, k0, h);
+    }
+    int s = 0, ph = 0;
+    // tile t (or, t < 0, the end) into stage s once the consumers free it
+    auto issue = [&](int t) {
+      mbar_wait(empty + 8 * s, ph ^ 1);
+      const int q0 = t * K5Q;
+      if (t >= 0)
+        for (int i = lane; i < K5Q; i += 32) {
+          const int r = q0 + i;
+          const bool ok = r < Lq;
+          const size_t o = hq + (ok ? r : 0);
+          rowf[(s * 3 + 0) * K5Q + i] = ok ? m2[o] : 0.f;
+          rowf[(s * 3 + 1) * K5Q + i] = ok ? dl2[o] : 0.f;
+          rowf[(s * 3 + 2) * K5Q + i] = ok ? route[o] : 0.f;
+          rowp[s * K5Q + i] = ok ? qpos[r] : 0;
+        }
+      if (lane == 0) {
+        tile_s[s] = t;
+        if (t >= 0) {
+          mbar_arrive_tx(full + 8 * s, 3 * L::QT);
+          const uint32_t dst = ring + s * 3 * L::QT;
+          for (int c = 0; c < L::CB; ++c) {
+            const uint32_t o = c * K5Q * L::SW;
+            tma_load_3d(dst + o, &tq, full + 8 * s, c * L::BOX, q0, h);
+            tma_load_3d(dst + L::QT + o, &thi, full + 8 * s, c * L::BOX, q0,
+                        h);
+            tma_load_3d(dst + 2 * L::QT + o, &tlo, full + 8 * s, c * L::BOX,
+                        q0, h);
+          }
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      } else {
+        mbar_arrive(full + 8 * s);
+      }
+      if (++s == kK5Stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    };
+    const int ntiles = (Lq + K5Q - 1) / K5Q;
+    for (int b = 0; b < ntiles; b += 32) {
+      const int t = b + lane;
+      unsigned live =
+          __ballot_sync(kFull, t < ntiles && (!causal || tmax[t] >= kmin));
+      while (live) {
+        issue(b + __ffs(live) - 1);
+        live &= live - 1;
+      }
+    }
+    issue(-1);
+    return;
+  }
+
+  // the consumer warpgroups: keys k0 + 64 wg.., warp w query rows 16 w..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = (warp >> 2) - 1, w = warp & 3, ctid = tid & 127;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + 64 * wg;
+  bf16* ks = reinterpret_cast<bf16*>(base + L::KS) + 64 * wg * (D + 8);
+  int* kp = reinterpret_cast<int*>(base + L::KP) + 64 * wg;
+  for (int i = ctid; i < 64 * (D / 8); i += 128) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool ok = kw0 + r < Lk;
+    cp_async16(ks + r * (D + 8) + c, k + (hk + (ok ? kw0 + r : 0)) * D + c,
+               ok);
   }
   cp_async_commit();
-  if (tid < BK) kp_s[tid] = k0 + tid < Lk ? kpos[k0 + tid] : INT_MAX;
-  if (tid == 0) {
-    span_s[0] = INT_MAX;
-    span_s[1] = INT_MAX;
-    span_s[2] = -1;
-  }
-  __syncthreads();
-  if (tid < BK && k0 + tid < Lk) atomicMin(&span_s[0], kp_s[tid]);
-  __syncthreads();
-  const int kmin = span_s[0];
-  // the Q tiles whose rows may see a key of this block: all of them, or
-  // (causal) the span from the first to the last tile holding a position
-  // >= the block's smallest key position (a dead tile inside is skipped)
-  const int ntiles = (Lq + BQ - 1) / BQ;
-  int first = 0, last = ntiles - 1;
-  if (causal) {
-    int f = INT_MAX, l = -1;
-    for (int i = tid; i < Lq; i += kDkvThreads)
-      if (qpos[i] >= kmin) {
-        f = min(f, i / BQ);
-        l = i / BQ;
-      }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      f = min(f, __shfl_xor_sync(kFull, f, off));
-      l = max(l, __shfl_xor_sync(kFull, l, off));
-    }
-    if (lane == 0) {
-      atomicMin(&span_s[1], f);
-      atomicMax(&span_s[2], l);
-    }
-    __syncthreads();
-    first = span_s[1];
-    last = span_s[2];
-  }
-
-  // Q tile t's bf16 rows, f32 do' rows and row values into buffer buf
-  auto load_q = [&](int t, int buf) {
-    const int q0 = t * BQ;
-    bf16* qd = qs + buf * BQ * DS;
-    for (int i = tid; i < BQ * CH; i += kDkvThreads) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = q0 + r < Lq;
-      cp_async16(qd + r * DS + c, q + (hq + (ok ? q0 + r : 0)) * D + c, ok);
-    }
-    for (int i = tid; i < BQ * C4; i += kDkvThreads) {
-      const int r = i / C4, c = (i % C4) * 4;
-      const bool ok = q0 + r < Lq;
-      cp_async16(dof + r * D + c, do2 + (hq + (ok ? q0 + r : 0)) * D + c, ok);
-    }
-    {  // 256 threads: one value each of the 4 x 64. Thread r < BQ copies
-      // row r's position: it reads it before the tile's first barrier,
-      // which only its own cp_async_wait makes safe
-      const int a = tid / BQ, r = tid % BQ;
-      const bool ok = q0 + r < Lq;
-      const size_t src = ok ? q0 + r : 0;
-      if (a == 0)
-        cp_async4(&rows_p[buf][r], qpos + src, ok);
-      else
-        cp_async4(&rows_f[buf][a - 1][r],
-                  (a == 1 ? m2 : a == 2 ? dl2 : route) + hq + src, ok);
-    }
-    cp_async_commit();
-  };
-
-  if (first <= last)
-    load_q(first, 0);
-  else
-    cp_async_commit();
-
-  // score phase: query rows sr.. (16), keys sc.. (32); accumulate phase:
-  // keys ar.. (16), head-dim columns ac.. (D/2)
-  const int sr = (warp & 3) * 16, sc = (warp >> 2) * 32;
-  const int ar = (warp & 3) * 16, ac = (warp >> 2) * (D / 2);
-  float acck[NA][4], accv[NA][4];
-#pragma unroll
-  for (int j = 0; j < NA; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
-
-  for (int t = first, buf = 0; t <= last; ++t, buf ^= 1) {
-    cp_async_wait<0>();  // tile t (and, the first time, K and V)
-    const int q0 = t * BQ;
-    const int live = __syncthreads_or(
-        !causal || (tid < BQ && q0 + tid < Lq && rows_p[buf][tid] >= kmin));
-    if (live)  // do' split once per tile (rows past Lq are zero-filled)
-      split_rows<D, BQ, kDkvThreads>(dhi, dlo, dof, BQ, tid);
-    __syncthreads();  // dof is free, do'_hi/lo are ready
-    if (t < last)
-      load_q(t + 1, buf ^ 1);  // buf ^ 1 freed by the last iteration
-    else
-      cp_async_commit();
-    if (live) {
-      const bf16* qt = qs + buf * BQ * DS;
-      RowVals rv;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = sr + g + 8 * hf;
-        rv.ok[hf] = q0 + r < Lq;
-        rv.qp[hf] = rows_p[buf][r];
-        rv.m2[hf] = rows_f[buf][0][r];
-        rv.dl[hf] = rows_f[buf][1][r];
-        rv.rt[hf] = rows_f[buf][2][r];
-      }
-      {
-        uint32_t qf[D / 16][4];
-        load_q_frags<D>(qf, qt + sr * DS, lane);
-        float s[4][4], dp[4][4], p[4][4];
-        mma_scores<D, 4>(qf, ks + sc * DS, lane, s);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-        mma_rows_split<D, 4>(dhi + sr * DS, dlo + sr * DS, vs + sc * DS, lane,
-                             dp);
-        ds_frags<4, true>(s, dp, p, rv, kp_s + sc, Lk - k0 - sc, causal,
-                          scale, t4);
-        // stage p and ds~ as bf16 hi/lo [query row][key] tiles
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int o = (sr + g + 8 * hf) * PS + sc + j * 8 + t4 * 2;
-            uint32_t hi, lo;
-            split_bf16(p[j][2 * hf], p[j][2 * hf + 1], hi, lo);
-            *reinterpret_cast<uint32_t*>(phi + o) = hi;
-            *reinterpret_cast<uint32_t*>(plo + o) = lo;
-            split_bf16(s[j][2 * hf], s[j][2 * hf + 1], hi, lo);
-            *reinterpret_cast<uint32_t*>(shi + o) = hi;
-            *reinterpret_cast<uint32_t*>(slo + o) = lo;
-          }
-      }
-      __syncthreads();
-      // dv += p^T . do' and dk += ds~^T . q over the tile's 64 query rows:
-      // p^T and ds~^T (keys x query rows) by ldmatrix.trans of the staged
-      // tiles, do' and q (query rows x d) by ldmatrix.trans as B
-      const int ao = ((lane & 7) + ((lane >> 4) << 3)) * PS + ar + (lane & 8);
-      const int bo = (lane & 15) * DS + (D == 16 ? 0 : ac) + (lane >> 4) * 8;
-#pragma unroll
-      for (int kc = 0; kc < BQ / 16; ++kc) {
-        uint32_t aph[4], apl[4], ash[4], asl[4];
-        ldsm_x4_t(aph, phi + ao + kc * 16 * PS);
-        ldsm_x4_t(apl, plo + ao + kc * 16 * PS);
-        ldsm_x4_t(ash, shi + ao + kc * 16 * PS);
-        ldsm_x4_t(asl, slo + ao + kc * 16 * PS);
-        // 16 head-dim columns a step (D = 16: the warp's 8 of them)
-#pragma unroll
-        for (int jp = 0; jp < (D == 16 ? 1 : NA / 2); ++jp) {
-          uint32_t bh[4], bl[4], bq[4];
-          const int off = bo + kc * 16 * DS + jp * 16;
-          ldsm_x4_t(bh, dhi + off);
-          ldsm_x4_t(bl, dlo + off);
-          ldsm_x4_t(bq, qt + off);
-          if constexpr (D == 16) {
-            const bool up = warp >= 4;
-            const uint32_t h0 = up ? bh[2] : bh[0], h1 = up ? bh[3] : bh[1];
-            const uint32_t l0 = up ? bl[2] : bl[0], l1 = up ? bl[3] : bl[1];
-            const uint32_t q0b = up ? bq[2] : bq[0], q1b = up ? bq[3] : bq[1];
-            mma_bf16(accv[0], aph, h0, h1);
-            mma_bf16(acck[0], ash, q0b, q1b);
-            mma_bf16(accv[0], aph, l0, l1);
-            mma_bf16(acck[0], asl, q0b, q1b);
-            mma_bf16(accv[0], apl, h0, h1);
-          } else {
-            mma_bf16(accv[2 * jp], aph, bh[0], bh[1]);
-            mma_bf16(accv[2 * jp + 1], aph, bh[2], bh[3]);
-            mma_bf16(acck[2 * jp], ash, bq[0], bq[1]);
-            mma_bf16(acck[2 * jp + 1], ash, bq[2], bq[3]);
-            mma_bf16(accv[2 * jp], aph, bl[0], bl[1]);
-            mma_bf16(accv[2 * jp + 1], aph, bl[2], bl[3]);
-            mma_bf16(acck[2 * jp], asl, bq[0], bq[1]);
-            mma_bf16(acck[2 * jp + 1], asl, bq[2], bq[3]);
-            mma_bf16(accv[2 * jp], apl, bh[0], bh[1]);
-            mma_bf16(accv[2 * jp + 1], apl, bh[2], bh[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the staged tiles and buf are free for the next tile
-  }
+  if (ctid < 64) kp[ctid] = kw0 + ctid < Lk ? kpos[kw0 + ctid] : INT_MAX;
   cp_async_wait<0>();
+  bar_sync(2 + wg, 128);
+  const uint32_t vt = smem_addr(base + L::VT) + 64 * wg * L::SW;
+  unsigned char* stg = base + L::STG + 2 * wg * L::PT;  // hi, then lo
+  const uint32_t sa = smem_addr(stg);
+
+  float acck[D / 2], accv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acck[i] = accv[i] = 0.f;
+  mbar_wait(vbar, 0);
+
+  for (int s = 0, ph = 0, prev = -1;;) {
+    mbar_wait(full + 8 * s, ph);
+    const int t = tile_s[s];
+    if (t < 0) break;
+    const unsigned char* qt = base + L::RING + s * 3 * L::QT;
+    const uint32_t qa = ring + s * 3 * L::QT, ha = qa + L::QT,
+                   la = qa + 2 * L::QT;
+    float sc[8][4], dp[8][4];
+    {
+      uint32_t qf[D / 16][4];
+      load_q_frags_sw<D>(qf, qt, 16 * w, lane);
+      mma_scores<D, 8>(qf, ks, lane, sc);
+    }
+    // dP = do'_lo . v^T + do'_hi . v^T
+    float(&dpv)[32] = *reinterpret_cast<float(*)[32]>(&dp[0][0]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dpv[i] = 0.f;
+    fence_regs(dpv);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Wgmma<64>::run<0, 0>(dpv, kdesc<D, K5Q>(la, kc), kdesc<D, K5K>(vt, kc),
+                           1);
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Wgmma<64>::run<0, 0>(dpv, kdesc<D, K5Q>(ha, kc), kdesc<D, K5K>(vt, kc),
+                           1);
+    wg_commit();
+    wg_wait0();  // dP, and the last tile's dv products: its stage is free
+    fence_regs(dpv);
+    RowVals rv;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 16 * w + g + 8 * hf;
+      rv.ok[hf] = t * K5Q + r < Lq;
+      rv.qp[hf] = rowp[s * K5Q + r];
+      rv.m2[hf] = rowf[(s * 3 + 0) * K5Q + r];
+      rv.dl[hf] = rowf[(s * 3 + 1) * K5Q + r];
+      rv.rt[hf] = rowf[(s * 3 + 2) * K5Q + r];
+    }
+    if (prev >= 0 && ctid == 0) mbar_arrive(empty + 8 * prev);
+    ds_frags<8, true>(sc, dp, dp, rv, kp, Lk - kw0, causal, scale, t4);
+    // dk += ds~_hi^T . q + ds~_lo^T . q
+    stage_split(stg, sc, w, g, t4);
+    fence_async_smem();
+    bar_sync(2 + wg, 128);
+    fence_regs(acck);
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < K5Q / 16; ++kq) {
+      Wgmma<D>::template run<1, 1>(acck, pdesc(sa, kq), ndesc<D>(qa, kq), 1);
+      Wgmma<D>::template run<1, 1>(acck, pdesc(sa + L::PT, kq),
+                                   ndesc<D>(qa, kq), 1);
+    }
+    wg_commit();
+    wg_wait0();  // the staged tiles are free for p
+    fence_regs(acck);
+    // dv += p_hi^T . do'_hi + p_hi^T . do'_lo + p_lo^T . do'_hi, left in
+    // flight under the next tile's scores
+    stage_split(stg, dp, w, g, t4);
+    fence_async_smem();
+    bar_sync(2 + wg, 128);
+    fence_regs(accv);
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < K5Q / 16; ++kq) {
+      Wgmma<D>::template run<1, 1>(accv, pdesc(sa, kq), ndesc<D>(ha, kq), 1);
+      Wgmma<D>::template run<1, 1>(accv, pdesc(sa, kq), ndesc<D>(la, kq), 1);
+      Wgmma<D>::template run<1, 1>(accv, pdesc(sa + L::PT, kq),
+                                   ndesc<D>(ha, kq), 1);
+    }
+    wg_commit();
+    prev = s;
+    if (++s == kK5Stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  wg_wait0();
+  fence_regs(acck);
+  fence_regs(accv);
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int kr = k0 + ar + g + 8 * hf;
+    const int kr = kw0 + 16 * w + g + 8 * hf;
     if (kr >= Lk) continue;
 #pragma unroll
-    for (int j = 0; j < NA; ++j) {
-      const size_t o = (hk + kr) * D + ac + j * 8 + t4 * 2;
-      *reinterpret_cast<float2*>(dk + o) =
-          make_float2(acck[j][2 * hf] * scale, acck[j][2 * hf + 1] * scale);
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t o = (hk + kr) * D + j * 8 + t4 * 2;
+      *reinterpret_cast<float2*>(dk + o) = make_float2(
+          acck[4 * j + 2 * hf] * scale, acck[4 * j + 2 * hf + 1] * scale);
       *reinterpret_cast<float2*>(dv + o) =
-          make_float2(accv[j][2 * hf], accv[j][2 * hf + 1]);
+          make_float2(accv[4 * j + 2 * hf], accv[4 * j + 2 * hf + 1]);
     }
   }
 }
 
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (the library links no driver library).
+using TensorMapEncode = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+TensorMapEncode tensor_map_encode() {
+  static const TensorMapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncode>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (heads, rows, D) bf16 tensor as TMA boxes of box_rows rows x SW bytes,
+// swizzled as K5's descriptors read them; rows past `rows` read as zeros.
+// Returns 0, or 1000 + the driver's error.
+template <int D>
+int bf16_tile_map(CUtensorMap* map, const void* base, int rows, int heads,
+                  int box_rows) {
+  using L = K5Tiles<D>;
+  const TensorMapEncode enc = tensor_map_encode();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)L::BOX, (cuuint32_t)box_rows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      L::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// K5's prepass for H heads of Lq rows: do' (H, Lq, D) f32 into hi and lo
+// (H, Lq, D) bf16, and the ceil(Lq / K5Q) tile maxima of q_pos.
+int launch_dkv_prep(const float* do2, const int* qp, bf16* hi, bf16* lo,
+                    int* tmax, int H, int Lq, int D, cudaStream_t stream) {
+  const size_t n4 = (size_t)H * Lq * D / 4;
+  const size_t nt = (size_t)((Lq + K5Q - 1) / K5Q) * 32;
+  const size_t n = n4 > nt ? n4 : nt;
+  flash_bwd_dkv_prep_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      do2, qp, hi, lo, tmax, n4, Lq);
+  return (int)cudaGetLastError();
+}
+
 // The three backward launches for one (dtype, head_dim). `which` is 3 (K3),
-// 4 (K4) or 5 (K5); unused pointers may be null. As K2's, a call with more
-// than kMaxGridYZ heads runs one launch a chunk of heads, every per-head
-// operand (q, k, v, m2, dl2, do2, route and the outputs) offset to the
-// chunk's first head.
+// 4 (K4) or 5 (K5); unused pointers may be null. bf16 K5 takes do' as the
+// prepass made it (dhi, dlo) and the tile maxima of q_pos (tmax), not
+// do2. As K2's, a call with more than kMaxGridYZ heads runs one launch a
+// chunk of heads, every per-head operand (q, k, v, m2, dl2, do2, dhi, dlo,
+// route and the outputs) offset to the chunk's first head.
 template <typename T, int D>
 int launch_bwd(int which, const void* q, const void* k, const void* v,
                const float* m2, const float* dl2, const float* do2,
-               const float* route, const int* qp, const int* kp, float* out0,
+               const float* route, const int* qp, const int* kp,
+               const void* dhi, const void* dlo, const int* tmax, float* out0,
                float* out1, int H, int Lq, int Lk, int causal, float scale,
                cudaStream_t stream) {
   if (which < 3 || which > 5) return -1;
@@ -1889,11 +2265,20 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
       }
     } else {
       if constexpr (kTensor<T>) {
-        constexpr size_t smem = dkv_mma_smem_bytes<D>();
+        CUtensorMap mq, mhi, mlo, mv;
+        if ((e = bf16_tile_map<D>(&mq, cq, Lq, hn, K5Q)) ||
+            (e = bf16_tile_map<D>(&mhi, static_cast<const T*>(dhi) + oq * D,
+                                  Lq, hn, K5Q)) ||
+            (e = bf16_tile_map<D>(&mlo, static_cast<const T*>(dlo) + oq * D,
+                                  Lq, hn, K5Q)) ||
+            (e = bf16_tile_map<D>(&mv, cv, Lk, hn, K5K)))
+          return e;
+        constexpr size_t smem = dkv_tma_smem_bytes<D>();
         if ((e = set_smem(flash_bwd_dkv_mma_kernel<D>, smem))) return e;
-        flash_bwd_dkv_mma_kernel<D><<<kgrid, kDkvThreads, smem, stream>>>(
-            cq, ck, cv, cm2, cdl2, cdo2, croute, qp, kp, out0 + ok * D,
-            out1 + ok * D, Lq, Lk, causal, scale);
+        flash_bwd_dkv_mma_kernel<D>
+            <<<hn * ((Lk + K5K - 1) / K5K), kK5Threads, smem, stream>>>(
+                mq, mhi, mlo, mv, ck, cm2, cdl2, croute, qp, tmax, kp,
+                out0 + ok * D, out1 + ok * D, hn, Lq, Lk, causal, scale);
       } else {
         constexpr size_t smem = bwd_smem_bytes<D>(4, 2);
         if ((e = set_smem(flash_bwd_dkv_f32_kernel<D>, smem))) return e;
@@ -1911,13 +2296,14 @@ template <typename T>
 int dispatch_bwd(int which, int D, const void* q, const void* k,
                  const void* v, const float* m2, const float* dl2,
                  const float* do2, const float* route, const int* qp,
-                 const int* kp, float* o0, float* o1, int H, int Lq, int Lk,
+                 const int* kp, const void* dhi, const void* dlo,
+                 const int* tmax, float* o0, float* o1, int H, int Lq, int Lk,
                  int causal, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_bwd<T, 16>(which, q, k, v, m2, dl2, do2, route, qp, kp, o0, o1, H, Lq, Lk, causal, scale, s);
-    case 32: return launch_bwd<T, 32>(which, q, k, v, m2, dl2, do2, route, qp, kp, o0, o1, H, Lq, Lk, causal, scale, s);
-    case 64: return launch_bwd<T, 64>(which, q, k, v, m2, dl2, do2, route, qp, kp, o0, o1, H, Lq, Lk, causal, scale, s);
-    case 128: return launch_bwd<T, 128>(which, q, k, v, m2, dl2, do2, route, qp, kp, o0, o1, H, Lq, Lk, causal, scale, s);
+    case 16: return launch_bwd<T, 16>(which, q, k, v, m2, dl2, do2, route, qp, kp, dhi, dlo, tmax, o0, o1, H, Lq, Lk, causal, scale, s);
+    case 32: return launch_bwd<T, 32>(which, q, k, v, m2, dl2, do2, route, qp, kp, dhi, dlo, tmax, o0, o1, H, Lq, Lk, causal, scale, s);
+    case 64: return launch_bwd<T, 64>(which, q, k, v, m2, dl2, do2, route, qp, kp, dhi, dlo, tmax, o0, o1, H, Lq, Lk, causal, scale, s);
+    case 128: return launch_bwd<T, 128>(which, q, k, v, m2, dl2, do2, route, qp, kp, dhi, dlo, tmax, o0, o1, H, Lq, Lk, causal, scale, s);
   }
   return -1;
 }
@@ -1925,8 +2311,9 @@ int dispatch_bwd(int which, int D, const void* q, const void* k,
 int bwd_entry(int which, int dtype, const void* q, const void* k,
               const void* v, const void* m2, const void* dl2, const void* do2,
               const void* route, const void* q_pos, const void* k_pos,
-              void* out0, void* out1, int H, int Lq, int Lk, int D,
-              int causal, float scale, void* stream) {
+              const void* dhi, const void* dlo, const void* tmax, void* out0,
+              void* out1, int H, int Lq, int Lk, int D, int causal,
+              float scale, void* stream) {
   if (H <= 0 || Lq <= 0) return 0;
   auto args = [&](auto tag) {
     using T = decltype(tag);
@@ -1934,7 +2321,8 @@ int bwd_entry(int which, int dtype, const void* q, const void* k,
         which, D, q, k, v, static_cast<const float*>(m2),
         static_cast<const float*>(dl2), static_cast<const float*>(do2),
         static_cast<const float*>(route), static_cast<const int*>(q_pos),
-        static_cast<const int*>(k_pos), static_cast<float*>(out0),
+        static_cast<const int*>(k_pos), dhi, dlo,
+        static_cast<const int*>(tmax), static_cast<float*>(out0),
         static_cast<float*>(out1), H, Lq, Lk, causal, scale,
         static_cast<cudaStream_t>(stream));
   };
@@ -1988,8 +2376,8 @@ extern "C" int rlo_flash_rowstats(int dtype, const void* q, const void* k,
                                   int Lk, int D, int causal, float scale,
                                   void* stream) {
   return bwd_entry(3, dtype, q, k, nullptr, m2, nullptr, nullptr, nullptr,
-                   q_pos, k_pos, cnt, nullptr, H, Lq, Lk, D, causal, scale,
-                   stream);
+                   q_pos, k_pos, nullptr, nullptr, nullptr, cnt, nullptr, H,
+                   Lq, Lk, D, causal, scale, stream);
 }
 
 extern "C" int rlo_flash_bwd_dq(int dtype, const void* q, const void* k,
@@ -1999,17 +2387,39 @@ extern "C" int rlo_flash_bwd_dq(int dtype, const void* q, const void* k,
                                 const void* k_pos, void* dq, int H, int Lq,
                                 int Lk, int D, int causal, float scale,
                                 void* stream) {
-  return bwd_entry(4, dtype, q, k, v, m2, dl2, do2, route, q_pos, k_pos, dq,
-                   nullptr, H, Lq, Lk, D, causal, scale, stream);
+  return bwd_entry(4, dtype, q, k, v, m2, dl2, do2, route, q_pos, k_pos,
+                   nullptr, nullptr, nullptr, dq, nullptr, H, Lq, Lk, D,
+                   causal, scale, stream);
 }
 
+// K5. f32 operands read do2; bf16 operands read do' as K5's prepass
+// (rlo_flash_dkv_prep) made it instead, do_hi and do_lo (H, Lq, D) bf16,
+// 16-byte aligned, and its tile maxima of q_pos (tile_max), and ignore
+// do2. Unused pointers may be null.
 extern "C" int rlo_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                  const void* v, const void* m2,
                                  const void* dl2, const void* do2,
                                  const void* route, const void* q_pos,
-                                 const void* k_pos, void* dk, void* dv, int H,
-                                 int Lq, int Lk, int D, int causal,
-                                 float scale, void* stream) {
-  return bwd_entry(5, dtype, q, k, v, m2, dl2, do2, route, q_pos, k_pos, dk,
-                   dv, H, Lq, Lk, D, causal, scale, stream);
+                                 const void* k_pos, const void* do_hi,
+                                 const void* do_lo, const void* tile_max,
+                                 void* dk, void* dv, int H, int Lq, int Lk,
+                                 int D, int causal, float scale,
+                                 void* stream) {
+  return bwd_entry(5, dtype, q, k, v, m2, dl2, do2, route, q_pos, k_pos,
+                   do_hi, do_lo, tile_max, dk, dv, H, Lq, Lk, D, causal,
+                   scale, stream);
+}
+
+// K5's prepass (bf16 route): do2 (H, Lq, D) f32, 16-byte aligned, split
+// into do_hi = bf16(do2) and do_lo = bf16(do2 - do_hi), (H, Lq, D) bf16;
+// tile_max (ceil(Lq / 64)) int32 the largest q_pos of each 64-row tile.
+extern "C" int rlo_flash_dkv_prep(const void* do2, const void* q_pos,
+                                  void* do_hi, void* do_lo, void* tile_max,
+                                  int H, int Lq, int D, void* stream) {
+  if (H <= 0 || Lq <= 0) return 0;
+  return launch_dkv_prep(static_cast<const float*>(do2),
+                         static_cast<const int*>(q_pos),
+                         static_cast<bf16*>(do_hi), static_cast<bf16*>(do_lo),
+                         static_cast<int*>(tile_max), H, Lq, D,
+                         static_cast<cudaStream_t>(stream));
 }

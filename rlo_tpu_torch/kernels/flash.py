@@ -49,6 +49,9 @@ BWD_MODES = ("pallas", "pallas_fast", "xla")
 #: launch a chunk of them
 MAX_GRID_YZ = 65535
 
+#: query rows of a K5 tile: its prepass keeps one largest position a tile
+K5_TILE_ROWS = 64
+
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fns: dict = {}
@@ -310,8 +313,10 @@ _BWD_ARGTYPES = {
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
     "rlo_flash_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    "rlo_flash_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 11
+    "rlo_flash_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 14
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    "rlo_flash_dkv_prep": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
 }
 
 
@@ -326,11 +331,12 @@ def _bwd_kernel(symbol: str):
     return f
 
 
-def _launch_bwd(wrapper, symbol: str, label: str, ops: dict, outs,
+def _launch_bwd(wrapper, symbol: str, label: str, ops: dict, ptrs,
                 causal: bool, scale: float) -> None:
-    """Launch one backward kernel on q's stream and count it; raises on
-    a refused launch. Empty shapes launch nothing (the caller's outputs
-    are zeros then)."""
+    """Launch one backward kernel on q's stream and count it; ``ptrs``
+    are the addresses after the operands' (outputs, and K5's prepass
+    results before them). Raises on a refused launch. Empty shapes
+    launch nothing (the caller's outputs are zeros then)."""
     q, k = ops["q"], ops["k"]
     h, lq, d = q.shape
     lk = k.shape[1]
@@ -340,8 +346,7 @@ def _launch_bwd(wrapper, symbol: str, label: str, ops: dict, outs,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_kernel(symbol)(
             _DT_CODE[q.dtype], *[t.data_ptr() for t in ops.values()],
-            *[t.data_ptr() for t in outs], h, lq, lk, d, int(bool(causal)),
-            float(scale), stream)
+            *ptrs, h, lq, lk, d, int(bool(causal)), float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"{label} launch failed: CUDA error {rc} (H={h}, "
                            f"Lq={lq}, Lk={lk}, D={d}, {q.dtype})")
@@ -372,8 +377,8 @@ def rowstats(q, k, m2, q_pos, k_pos, *, causal: bool = False,
     ops = _launch_operands("K3", dict(q=q, k=k, m2=m2, q_pos=q_pos,
                                       k_pos=k_pos), q.shape[2])
     cnt = _grad_out(ops["m2"].shape, ops)
-    _launch_bwd(rowstats, "rlo_flash_rowstats", "K3 rowstats", ops, (cnt,),
-                causal, scale)
+    _launch_bwd(rowstats, "rlo_flash_rowstats", "K3 rowstats", ops,
+                (cnt.data_ptr(),), causal, scale)
     return cnt
 
 
@@ -390,15 +395,67 @@ def bwd_dq(q, k, v, m2, dl2, do2, route, q_pos, k_pos, *,
                                       do2=do2, route=route, q_pos=q_pos,
                                       k_pos=k_pos), q.shape[2])
     dq = _grad_out(q.shape, ops)
-    _launch_bwd(bwd_dq, "rlo_flash_bwd_dq", "K4 bwd_dq", ops, (dq,), causal,
-                scale)
+    _launch_bwd(bwd_dq, "rlo_flash_bwd_dq", "K4 bwd_dq", ops,
+                (dq.data_ptr(),), causal, scale)
     return dq
+
+
+def bwd_dkv_prep_plain(do2, q_pos):
+    """Plain version of K5's prepass: do' (H, Lq, D) f32 split exactly
+    as ``split_bf16`` does, hi = bf16(do'), lo = bf16(do' - hi), bf16
+    (H, Lq, D) each, and the largest position of every 64-row query
+    tile, int32 (ceil(Lq / 64),)."""
+    hi = do2.to(torch.bfloat16)
+    lo = (do2 - hi.float()).to(torch.bfloat16)
+    lq = q_pos.shape[-1]
+    nt = -(-lq // K5_TILE_ROWS)
+    pad = torch.full((nt * K5_TILE_ROWS - lq,), torch.iinfo(torch.int32).min,
+                     dtype=torch.int32, device=q_pos.device)
+    rows = torch.cat([q_pos.reshape(-1).to(torch.int32), pad])
+    return hi, lo, rows.reshape(nt, K5_TILE_ROWS).amax(dim=1)
+
+
+def bwd_dkv_prep(do2, q_pos):
+    """K5's prepass (``flash_bwd_dkv_prep_kernel``): the (do'_hi, do'_lo,
+    tile maxima) of ``bwd_dkv_prep_plain``, once a call, for the bf16
+    K5's live-tile walk and its bf16 do' tiles. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if not _on_device("bwd_dkv_prep", do2):
+        return bwd_dkv_prep_plain(do2, q_pos)
+    h, lq, d = do2.shape
+    if do2.dtype != torch.float32 or q_pos.dtype != torch.int32 or \
+            tuple(q_pos.shape) != (1, lq) or d not in _HEAD_DIMS:
+        raise ValueError(f"bwd_dkv_prep takes do' (H, Lq, D) f32 with D in "
+                         f"{_HEAD_DIMS} and q_pos (1, Lq) int32; got "
+                         f"{do2.dtype} {tuple(do2.shape)}, {q_pos.dtype} "
+                         f"{tuple(q_pos.shape)}")
+    if not do2.is_contiguous() or do2.data_ptr() % 16:
+        do2 = do2.clone(memory_format=torch.contiguous_format)
+    q_pos = q_pos.contiguous()
+    hi = torch.empty(do2.shape, dtype=torch.bfloat16, device=do2.device)
+    lo = torch.empty_like(hi)
+    tmax = torch.empty(-(-lq // K5_TILE_ROWS), dtype=torch.int32,
+                       device=do2.device)
+    if h == 0 or lq == 0:
+        return hi, lo, tmax
+    with torch.cuda.device(do2.device):
+        stream = torch.cuda.current_stream(do2.device).cuda_stream
+        rc = _bwd_kernel("rlo_flash_dkv_prep")(
+            do2.data_ptr(), q_pos.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            tmax.data_ptr(), h, lq, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 prepass launch failed: CUDA error {rc} "
+                           f"(H={h}, Lq={lq}, D={d})")
+    with _count_lock:
+        bwd_dkv_prep.launches += 1
+    return hi, lo, tmax
 
 
 def bwd_dkv(q, k, v, m2, dl2, do2, route, q_pos, k_pos, *,
             causal: bool = False, scale: float = 1.0):
     """K5: (dk, dv) of ``bwd_dkv_plain``, f32 (H, Lk, D) each. CPU
-    tensors take the plain version; CUDA tensors launch K5 or raise."""
+    tensors take the plain version; CUDA tensors launch K5 (bf16 after
+    its prepass, ``bwd_dkv_prep``) or raise."""
     if not _on_device("bwd_dkv", q):
         return bwd_dkv_plain(q, k, v, m2, dl2, do2, route, q_pos, k_pos,
                              causal=causal, scale=scale)
@@ -408,8 +465,13 @@ def bwd_dkv(q, k, v, m2, dl2, do2, route, q_pos, k_pos, *,
                                       do2=do2, route=route, q_pos=q_pos,
                                       k_pos=k_pos), q.shape[2])
     dk, dv = _grad_out(k.shape, ops), _grad_out(k.shape, ops)
-    _launch_bwd(bwd_dkv, "rlo_flash_bwd_dkv", "K5 bwd_dkv", ops, (dk, dv),
-                causal, scale)
+    # bf16: do'_hi, do'_lo and the tile maxima, held until K5 is launched
+    prep = bwd_dkv_prep(ops["do2"], ops["q_pos"]) \
+        if q.dtype == torch.bfloat16 and q.shape[0] and q.shape[1] and \
+        k.shape[1] else None
+    ptrs = (None,) * 3 if prep is None else tuple(t.data_ptr() for t in prep)
+    _launch_bwd(bwd_dkv, "rlo_flash_bwd_dkv", "K5 bwd_dkv", ops,
+                (*ptrs, dk.data_ptr(), dv.data_ptr()), causal, scale)
     return dk, dv
 
 
@@ -417,6 +479,7 @@ def bwd_dkv(q, k, v, m2, dl2, do2, route, q_pos, k_pos, *,
 rowstats.launches = 0
 bwd_dq.launches = 0
 bwd_dkv.launches = 0
+bwd_dkv_prep.launches = 0
 
 
 def flash_backward(q, k, v, m, l, o, q_pos, k_pos, m2, l2, o2, dm2, dl2,

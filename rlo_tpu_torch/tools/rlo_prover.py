@@ -1735,6 +1735,9 @@ def _p3_probes() -> List[Probe]:
                                 (16, 70001, 16, 16),
                                 (32, 1, 1 << 24, 1 << 24))]
     bwd = [dict(fwd_b, which=w) for fwd_b in fwd for w in (3, 4, 5)]
+    # K5's prepass (bf16), at the same shapes
+    prep = [dict(D=b["D"], H=b["H"], Lq=b["Lq"]) for b in fwd
+            if b["T"] == BF16]
     k6 = [
         # flagship decode T=1, dense bf16 / int8 (32 x 16 x 64 x 1088)
         _k6(BF16, 64, 1, b=32, nkv=16, L=1088),
@@ -1787,6 +1790,7 @@ def _p3_probes() -> List[Probe]:
         Probe(REDUCE_CU, "launch", k1),
         Probe(FLASH_CU, "launch", fwd),
         Probe(FLASH_CU, "launch_bwd", bwd),
+        Probe(FLASH_CU, "launch_dkv_prep", prep),
         Probe(DECODE_CU, "launch", k6),
         Probe(DECODE_CU, "launch_row_write", rows),
         Probe(DECODE_CU, "launch_block_write", blocks),

@@ -167,3 +167,39 @@ def test_split_route_matches_pallas_bwd(monkeypatch, d, causal, exact,
     for name, g, w, u in zip(NAMES6, got, want, units):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * u,
                                    err_msg=f"{name}: {report}")
+
+
+@pytest.mark.parametrize("h,groups,lq,d,shuffled", [
+    (1, 1, 64, 16, False), (2, 3, 200, 128, False), (3, 1, 37, 32, True),
+    (1, 4, 129, 64, False)])
+def test_dkv_prep_plain_splits_do_once(h, groups, lq, d, shuffled):
+    """K5's prepass, its plain twin: hi is bf16(do') exactly, lo the
+    bf16 of the remainder (this file's split), hi + lo within 2^-16 |do'|
+    in f32; and each 64-row query tile's largest position, over positions
+    that repeat under the GQA fold, arbitrary ones and a ragged last
+    tile. CPU tensors take the twin through the wrapper too."""
+    rng = np.random.default_rng(lq + d)
+    n = groups * lq
+    x = rng.standard_normal((h, n, d)).astype(np.float32) * \
+        (np.float32(10.0) ** rng.integers(-20, 20, (h, n, 1))).astype(
+            np.float32)
+    x[0, 0, :3] = [0.0, -0.0, 1e30]
+    do2 = torch.from_numpy(x)
+    pos = np.tile(np.arange(lq, dtype=np.int32), groups)
+    if shuffled:
+        pos = rng.permutation(pos).astype(np.int32)
+    q_pos = torch.from_numpy(pos).reshape(1, n)
+    hi, lo, tmax = tf.bwd_dkv_prep_plain(do2, q_pos)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert hi.shape == lo.shape == do2.shape
+    assert torch.equal(hi, do2.to(torch.bfloat16))
+    want_hi, want_lo = _split(do2, False)
+    assert torch.equal(hi.float(), want_hi)
+    assert torch.equal(lo.float(), want_lo)
+    err = (hi.float() + lo.float() - do2).abs()
+    assert bool((err <= 2.0 ** -16 * do2.abs()).all())
+    assert tmax.dtype == torch.int32
+    assert tmax.tolist() == [int(pos[t:t + tf.K5_TILE_ROWS].max())
+                             for t in range(0, n, tf.K5_TILE_ROWS)]
+    for got, want in zip(tf.bwd_dkv_prep(do2, q_pos), (hi, lo, tmax)):
+        assert torch.equal(got, want)

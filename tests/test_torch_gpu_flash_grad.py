@@ -92,6 +92,63 @@ def test_backward_kernels_match_plain_on_card(cuda, h, lq, lk, d, dtype):
         torch.testing.assert_close(dv, pv, rtol=1e-4, atol=1e-4)
 
 
+#: K5's shapes: (folded heads, GQA groups, rows a group, Lk, D, causal).
+#: Under the fold positions repeat a group, so a 128-key block's causal
+#: span holds dead query tiles; Lk off 128 and Lq off 64 leave ragged
+#: blocks and tiles; every head_dim the kernel takes.
+K5_CASES = {
+    "gqa-fold-causal": (2, 3, 200, 200, 128, True),
+    "gqa-fold-d64": (3, 4, 150, 150, 64, True),
+    "ragged-d16": (3, 1, 100, 130, 16, True),
+    "ragged-d32": (3, 1, 100, 130, 32, True),
+    "ragged-d64": (3, 1, 100, 130, 64, True),
+    "ragged-d128": (3, 1, 100, 130, 128, True),
+    "keys-past-queries": (2, 1, 70, 300, 128, True),
+    "non-causal": (2, 1, 150, 200, 128, False),
+    "non-causal-fold": (2, 3, 70, 90, 32, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_matches_plain_on_card(cuda, case):
+    """bf16 K5 against ``bwd_dkv_plain`` within rtol 1e-4 and atol 1e-4
+    per unit of the largest |value| (phase 7's rule: f32 sums of up to
+    600 split-precision products in another order), each side on its own
+    forward's m' and with a nonzero route (exact mode: every row ties its
+    m' from the initial state, so the routed term lands); one K5 launch
+    and one prepass launch a call, and the prepass equals its plain twin
+    bit for bit."""
+    h, groups, lq, lk, d, causal = K5_CASES[case]
+    n = groups * lq
+    q, k, v, _, _, _, qp, kp = from_numpy(
+        make_hld(7 * lq + d, h, n, lk, d), cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    qp = torch.arange(lq, dtype=torch.int32, device=cuda).repeat(
+        groups).reshape(1, n) + max(0, lk - lq)
+    m = torch.full((h, 1, n), tf.NEG, device=cuda)
+    state = (m, torch.zeros_like(m), torch.zeros(h, n, d, device=cuda))
+    kw = dict(causal=causal, scale=0.125)
+    m2 = tf.flash_block_update_hld(q, k, v, *state, qp, kp, **kw)[0]
+    m2p = tf.flash_block_update_hld_plain(q, k, v, *state, qp, kp, **kw)[0]
+    gen = torch.Generator(device=cuda).manual_seed(n + lk + d)
+    dl2 = torch.randn(h, 1, n, generator=gen, device=cuda)
+    do2 = torch.randn(h, n, d, generator=gen, device=cuda)
+    route = torch.randn(h, 1, n, generator=gen, device=cuda)
+    before = (tf.bwd_dkv.launches, tf.bwd_dkv_prep.launches)
+    dk, dv = tf.bwd_dkv(q, k, v, m2, dl2, do2, route, qp, kp, **kw)
+    prep = tf.bwd_dkv_prep(do2, qp)
+    torch.cuda.synchronize()
+    assert (tf.bwd_dkv.launches, tf.bwd_dkv_prep.launches) == (
+        before[0] + 1, before[1] + 2)
+    for got, want in zip(prep, tf.bwd_dkv_prep_plain(do2, qp)):
+        assert torch.equal(got, want)
+    pk, pv = tf.bwd_dkv_plain(q, k, v, m2p, dl2, do2, route, qp, kp, **kw)
+    for got, want in ((dk, pk), (dv, pv)):
+        unit = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * unit)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("h,hk,lq,lk", [(4, 4, 33, 7), (4, 2, 129, 77),

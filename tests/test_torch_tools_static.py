@@ -81,8 +81,8 @@ PORT_ONLY = [
      [(f"{_K}/csrc/flash.cu", "constexpr int kMmaThreads = 128;",
        "constexpr int kMmaThreads = 100;")], "100 threads a block"),
     ("p3_threads_over_1024", "P3",
-     [(f"{_K}/csrc/flash.cu", "constexpr int kDkvThreads = 256;",
-       "constexpr int kDkvThreads = 2048;")], "2048 threads a block"),
+     [(f"{_K}/csrc/flash.cu", "constexpr int kK5Threads = 384;",
+       "constexpr int kK5Threads = 2048;")], "2048 threads a block"),
     ("p3_smem_ceiling", "P3",
      [(f"{_K}/csrc/flash.cu",
        "  return sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8);",
@@ -238,12 +238,13 @@ def test_p4_mesh_builder_may_use_its_own_names(trees):
 
 
 def test_p3_grounds_every_launch_site():
-    """The 13 launches of K1-K11 are each grounded by some probe, and
-    a main-path binding evaluates to the geometry the card runs."""
+    """The 14 launches of K1-K11 and K5's prepass are each grounded by
+    some probe, and a main-path binding evaluates to the geometry the
+    card runs."""
     from rlo_tpu_torch.tools import rlo_prover as p
     ctx = p.build_context(REPO_ROOT)
     sites = {rel: ctx.cuda(rel).launch_sites() for rel in p.KERNEL_SOURCES}
-    assert [len(sites[r]) for r in p.KERNEL_SOURCES] == [2, 8, 3]
+    assert [len(sites[r]) for r in p.KERNEL_SOURCES] == [2, 9, 3]
     cu = ctx.cuda(p.FLASH_CU)
     site = next(s for s in sites[p.FLASH_CU]
                 if s.kernel == "flash_fwd_mma_kernel<D>")
